@@ -1,0 +1,162 @@
+"""Shared network components (port of ``fcl_taco2_tpu/models/components.py``).
+
+Parameters live in ``nn.Module``s in PyTorch's layouts; the ``*_apply``
+functions keep the JAX names and take the module where JAX took a param
+pytree.  Inference only: BatchNorm runs on its running statistics and no
+dropout is drawn except the prenet's, which stays on at inference
+(reference ``decoder_sa.py:109-112``).
+"""
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from fcl_taco2_tpu_torch.ops.conv import batch_norm, conv1d, layer_norm
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm parameters (``weight``/``bias``) and running statistics
+    (``running_mean``/``running_var``); applied by ``ops.conv.batch_norm``."""
+
+    def __init__(self, channels, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels, device=device))
+        self.bias = nn.Parameter(torch.zeros(channels, device=device))
+        self.register_buffer("running_mean",
+                             torch.zeros(channels, device=device))
+        self.register_buffer("running_var",
+                             torch.ones(channels, device=device))
+
+    def forward(self, x):
+        return batch_norm(x, self.weight, self.bias, self.running_mean,
+                          self.running_var)
+
+
+# --------------------------------------------------------------------------
+# Prenet
+# --------------------------------------------------------------------------
+
+class Prenet(nn.Module):
+    def __init__(self, idim, n_layers, n_units, device=None):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            nn.Linear(idim if i == 0 else n_units, n_units, device=device)
+            for i in range(n_layers))
+
+
+def prenet_dropout(x, rate, generator):
+    """Inverted dropout drawn from ``generator`` (torch ``F.dropout``
+    parity: keep with probability 1-rate, scale kept values by
+    1/(1-rate)); the plain versions' prenet dropout."""
+    if rate <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+        < (1.0 - rate)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def prenet_apply(prenet, x, generator, dropout_rate):
+    """Prenet with ALWAYS-ON dropout (``components.py:67-74``)."""
+    for layer in prenet.layers:
+        x = prenet_dropout(F.relu(layer(x)), dropout_rate, generator)
+    return x
+
+
+# --------------------------------------------------------------------------
+# Conv-BN stacks (encoder convs + postnet)
+# --------------------------------------------------------------------------
+
+class ConvBNStack(nn.Module):
+    """n_layers of conv(width) -> [BN]; with ``last_is_out`` the last layer
+    maps to ``out_ch`` (postnet shape)."""
+
+    def __init__(self, n_layers, in_ch, hidden_ch, out_ch, width,
+                 last_is_out=False, use_bn=True, device=None):
+        super().__init__()
+        chans = []
+        for i in range(n_layers):
+            ichans = in_ch if i == 0 else hidden_ch
+            ochans = out_ch if (last_is_out and i == n_layers - 1) \
+                else hidden_ch
+            chans.append((ichans, ochans))
+        self.convs = nn.ModuleList(
+            nn.Conv1d(i, o, width, bias=False, device=device)
+            for i, o in chans)
+        self.bns = nn.ModuleList(
+            BatchNorm(o, device=device) for _, o in chans) if use_bn \
+            else nn.ModuleList()
+
+
+def encoder_convs_apply(stack, x, use_residual=False):
+    """conv -> BN -> ReLU stack, eval mode (``components.py:111-130``)."""
+    for i, conv in enumerate(stack.convs):
+        h = conv1d(x, conv.weight)
+        if len(stack.bns):
+            h = stack.bns[i](h)
+        h = F.relu(h)
+        x = (x + h) if use_residual else h
+    return x
+
+
+def postnet_apply(stack, x, seq_mask=None):
+    """conv -> BN -> tanh x(n-1), final conv -> BN, eval mode
+    (``components.py:133-160``).  Returns the residual correction.
+    ``seq_mask`` (B, T) zeroes activations past each utterance's length
+    between layers."""
+    n = len(stack.convs)
+    for i, conv in enumerate(stack.convs):
+        x = conv1d(x, conv.weight)
+        if len(stack.bns):
+            x = stack.bns[i](x)
+        if i < n - 1:
+            x = torch.tanh(x)
+        if seq_mask is not None:
+            x = x * seq_mask[..., None].to(x.dtype)
+    return x
+
+
+# --------------------------------------------------------------------------
+# Variance / duration predictors
+# --------------------------------------------------------------------------
+
+class VariancePredictor(nn.Module):
+    def __init__(self, idim, n_layers, n_chans, kernel_size, output_dim=1,
+                 device=None):
+        super().__init__()
+        self.convs = nn.ModuleList(
+            nn.Conv1d(idim if i == 0 else n_chans, n_chans, kernel_size,
+                      device=device)
+            for i in range(n_layers))
+        self.lns = nn.ModuleList(
+            nn.LayerNorm(n_chans, eps=1e-12, device=device)
+            for _ in range(n_layers))
+        self.linear = nn.Linear(n_chans, output_dim, device=device)
+
+
+def variance_predictor_apply(vp, x, pad_mask):
+    """(B, T, idim) -> (B, T, output_dim); padded positions zeroed
+    (``components.py:186-198``, eval mode)."""
+    for conv, ln in zip(vp.convs, vp.lns):
+        x = F.relu(conv1d(x, conv.weight, conv.bias))
+        x = layer_norm(x, ln.weight, ln.bias)
+    x = vp.linear(x)
+    if pad_mask is not None:
+        x = x.masked_fill(pad_mask[..., None], 0.0)
+    return x
+
+
+def duration_predictor_inference(vp, x, pad_mask, offset=1.0):
+    """espnet DurationPredictor.inference: round(exp(logd) - offset),
+    clamp min 0, int (``components.py:211-218``)."""
+    logd = variance_predictor_apply(vp, x, None)[..., 0]
+    d = torch.clamp(torch.round(torch.exp(logd) - offset), min=0)
+    d = d.to(torch.int32)
+    if pad_mask is not None:
+        d = d.masked_fill(pad_mask, 0)
+    return d
+
+
+def scalar_embed_apply(conv, x):
+    """(B, T, 1) scalar track -> (B, T, out_dim) (``components.py:252-255``;
+    ``conv`` is an ``nn.Conv1d(1, out_dim, k)``)."""
+    return conv1d(x, conv.weight, conv.bias)

@@ -1,0 +1,41 @@
+"""Tacotron2-SA encoder: embedding -> N x(conv[-BN]-ReLU) -> BiLSTM
+(port of ``fcl_taco2_tpu/models/encoder.py``, inference only)."""
+
+import torch.nn as nn
+
+from fcl_taco2_tpu_torch.models import components as C
+from fcl_taco2_tpu_torch.ops.rnn import bilstm_stack
+
+
+class Encoder(nn.Module):
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        self.embed = nn.Embedding(cfg.idim, cfg.embed_dim, padding_idx=0,
+                                  device=device)
+        self.convs = None
+        if cfg.econv_layers > 0:
+            self.convs = C.ConvBNStack(
+                cfg.econv_layers, cfg.embed_dim, cfg.econv_chans,
+                cfg.econv_chans, cfg.econv_filts, use_bn=cfg.use_batch_norm,
+                device=device)
+        # layer l: {"fwd", "bwd"} cells, eunits // 2 each direction
+        self.blstm = nn.ModuleList()
+        lstm_in = cfg.econv_chans if cfg.econv_layers > 0 else cfg.embed_dim
+        for layer in range(cfg.elayers):
+            d_in = lstm_in if layer == 0 else cfg.eunits
+            self.blstm.append(nn.ModuleDict({
+                d: nn.LSTMCell(d_in, cfg.eunits // 2, device=device)
+                for d in ("fwd", "bwd")}))
+
+
+def encoder_apply(encoder, cfg, tokens, ilens):
+    """tokens (B, Tmax) int -> hs (B, Tmax, cfg.enc_odim)
+    (``encoder.py:63-88``, eval mode)."""
+    x = encoder.embed.weight[tokens]  # PAD row is zeros
+    if encoder.convs is not None:
+        x = C.encoder_convs_apply(encoder.convs, x,
+                                  use_residual=cfg.use_residual)
+    if len(encoder.blstm):
+        x = bilstm_stack([(lay["fwd"], lay["bwd"]) for lay in encoder.blstm],
+                         x, ilens)
+    return x

@@ -1,0 +1,340 @@
+"""FCL-taco2 model assembly, inference half (port of
+``fcl_taco2_tpu/models/taco2_sa.py:321-669``).
+
+``Tacotron2SA`` holds the parameters as ``nn.Module``s on one device.
+``synthesize`` keeps the JAX package's device-side plan: durations become
+the segment plan with cumsums and gathers, segments are sorted by
+duration for the ragged decode, and frames are scattered back into
+per-utterance timelines; nothing loops over phonemes on the host.
+"""
+
+import copy
+
+import torch
+import torch.nn as nn
+
+from fcl_taco2_tpu_torch.models import components as C
+from fcl_taco2_tpu_torch.models.decoder import (Decoder,
+                                                apply_postnet_inference,
+                                                decoder_inference)
+from fcl_taco2_tpu_torch.models.encoder import Encoder, encoder_apply
+from fcl_taco2_tpu_torch.ops import decoder_cuda as K
+from fcl_taco2_tpu_torch.ops.masking import (lengths_to_non_pad_mask,
+                                             lengths_to_pad_mask)
+from fcl_taco2_tpu_torch.ops.regroup import gather_token_vectors
+from fcl_taco2_tpu_torch.utils.device import resolve_device
+from fcl_taco2_tpu_torch.utils.initializers import init_tacotron2sa_
+
+
+def _concat_spemb(hs, spembs):
+    """L2-normalize the speaker vector and concat per token
+    (``taco2_sa.py:33-42``)."""
+    norm = spembs / torch.clamp(spembs.norm(dim=-1, keepdim=True), min=1e-12)
+    norm = norm.to(hs.dtype)
+    return torch.cat([hs, norm[:, None, :].expand(hs.shape[0], hs.shape[1],
+                                                  norm.shape[-1])], dim=-1)
+
+
+def _cast_floats(model, dtype):
+    """The model with float PARAMETERS in ``dtype`` (``taco2_sa.py:45-53``:
+    the JAX state tree, here the BatchNorm running statistics, stays
+    fp32).  Returns ``model`` itself when nothing needs a cast."""
+    if all(p.dtype == dtype for p in model.parameters()
+           if p.is_floating_point()):
+        return model
+    cast = copy.deepcopy(model)
+    for p in cast.parameters():
+        if p.is_floating_point():
+            p.data = p.data.to(dtype)
+    return cast
+
+
+def _generator(rng, device):
+    """A ``torch.Generator`` from an int seed, or ``rng`` itself."""
+    if isinstance(rng, torch.Generator):
+        return rng
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(rng))
+    return gen
+
+
+class Tacotron2SA(nn.Module):
+    """Encoder + variance adaptor + SA decoder, inference.
+
+    ``device`` defaults to ``"cuda"`` and raises when no card is present;
+    pass ``device="cpu"`` for the plain PyTorch path.  Parameters are drawn
+    from ``seed`` with the JAX package's init distributions; load trained
+    or JAX weights with ``load_state_dict(utils.params.params_from_jax(
+    ...))``.
+    """
+
+    def __init__(self, cfg, device="cuda", seed=0):
+        super().__init__()
+        dev = resolve_device(device)
+        self.cfg = cfg
+        self.encoder = Encoder(cfg, device=dev)
+        self.decoder = Decoder(cfg, device=dev)
+        self.duration_predictor = C.VariancePredictor(
+            cfg.dec_idim, cfg.duration_predictor_layers,
+            cfg.duration_predictor_chans,
+            cfg.duration_predictor_kernel_size, device=dev)
+        if cfg.use_fe_condition:
+            self.pitch_predictor = C.VariancePredictor(
+                cfg.dec_idim, cfg.pitch_predictor_layers,
+                cfg.pitch_predictor_chans, cfg.pitch_predictor_kernel_size,
+                device=dev)
+            self.energy_predictor = C.VariancePredictor(
+                cfg.dec_idim, cfg.energy_predictor_layers,
+                cfg.energy_predictor_chans,
+                cfg.energy_predictor_kernel_size, device=dev)
+            self.pitch_embed = nn.Conv1d(1, cfg.dec_idim,
+                                         cfg.pitch_embed_kernel_size,
+                                         device=dev)
+            self.energy_embed = nn.Conv1d(1, cfg.dec_idim,
+                                          cfg.energy_embed_kernel_size,
+                                          device=dev)
+        init_tacotron2sa_(self, torch.Generator().manual_seed(seed))
+        self.eval()
+
+    @property
+    def device(self):
+        return self.decoder.feat_out.weight.device
+
+    def compute_model(self):
+        """This model with its parameters in ``cfg.compute_dtype``."""
+        return _cast_floats(self, getattr(torch, self.cfg.compute_dtype))
+
+    # ---------------- inference ----------------
+
+    @torch.no_grad()
+    def synth_frontend(self, tokens, ilens, durations=None, f0=None,
+                       energy=None, spembs=None, d_factor: float = 1.0):
+        """Encoder + duration/pitch/energy predictors + fe-conditioning
+        (``taco2_sa.py:321-376``).  Runs in the parameters' dtype (call it
+        on ``compute_model()``).  Returns (hs, d_outs, p_outs, e_outs)."""
+        cfg = self.cfg
+        Tmax = tokens.shape[1]
+        hs = encoder_apply(self.encoder, cfg, tokens, ilens)
+        if cfg.spk_embed_dim:
+            hs = _concat_spemb(hs, spembs)
+        pad_mask = lengths_to_pad_mask(ilens, Tmax)
+
+        if durations is None:
+            d_outs = C.duration_predictor_inference(
+                self.duration_predictor, hs, pad_mask,
+                offset=cfg.duration_predictor_offset)
+        else:
+            d_outs = durations.to(torch.int32)
+        # speaking-rate knob for both sources (exact identity at 1.0)
+        d_outs = torch.round(d_outs.float() * torch.tensor(
+            d_factor, dtype=torch.float32)).to(torch.int32)
+        d_outs = torch.clamp(d_outs, 0, cfg.max_dur).masked_fill(pad_mask, 0)
+
+        p_outs = e_outs = None
+        if cfg.use_fe_condition:
+            if f0 is None:
+                p_outs = C.variance_predictor_apply(self.pitch_predictor, hs,
+                                                    pad_mask)
+                e_outs = C.variance_predictor_apply(self.energy_predictor,
+                                                    hs, pad_mask)
+            else:
+                p_outs, e_outs = f0.to(hs.dtype), energy.to(hs.dtype)
+            hs = (hs + C.scalar_embed_apply(self.pitch_embed, p_outs)
+                  + C.scalar_embed_apply(self.energy_embed, e_outs))
+        return hs, d_outs, p_outs, e_outs
+
+    @torch.no_grad()
+    def synthesize(self, tokens, ilens, rng, frame_budget: int,
+                   durations=None, f0=None, energy=None, spembs=None,
+                   d_factor: float = 1.0, decoder_backend: str = "auto",
+                   ragged_decode: bool = True, quantize: str = "none",
+                   prequant=None):
+        """Batched synthesis on the model's device (``taco2_sa.py:378-494``).
+
+        Args:
+            tokens: (B, Tmax) int (PAD=0); ilens: (B,) lengths.
+            rng: int seed or ``torch.Generator`` for the prenet dropout.
+            frame_budget: per-utterance output frame budget (Lmax).
+            durations/f0/energy: optional (B, Tmax)/(B, Tmax, 1) overrides.
+            d_factor: multiplies the durations (speaking rate).
+            decoder_backend: "auto" | "scan" | "pallas" (resident CUDA
+                entry) | "pallas_hbm" (streaming CUDA entry) | "hybrid".
+            ragged_decode: sort segments by duration and bound every
+                backend by the actual durations.
+            quantize: "none" | "int8" (streaming entry only).
+            prequant: optional int8 codes from
+                ``ops.decoder_cuda.prequantize_hbm_weights``.
+        Returns dict(mel=(B, frame_budget, odim) f32, olens, d_outs,
+        p_outs, e_outs).
+        """
+        m = self.compute_model()
+        cfg = self.cfg
+        dtype = getattr(torch, cfg.compute_dtype)
+        dev = m.device
+        gen = _generator(rng, dev)
+        B, Tmax = tokens.shape
+        D = cfg.max_dur
+        P = B * Tmax  # one segment slot per token
+
+        hs, d_outs, p_outs, e_outs = m.synth_frontend(
+            tokens, ilens, durations=durations, f0=f0, energy=energy,
+            spembs=spembs, d_factor=d_factor)
+
+        # ---- device-side segment plan from durations ----
+        flat_dur = d_outs.reshape(P)
+        slots = torch.arange(P, dtype=torch.int64, device=dev)
+        seg_utt, seg_tok = slots // Tmax, slots % Tmax
+        csum = torch.cumsum(d_outs, dim=1, dtype=torch.int32)
+        seg_start = (csum - d_outs).reshape(P)
+        olens = torch.clamp(csum[:, -1], max=frame_budget)
+        tile_bounds = step_bound = None
+        if ragged_decode:
+            # duration-sorted slot order: every later use of a segment is
+            # index-driven, so permuting the index vectors relabels slots
+            order = torch.argsort(-flat_dur, stable=True)
+            flat_dur, seg_utt = flat_dur[order], seg_utt[order]
+            seg_tok, seg_start = seg_tok[order], seg_start[order]
+            tile_bounds = K.tile_step_bounds(flat_dur)
+            step_bound = flat_dur.max()
+        d_range = torch.arange(D, dtype=torch.int32, device=dev)[None, :]
+        frame_mask = d_range < flat_dur[:, None]
+        position = torch.where(
+            frame_mask,
+            d_range.float() / torch.clamp(flat_dur[:, None], min=1).float(),
+            0.0).to(dtype)
+
+        enc_seg = gather_token_vectors(hs, seg_utt, seg_tok)
+        seg_out = m.decode_segments(enc_seg, flat_dur, position, frame_mask,
+                                    gen, decoder_backend=decoder_backend,
+                                    tile_bounds=tile_bounds,
+                                    step_bound=step_bound, quantize=quantize,
+                                    prequant=prequant)
+
+        # scatter phoneme frames into per-utterance timelines; frames past
+        # the budget or past each phoneme's duration are dropped
+        frame_pos = seg_start[:, None] + d_range
+        keep = frame_mask & (frame_pos < frame_budget)
+        tgt = (seg_utt[:, None] * frame_budget + frame_pos)[keep]
+        before = seg_out.new_zeros(B * frame_budget, cfg.odim)
+        before[tgt] = seg_out[keep]
+        before = before.view(B, frame_budget, cfg.odim)
+
+        seq_mask = lengths_to_non_pad_mask(olens, frame_budget)
+        after = apply_postnet_inference(m.decoder, cfg, before,
+                                        seq_mask=seq_mask)
+        after = after * seq_mask[..., None].to(after.dtype)
+        return {"mel": after.float(), "olens": olens, "d_outs": d_outs,
+                "p_outs": p_outs, "e_outs": e_outs}
+
+    @torch.no_grad()
+    def decode_segments(self, enc_seg, flat_dur, position, frame_mask,
+                        generator, decoder_backend: str = "auto",
+                        tile_bounds=None, step_bound=None,
+                        quantize: str = "none", prequant=None):
+        """AR-decode a batch of phoneme segments -> (P, max_dur, odim)
+        (``taco2_sa.py:496-669``).  Parameters must already be in the
+        compute dtype.
+
+        Policy on the card: ``auto`` takes the resident entry
+        (``fused_ar_decode``, fp32 weights) for configs whose decoder
+        weights stay L2-resident (the student), the streaming entry
+        (``fused_ar_decode_hbm``, bf16 or int8) for the other
+        ``hbm_stream_compatible`` configs (the teacher), at every P, and
+        ``scan`` otherwise.  ``auto`` never picks ``hybrid`` (its measured
+        gain was the TPU's); on CPU tensors ``auto`` is ``scan``, as the
+        JAX package's ``auto`` is off the TPU.
+        """
+        cfg = self.cfg
+        dtype = getattr(torch, cfg.compute_dtype)
+        P, D = frame_mask.shape
+        if quantize not in ("none", "int8"):
+            raise ValueError(f"quantize must be 'none' or 'int8', "
+                             f"got {quantize!r}")
+        pallas_compatible = (cfg.prenet_layers == 2 and cfg.append_position
+                             and cfg.use_concate and cfg.dlayers == 2
+                             and cfg.reduction_factor == 1)
+        if K.fits_l2(cfg, torch.float32):
+            kernel_wdt = torch.float32
+        elif K.fits_l2(cfg, torch.bfloat16):
+            kernel_wdt = torch.bfloat16
+        else:
+            kernel_wdt = None
+        hbm_ok = K.hbm_stream_compatible(cfg) and kernel_wdt is None
+        use_hybrid = False
+        if decoder_backend == "auto":
+            on_cuda = enc_seg.is_cuda
+            use_pallas = on_cuda and pallas_compatible and \
+                kernel_wdt is not None
+            use_hbm = on_cuda and not use_pallas and hbm_ok
+        elif decoder_backend == "pallas_hbm":
+            use_pallas, use_hbm = False, True
+            if not K.hbm_stream_compatible(cfg):
+                raise ValueError(
+                    "decoder_backend='pallas_hbm' requires prenet_layers=2, "
+                    "append_position, use_concate, dlayers=2, "
+                    "reduction_factor=1 and dunits % 256 == 0")
+        elif decoder_backend == "hybrid":
+            use_pallas, use_hbm, use_hybrid = False, False, True
+            if not K.hbm_stream_compatible(cfg):
+                raise ValueError(
+                    "decoder_backend='hybrid' requires the pallas_hbm-"
+                    "compatible topology (prenet_layers=2, "
+                    "append_position, use_concate, dlayers=2, "
+                    "reduction_factor=1, dunits % 256 == 0)")
+            if tile_bounds is None:
+                raise ValueError(
+                    "decoder_backend='hybrid' requires ragged_decode "
+                    "(duration-sorted segments with per-tile bounds)")
+            if P <= K.TILE:
+                use_hybrid, use_hbm = False, True
+        else:
+            use_hbm = False
+            use_pallas = decoder_backend == "pallas"
+            if use_pallas and not pallas_compatible:
+                raise ValueError(
+                    "decoder_backend='pallas' requires prenet_layers=2, "
+                    "append_position, use_concate, dlayers=2 and "
+                    "reduction_factor=1")
+            if use_pallas and kernel_wdt is None:
+                raise ValueError(
+                    "decoder_backend='pallas' but the decoder weights stay "
+                    "L2-resident in neither fp32 nor bf16 (ops/decoder_cuda."
+                    "fits_l2); use decoder_backend='auto', 'pallas_hbm' "
+                    "or 'scan'")
+
+        kernel_path = use_pallas or use_hbm or use_hybrid
+        if kernel_path:
+            dec_params = self.decoder.jax_layout()
+            seed = int(torch.randint(0, 2 ** 31 - 1, (1,),
+                                     generator=generator,
+                                     device=generator.device))
+            kw = dict(zoneout=cfg.zoneout_rate, dropout=cfg.dropout_rate)
+            stream_wdt = torch.int8 if quantize == "int8" else torch.bfloat16
+        fmask = frame_mask[..., None].to(dtype)
+        if use_pallas:
+            seg_out = K.fused_ar_decode(dec_params, enc_seg, position, seed,
+                                        weights_dtype=kernel_wdt,
+                                        bounds=tile_bounds, **kw)
+            return seg_out.to(dtype) * fmask
+        if use_hbm:
+            seg_out = K.fused_ar_decode_hbm(
+                dec_params, enc_seg, position, seed, weights_dtype=stream_wdt,
+                bounds=tile_bounds, prequant=prequant, **kw)
+            return seg_out.to(dtype) * fmask
+        if use_hybrid:
+            # head tile (the long-duration tail after the descending sort)
+            # on the streaming kernel, the rest on one scan at the
+            # residual bound
+            T = K.TILE
+            head = K.fused_ar_decode_hbm(
+                dec_params, enc_seg[:T], position[:T], seed,
+                weights_dtype=stream_wdt, bounds=tile_bounds[:1],
+                prequant=prequant, **kw)
+            head = head.to(dtype) * fmask[:T]
+            rest = decoder_inference(
+                self.decoder, cfg, enc_seg[T:], flat_dur[T:], position[T:],
+                frame_mask[T:], generator, step_bound=tile_bounds[1:].max())
+            return torch.cat([head, rest.to(dtype)], dim=0)
+        return decoder_inference(self.decoder, cfg, enc_seg, flat_dur,
+                                 position, frame_mask, generator,
+                                 step_bound=step_bound)

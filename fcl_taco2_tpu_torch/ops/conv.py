@@ -1,0 +1,35 @@
+"""1-D convolution, eval-mode batch norm and layer norm (port of
+``fcl_taco2_tpu/ops/conv.py``).
+
+Public functions take channels-last ``(B, T, C)`` like the JAX package;
+weights are in PyTorch's own layout (``nn.Conv1d``: ``(Cout, Cin, W)``).
+"""
+
+import torch
+import torch.nn.functional as F
+
+
+def conv1d(x, weight, bias=None):
+    """Same-padded 1-D conv.  x: (B, T, Cin); weight: (Cout, Cin, W)."""
+    pad = (weight.shape[-1] - 1) // 2
+    out = F.conv1d(x.transpose(1, 2), weight, bias, padding=pad)
+    return out.transpose(1, 2)
+
+
+def batch_norm(x, weight, bias, running_mean, running_var, eps=1e-5):
+    """Eval-mode BatchNorm over the channels of (B, T, C) with fp32
+    statistics; the output keeps the input dtype
+    (``fcl_taco2_tpu/ops/conv.py:85-88``)."""
+    x32 = x.float()
+    y = (x32 - running_mean.float()) * torch.rsqrt(running_var.float() + eps)
+    return (y * weight.float() + bias.float()).to(x.dtype)
+
+
+def layer_norm(x, weight, bias, eps=1e-12):
+    """LayerNorm over the last dim, fp32 statistics, output in the input
+    dtype (espnet LayerNorm parity, ``ops/conv.py:91-101``)."""
+    x32 = x.float()
+    mean = x32.mean(-1, keepdim=True)
+    var = (x32 - mean).square().mean(-1, keepdim=True)
+    y = (x32 - mean) * torch.rsqrt(var + eps) * weight.float() + bias.float()
+    return y.to(x.dtype)

@@ -1,0 +1,148 @@
+"""Weight bridge between the JAX package's param/state trees and the port's
+modules.
+
+The JAX trees are nested dicts/lists of numpy arrays in the JAX layout:
+matrices ``(in, out)``, conv kernels ``(W, Cin, Cout)``, LSTM ``wx``/``wh``
+(gates packed i, f, g, o) with both ``bx`` and ``bh``, BatchNorm
+``scale``/``bias`` plus running ``mean``/``var`` in the state tree,
+LayerNorm ``scale``/``bias``.  The port's side is a ``state_dict`` of
+``Tacotron2SA`` in PyTorch layouts (``nn.Linear`` ``(out, in)``,
+``nn.Conv1d`` ``(Cout, Cin, W)``, ``nn.LSTMCell`` ``weight_ih``...).
+Both directions are pure re-layouts, so a round trip is exact.
+"""
+
+import re
+
+import numpy as np
+import torch
+
+# JAX leaf name -> (torch leaf name, layout change)
+_LEAVES = {
+    "kernel": ("weight", "conv"), "w": ("weight", "T"), "b": ("bias", None),
+    "scale": ("weight", None), "bias": ("bias", None),
+    "wx": ("weight_ih", "T"), "wh": ("weight_hh", "T"),
+    "bx": ("bias_ih", None), "bh": ("bias_hh", None),
+    "mean": ("running_mean", None), "var": ("running_var", None),
+}
+_LSTM_LEAVES = {"weight_ih": "wx", "weight_hh": "wh", "bias_ih": "bx",
+                "bias_hh": "bh"}
+
+
+def _relayout(arr, kind):
+    """Both layout changes are their own inverse."""
+    if kind == "T":
+        arr = arr.T
+    elif kind == "conv":
+        arr = arr.transpose(2, 1, 0)
+    return np.array(arr, order="C", copy=True)
+
+
+def _flatten(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _flatten(tree[k], prefix + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _flatten(v, prefix + (i,))
+    else:
+        yield prefix, tree
+
+
+def _torch_key(path):
+    """JAX tree path -> (state_dict key, layout change)."""
+    mods, leaf = [str(p) for p in path[:-1]], path[-1]
+    out, i = [], 0
+    while i < len(mods):
+        m = mods[i]
+        if m in ("blstm_fwd", "blstm_bwd"):
+            out += ["blstm", "0", m[len("blstm_"):]]
+        elif m == "blstm_extra":
+            out += ["blstm", str(int(mods[i + 1]) + 1)]
+            i += 1
+        elif re.fullmatch(r"lstm\d+", m):
+            out += ["lstm", m[len("lstm"):]]
+        else:
+            out.append(m)
+        i += 1
+    if leaf == "embed":
+        return ".".join(out + ["embed", "weight"]), None
+    name, kind = _LEAVES[leaf]
+    return ".".join(out + [name]), kind
+
+
+def _jax_path(key):
+    """state_dict key -> (JAX tree path, layout change, is a state leaf)."""
+    parts = key.split(".")
+    mods, leaf = parts[:-1], parts[-1]
+    out, i = [], 0
+    while i < len(mods):
+        m = mods[i]
+        if m == "blstm":
+            layer, d = int(mods[i + 1]), mods[i + 2]
+            out += [f"blstm_{d}"] if layer == 0 else ["blstm_extra",
+                                                      layer - 1, d]
+            i += 3
+            continue
+        if m == "lstm":
+            out.append(f"lstm{mods[i + 1]}")
+            i += 2
+            continue
+        out.append(int(m) if m.isdigit() else m)
+        i += 1
+    if leaf in _LSTM_LEAVES:
+        name = _LSTM_LEAVES[leaf]
+        return tuple(out + [name]), _LEAVES[name][1], False
+    if leaf in ("running_mean", "running_var"):
+        return tuple(out + [leaf[len("running_"):]]), None, True
+    if mods[-1] == "embed":
+        return tuple(out), None, False
+    in_list = mods[-1].isdigit()
+    container = mods[-2] if in_list else mods[-1]
+    if container in ("bns", "lns"):
+        name = "scale" if leaf == "weight" else "bias"
+    elif (in_list and container == "convs") or container.endswith("_embed"):
+        name = "kernel" if leaf == "weight" else "bias"
+    else:  # linear layers: feat_out, prenet, predictor heads
+        name = "w" if leaf == "weight" else "b"
+    return tuple(out + [name]), _LEAVES[name][1], False
+
+
+def params_from_jax(params_np, state_np):
+    """JAX (params, state) trees of numpy arrays -> a ``state_dict`` for
+    ``models.taco2_sa.Tacotron2SA`` (CPU float tensors)."""
+    sd = {}
+    for tree in (params_np, state_np):
+        for path, arr in _flatten(tree):
+            key, kind = _torch_key(path)
+            sd[key] = torch.from_numpy(_relayout(np.asarray(arr), kind))
+    return sd
+
+
+def _insert(tree, path, value):
+    node = tree
+    for p in path[:-1]:
+        node = node.setdefault(p, {})
+    node[path[-1]] = value
+
+
+def _lists(node):
+    """Dicts keyed 0..n-1 become lists (the JAX trees' layer lists)."""
+    if not isinstance(node, dict):
+        return node
+    node = {k: _lists(v) for k, v in node.items()}
+    if node and all(isinstance(k, int) for k in node):
+        return [node[i] for i in range(len(node))]
+    return node
+
+
+def params_to_numpy(state_dict):
+    """Inverse of ``params_from_jax``: a port ``state_dict`` -> JAX
+    (params, state) trees of numpy arrays."""
+    params, state = {}, {}
+    for key, t in state_dict.items():
+        path, kind, is_state = _jax_path(key)
+        arr = _relayout(t.detach().cpu().float().numpy(), kind)
+        _insert(state if is_state else params, path, arr)
+    for part in ("encoder", "decoder"):  # JAX always carries both
+        state.setdefault(part, {})
+    return _lists(params), _lists(state)
