@@ -6,20 +6,31 @@ Phases, each raising on failure (the script then exits non-zero and
 prints no result):
 
 1. Device: name and power limit (nvidia-smi), TF32 switches off.
-2. Build: ``csrc/ar_decode.cu`` with nvcc for sm_90a, from the checkout.
-3. Kernel vs plain version on the card, full width, dropout 0:
+2. Build: ``csrc/ar_decode.cu`` and ``csrc/pwg_stream.cu`` with nvcc for
+   sm_90a, from the checkout, both compilers started together.
+3. Decoder kernels vs plain versions on the card, full width, dropout 0:
    ``fused_ar_decode`` (student weights; fp32, bf16) and
    ``fused_ar_decode_hbm`` (teacher weights; bf16, int8), P = 96 and
    2048, ragged on and off; max abs error against the stated tolerance,
    median ms of each.
 4. Dropout statistics of the kernel's Philox draws.
-5. Main path: ``Synthesizer.synth_batch`` with the headline benchmark's
-   protocol (bench.py: idim 70, odim 80, 96 phonemes, Poisson(8)
-   durations clipped to [1, 50], seed 0, durations given), seeded
-   full-width weights, bf16 compute: teacher batch 1, teacher batch 16,
-   teacher batch 1 int8, student batch 1.  Launch counters are zeroed
-   just before each case's main-path call and must be non-zero after it.
-6. One JSON line of the kernels, the nvidia-smi line, and last the
+5. PWG kernels vs plain versions at ``PWGConfig()`` (PWG v1): one-shot
+   ``pwg_generate_streaming`` at B=1, Tm=1536 (the text -> wav path's
+   budget) and B=8, Tm=512; ``pwg_stream_step`` chained in Vh=4096
+   chunks over the B=1 utterance, each step against its plain version
+   and the chain against the one-shot kernel.
+6. Main paths, with the headline benchmark's protocol (bench.py: idim 70,
+   odim 80, 96 phonemes, Poisson(8) durations clipped to [1, 50], seed 0,
+   durations given), seeded full-width weights, bf16 compute.  Text ->
+   mel: ``Synthesizer.synth_batch`` for teacher batch 1, teacher batch
+   16, teacher batch 1 int8, student batch 1.  Text -> wav:
+   ``TTSPipeline.tts_batch`` for student batch 1, teacher batch 1,
+   teacher batch 16 (RTF).  Streaming: ``StreamTTS`` for the student
+   (time to first audio, x realtime), and its exactness against
+   synthesize + the one-shot kernel at dropout 0, fp32.  Launch counters
+   are zeroed just before each case's main-path call and must be non-zero
+   after it.
+7. One JSON line of the kernels, the nvidia-smi line, and last the
    result line ``{"ok": true, "device": {...}}``.
 """
 
@@ -28,6 +39,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -44,6 +56,15 @@ TOL_BF16 = 2e-3
 TOL_BF16_WHY = ("activations are rounded to bf16 before each product, so "
                 "a last-bit difference in a sum can flip one rounding "
                 "(2^-8 relative) that the AR feedback carries on")
+TOL_PWG = 1e-4
+TOL_PWG_WHY = ("fp32 products summed in another order than the plain "
+               "version's GEMMs (or cuDNN's convs), through 30 residual "
+               "layers")
+TOL_STREAM = 1e-3
+TOL_STREAM_WHY = ("fp32 model: the chunked decode, the windowed postnet and "
+                  "the windowed upsampler sum in other orders than the "
+                  "whole-utterance calls (cuDNN picks per length)")
+SAMPLE_RATE = 22050
 
 
 def log(*a):
@@ -141,13 +162,18 @@ def phase_device():
 
 
 def phase_build():
+    """Both CUDA sources at once, one nvcc each."""
     from fcl_taco2_tpu_torch.utils.cuda_build import build
     t0 = time.perf_counter()
-    path, compiler_log = build("ar_decode")
-    log(f"[build] {path.name} in {time.perf_counter() - t0:.1f} s")
-    for line in compiler_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+    names = ("ar_decode", "pwg_stream")
+    with ThreadPoolExecutor(len(names)) as pool:
+        built = list(pool.map(build, names))
+    log(f"[build] {', '.join(p.name for p, _ in built)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for _, compiler_log in built:
+        for line in compiler_log.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {line.strip()}")
 
 
 def phase_kernels(models):
@@ -238,16 +264,41 @@ def phase_dropout(models):
         raise RuntimeError(f"dropout output RMS ratio {ratio}")
 
 
-def phase_main_path(models, kind):
-    """The four serving cases; returns (launch counts, frames/s lines)."""
-    from fcl_taco2_tpu_torch.infer import Synthesizer
+def _counters():
     from fcl_taco2_tpu_torch.ops import decoder_cuda as K
+    from fcl_taco2_tpu_torch.vocoder import pwg_cuda as PC
+    return {"fused_ar_decode": K.fused_ar_decode,
+            "fused_ar_decode_hbm": K.fused_ar_decode_hbm,
+            "pwg_generate_streaming": PC.pwg_generate_streaming,
+            "pwg_stream_step": PC.pwg_stream_step}
+
+
+def zero_counts():
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {k: fn.launches for k, fn in _counters().items()}
+
+
+def protocol():
+    """The headline benchmark's utterances: one of 96 phonemes, and a
+    batch of 16 of 48..96 phonemes, with Poisson(8) durations."""
     rng = np.random.default_rng(0)
     dur1 = durations(rng, N_PHONES)
     tok1 = rng.integers(1, IDIM, N_PHONES).astype(np.int32)
     lens16 = np.concatenate([[N_PHONES], rng.integers(48, N_PHONES + 1, 15)])
     toks16 = [rng.integers(1, IDIM, n).astype(np.int32) for n in lens16]
     durs16 = [durations(rng, n) for n in lens16]
+    return tok1, dur1, toks16, durs16
+
+
+def phase_main_path(models, kind):
+    """The four text -> mel serving cases; returns the launch counts."""
+    from fcl_taco2_tpu_torch.infer import Synthesizer
+    from fcl_taco2_tpu_torch.ops import decoder_cuda as K
+    tok1, dur1, toks16, durs16 = protocol()
     cases = (
         ("teacher_b1", "teacher", 1, "none", [tok1], [dur1],
          K.fused_ar_decode_hbm),
@@ -258,14 +309,13 @@ def phase_main_path(models, kind):
         ("student_b1", "student", 1, "none", [tok1], [dur1],
          K.fused_ar_decode),
     )
-    launches = {"fused_ar_decode": 0, "fused_ar_decode_hbm": 0}
+    launches = dict.fromkeys(_counters(), 0)
     for tag, mkey, B, quantize, toks, durs, kernel in cases:
         synth = Synthesizer(models[mkey], batch_size=B, quantize=quantize)
-        K.fused_ar_decode.launches = K.fused_ar_decode_hbm.launches = 0
+        zero_counts()
         mels, stats = synth.synth_batch(toks, 0, durations=durs)
         torch.cuda.synchronize()
-        counts = {"fused_ar_decode": K.fused_ar_decode.launches,
-                  "fused_ar_decode_hbm": K.fused_ar_decode_hbm.launches}
+        counts = read_counts()
         log(f"[main] {tag}: launches {counts}")
         if kernel.launches == 0:
             raise RuntimeError(f"{tag}: the main path did not launch "
@@ -279,7 +329,7 @@ def phase_main_path(models, kind):
             raise RuntimeError(f"{tag}: olens {got_len} != {want_len}")
         if not all(np.isfinite(m).all() for m in mels):
             raise RuntimeError(f"{tag}: non-finite mel")
-        tokens, ilens, dd = _padded(toks, durs, B, synth)
+        tokens, ilens, dd = _padded(toks, durs, B, synth.tok_bucket)
         full = synth.model.synthesize(tokens, ilens, 0, stats["budget"],
                                       durations=dd, quantize=quantize,
                                       prequant=synth.prequant)
@@ -301,6 +351,15 @@ def phase_main_path(models, kind):
     return launches
 
 
+def _timed(fn):
+    """(fn(), its host-clock ms), the device synchronized on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
 def breakdown(synth, tokens, ilens, dd, budget, tag, kind):
     """Host-clock split of one synthesize call, each stage synchronized:
     frontend (synth_frontend: encoder + predictors), decode
@@ -308,18 +367,11 @@ def breakdown(synth, tokens, ilens, dd, budget, tag, kind):
     m = synth.model
     stage_ms = {"synth_frontend": [], "decode_segments": []}
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, 1e3 * (time.perf_counter() - t0)
-
     def wrap(name):
         orig = getattr(m, name)
 
         def timed_stage(*a, **k):
-            out, ms = timed(lambda: orig(*a, **k))
+            out, ms = _timed(lambda: orig(*a, **k))
             stage_ms[name].append(ms)
             return out
         setattr(m, name, timed_stage)
@@ -331,7 +383,7 @@ def breakdown(synth, tokens, ilens, dd, budget, tag, kind):
         for _ in range(4):
             for ms in stage_ms.values():
                 ms.clear()
-            _, total = timed(lambda: m.synthesize(
+            _, total = _timed(lambda: m.synthesize(
                 tokens, ilens, 0, budget, durations=dd,
                 quantize=synth.quantize, prequant=synth.prequant))
             rows.append((total, stage_ms["synth_frontend"][0],
@@ -345,9 +397,262 @@ def breakdown(synth, tokens, ilens, dd, budget, tag, kind):
         f"{total - front - dec:.2f} (host clock, synchronized, median of 3)")
 
 
-def _padded(toks, durs, B, synth):
-    Tmax = -(-max(len(t) for t in toks) // synth.tok_bucket) \
-        * synth.tok_bucket
+def pwg_work(cfg, B, positions, inputs_floats, state=False):
+    """Least bytes and operations of one PWG call producing ``positions``
+    samples a row: the weights once, the inputs (``inputs_floats`` a row),
+    noise and wav, the state in and out for a stream step; 2 x the
+    stack's multiply-adds per sample (fp32)."""
+    from fcl_taco2_tpu_torch.vocoder import pwg_cuda as PC
+    C, G, S, A, L = (cfg.residual_channels, cfg.gate_channels,
+                     cfg.skip_channels, cfg.aux_channels, cfg.layers)
+    macs = L * (3 * C * G + A * G + G // 2 * (S + C)) + S * S + S
+    w = (L * ((3 * C + A) * G + G + G // 2 * (S + C) + S + C)
+         + 2 * C + S * S + 2 * S + 1)
+    nbytes = 4 * (w + B * (inputs_floats + 2 * positions))
+    if state:
+        delay = PC._round8(PC.total_delay(cfg))
+        sum_bw = sum(PC._buf_width(d) for d in cfg.dilations)
+        nbytes += 4 * 2 * B * (delay * (A + S) + sum_bw * C)
+    return nbytes, 2 * macs * B * positions
+
+
+def phase_pwg_kernels():
+    """Both PWG entries against their plain versions at PWG v1."""
+    from fcl_taco2_tpu_torch.vocoder import pwg_cuda as PC
+    from fcl_taco2_tpu_torch.vocoder.pwg import (ParallelWaveGAN, PWGConfig,
+                                                 upsample_mel)
+    cfg = PWGConfig()
+    pwg = ParallelWaveGAN(cfg, seed=0)
+    A, hop = cfg.aux_channels, cfg.hop
+    delay = PC._round8(PC.total_delay(cfg))
+    rows = {}
+    main = None
+    for B, Tm in ((1, 1536), (8, 512)):
+        g = torch.Generator(device="cuda").manual_seed(B)
+        mel = torch.randn(B, Tm, A, generator=g, device="cuda")
+        noise = torch.randn(B, Tm * hop, generator=g, device="cuda")
+
+        def kernel():
+            return PC.pwg_generate_streaming(pwg, cfg, mel, noise)
+
+        def plain():
+            return PC.pwg_generate_streaming_plain(pwg, cfg, mel, noise)
+
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        ms = median_ms(kernel, 5)
+        plain_ms = median_ms(plain, 2, warmup=0)
+        nbytes, ops = pwg_work(cfg, B, Tm * hop, Tm * A)
+        b_ms, b_by = bound_ms(nbytes, ops, torch.float32)
+        rows[(B, Tm)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=b_ms, bound_by=b_by)
+        log(f"[pwg] pwg_generate_streaming B={B} Tm={Tm} (W={Tm * hop}): "
+            f"max_abs_err={err:.3e} (tol {TOL_PWG:g}: {TOL_PWG_WHY}; output "
+            f"scale {float(want.abs().max()):.3f}) kernel {ms:.3f} ms, "
+            f"plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), "
+            f"{B * Tm * hop / ms / 1e3:.2f} Msamples/s")
+        if not np.isfinite(err) or err > TOL_PWG:
+            raise RuntimeError(f"pwg_generate_streaming disagrees with its "
+                               f"plain version: {err}")
+        if main is None:
+            main = (mel, noise, got)
+
+    # stream steps of Vh = 4096 over the B = 1 utterance
+    mel, noise, oneshot = main
+    W = mel.shape[1] * hop
+    Vh = 4096
+    n = -(-(W + delay) // Vh)
+    aux = torch.zeros(1, n * Vh, A, device="cuda")
+    aux[:, :W] = upsample_mel(pwg, cfg, mel)
+    nz = torch.zeros(1, n * Vh, device="cuda")
+    nz[:, :W] = noise
+    packed = PC.pack_pwg_weights(pwg, cfg)
+    st = PC.pwg_stream_state(cfg, 1)
+    st_plain = PC.pwg_stream_state(cfg, 1)
+    outs, errs, mid = [], [], None
+    with torch.no_grad():
+        for j in range(n):
+            args = (aux[:, j * Vh:(j + 1) * Vh], nz[:, j * Vh:(j + 1) * Vh],
+                    j * Vh, W)
+            if j == n // 2:
+                mid = (st, args)
+            wav, st = PC.pwg_stream_step(packed, cfg, st, *args)
+            wp, st_plain = PC.pwg_stream_step_plain(packed, cfg, st_plain,
+                                                    *args)
+            pairs = zip([wav, st["aux_hist"], st["acc"], *st["bufs"]],
+                        [wp, st_plain["aux_hist"], st_plain["acc"],
+                         *st_plain["bufs"]])
+            errs.append(max(float((a - b).abs().max()) for a, b in pairs))
+            outs.append(wav)
+    chain = torch.cat(outs, dim=1)[:, delay:delay + W]
+    chain_err = float((chain - oneshot).abs().max())
+    err = max(errs)
+    st_mid, args = mid
+    ms = median_ms(lambda: PC.pwg_stream_step(packed, cfg, st_mid, *args),
+                   10)
+    plain_ms = median_ms(
+        lambda: PC.pwg_stream_step_plain(packed, cfg, st_mid, *args), 3)
+    nbytes, ops = pwg_work(cfg, 1, Vh, Vh * A, state=True)
+    b_ms, b_by = bound_ms(nbytes, ops, torch.float32)
+    rows["step"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=b_ms, bound_by=b_by)
+    log(f"[pwg] pwg_stream_step Vh={Vh} x {n} steps: max_abs_err vs plain "
+        f"(wav and state, every step) {err:.3e} (tol {TOL_PWG:g}: "
+        f"{TOL_PWG_WHY}); chain vs one-shot kernel {chain_err:.3e} "
+        f"(bit-exact: {torch.equal(chain, oneshot)}; tol {TOL_PWG:g}); "
+        f"kernel {ms:.3f} ms a step, plain {plain_ms:.3f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by})")
+    if not np.isfinite(err) or err > TOL_PWG or chain_err > TOL_PWG:
+        raise RuntimeError(f"pwg_stream_step disagrees: step {err}, chain "
+                           f"{chain_err}")
+    return pwg, rows
+
+
+def phase_tts(models, pwg, kind):
+    """Text -> wav through ``TTSPipeline.tts_batch``; returns launches."""
+    from fcl_taco2_tpu_torch.infer import TTSPipeline
+    from fcl_taco2_tpu_torch.vocoder.pwg import pwg_generate
+    from fcl_taco2_tpu_torch.vocoder.pwg_cuda import vocode
+    tok1, dur1, toks16, durs16 = protocol()
+    cases = (("tts_student_b1", "student", [tok1], [dur1], "fused_ar_decode"),
+             ("tts_teacher_b1", "teacher", [tok1], [dur1],
+              "fused_ar_decode_hbm"),
+             ("tts_teacher_b16", "teacher", toks16, durs16,
+              "fused_ar_decode_hbm"))
+    launches = dict.fromkeys(_counters(), 0)
+    hop = pwg.cfg.hop
+    for tag, mkey, toks, durs, decoder in cases:
+        pipe = TTSPipeline(models[mkey], pwg)
+        zero_counts()
+        wavs, stats = pipe.tts_batch(toks, 0, durations=durs)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        log(f"[tts] {tag}: launches {counts}")
+        for k in (decoder, "pwg_generate_streaming"):
+            if counts[k] == 0:
+                raise RuntimeError(f"{tag}: the main path did not launch {k}")
+        for k, v in counts.items():
+            launches[k] += v
+        want = [int(d.sum()) * hop for d in durs]
+        if [len(w) for w in wavs] != want:
+            raise RuntimeError(f"{tag}: wav lengths {[len(w) for w in wavs]}"
+                               f" != olens * hop {want}")
+        if not all(np.isfinite(w).all() for w in wavs):
+            raise RuntimeError(f"{tag}: non-finite wav")
+        rtf = [pipe.tts_batch(toks, rep, durations=durs)[1]["rtf_x"]
+               for rep in range(5)]
+        log(f"[tts] {tag} on {kind}: RTF (audio s / wall s) median "
+            f"{np.median(rtf):.1f} over 5 reps after warm-up (min "
+            f"{min(rtf):.1f}, max {max(rtf):.1f}; {stats['audio_sec']:.2f} "
+            f"s of audio from {stats['frames']} frames; the whole budget of "
+            f"{len(toks)} x {tts_budget(toks)} frames is vocoded)")
+        # one call split into synthesize and vocode (synchronized)
+        B = len(toks)
+        tokens, ilens, dd = _padded(toks, durs, B, 16)
+        budget = tts_budget(toks)
+        noise = torch.randn(B, budget * hop, device="cuda",
+                            generator=torch.Generator(
+                                device="cuda").manual_seed(0))
+        rows = []
+        for _ in range(4):
+            out, syn_ms = _timed(lambda: pipe.model.synthesize(
+                tokens, ilens, 0, budget, durations=dd,
+                quantize=pipe.quantize, prequant=pipe.prequant))
+            mel = out["mel"].to(pipe.pwg_dtype).float()
+            nzr = noise.to(pipe.pwg_dtype).float()
+            wav, voc_ms = _timed(lambda: vocode(pipe.pwg, pipe.pwg_cfg, mel,
+                                                nzr))
+            rows.append((syn_ms, voc_ms))
+        syn_ms, voc_ms = np.median(np.array(rows[1:]), axis=0)
+        log(f"[breakdown] {tag} on {kind}: synthesize {syn_ms:.2f} ms + "
+            f"vocode {voc_ms:.2f} ms (host clock, synchronized, median of 3)")
+        if tag == "tts_student_b1":
+            # the kernel's wav against the conv graph on the same inputs
+            with torch.no_grad():
+                ref = pwg_generate(pipe.pwg, pipe.pwg_cfg, mel, nzr)
+            err = float((wav - ref).abs().max())
+            log(f"[tts] {tag}: wav vs pwg_generate (the conv graph) "
+                f"max_abs_err={err:.3e} (tol {TOL_PWG:g}: {TOL_PWG_WHY})")
+            if not np.isfinite(err) or err > TOL_PWG:
+                raise RuntimeError(f"{tag}: wav disagrees with the graph")
+    return launches
+
+
+def tts_budget(toks, frame_per_token=16):
+    """TTSPipeline.tts_batch's frame budget: tokens padded to a multiple
+    of 16, times frame_per_token, rounded up to 256."""
+    Tmax = (max(len(t) for t in toks) + 15) // 16 * 16
+    return (Tmax * frame_per_token + 255) // 256 * 256
+
+
+def timed_stream(st, tokens, durs, seed, noise=None):
+    """Wall clock around the yields (scripts/bench_stream.py): time to
+    first audio (ms), x realtime, joined audio."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ttfa, chunks = None, []
+    for chunk in st.stream(tokens, seed, durations=durs, noise=noise):
+        if ttfa is None:
+            ttfa = time.perf_counter() - t0
+        chunks.append(chunk)
+    wall = time.perf_counter() - t0
+    audio = np.concatenate(chunks)
+    return 1e3 * ttfa, audio.size / SAMPLE_RATE / wall, audio, len(chunks)
+
+
+def phase_stream(models, pwg, kind):
+    """Streaming TTS through ``StreamTTS``; returns launches."""
+    from fcl_taco2_tpu_torch.infer import StreamTTS
+    from fcl_taco2_tpu_torch.models import Tacotron2SA, student_config
+    from fcl_taco2_tpu_torch.vocoder.pwg_cuda import pwg_generate_streaming
+    tok1, dur1, _, _ = protocol()
+    st = StreamTTS(models["student"], pwg)
+    zero_counts()
+    _, _, audio, n_chunks = timed_stream(st, tok1, dur1, 0)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"[stream] student: launches {counts}")
+    for k in ("fused_ar_decode", "pwg_stream_step"):
+        if counts[k] == 0:
+            raise RuntimeError(f"stream: the main path did not launch {k}")
+    F = int(dur1.sum())
+    if audio.size != F * pwg.cfg.hop or not np.isfinite(audio).all():
+        raise RuntimeError(f"stream: {audio.size} samples (want "
+                           f"{F * pwg.cfg.hop}) or non-finite")
+    reps = [timed_stream(st, tok1, dur1, r)[:2] for r in range(5)]
+    ttfa, xrt = np.median(np.array(reps), axis=0)
+    log(f"[stream] student on {kind}: time to first audio median "
+        f"{ttfa:.1f} ms (min {min(r[0] for r in reps):.1f}), x realtime "
+        f"median {xrt:.1f} (min {min(r[1] for r in reps):.1f}) over 5 reps "
+        f"after warm-up; {audio.size / SAMPLE_RATE:.2f} s of audio in "
+        f"{n_chunks} chunks, vocode_frames {st.Fv}, chunk_phonemes {st.Pc}")
+
+    # exactness: dropout 0, fp32, the given noise, against synthesize +
+    # the one-shot kernel
+    m0 = Tacotron2SA(student_config(IDIM, odim=ODIM, dropout_rate=0.0,
+                                    compute_dtype="float32"), seed=0)
+    st0 = StreamTTS(m0, pwg)
+    hop = pwg.cfg.hop
+    noise = np.random.default_rng(1).normal(size=F * hop).astype(np.float32)
+    _, _, got, _ = timed_stream(st0, tok1, dur1, 0, noise=noise)
+    tokens, ilens, dd = _padded([tok1], [dur1], 1, 8)
+    out = st0.model.synthesize(tokens, ilens, 0, 1024, durations=dd)
+    want = pwg_generate_streaming(
+        pwg, pwg.cfg, out["mel"][:, :F],
+        torch.from_numpy(noise)[None].cuda())[0].cpu().numpy()
+    err = float(np.abs(got - want).max())
+    log(f"[stream] joined chunks vs synthesize + one-shot "
+        f"pwg_generate_streaming (dropout 0, fp32): max_abs_err={err:.3e} "
+        f"(tol {TOL_STREAM:g}: {TOL_STREAM_WHY}; scale "
+        f"{float(np.abs(want).max()):.3f})")
+    if not np.isfinite(err) or err > TOL_STREAM:
+        raise RuntimeError(f"stream disagrees with the one-shot path: {err}")
+    return counts
+
+
+def _padded(toks, durs, B, bucket):
+    Tmax = -(-max(len(t) for t in toks) // bucket) * bucket
     tokens = torch.zeros(B, Tmax, dtype=torch.int64)
     ilens = torch.zeros(B, dtype=torch.int64)
     dd = torch.zeros(B, Tmax, dtype=torch.int32)
@@ -372,11 +677,16 @@ def main():
     }
     log(f"[init] seeded full-width teacher and student in "
         f"{time.perf_counter() - t0:.1f} s")
-    # phases 3-4 run at dropout 0 where they compare (the configs keep
-    # the published 0.5 for the main path)
+    # phases 3-5 run at dropout 0 where they compare (the configs keep
+    # the published 0.5 for the main paths)
     rows = phase_kernels(models)
     phase_dropout(models)
+    pwg, pwg_rows = phase_pwg_kernels()
     launches = phase_main_path(models, kind)
+    for counts in (phase_tts(models, pwg, kind),
+                   phase_stream(models, pwg, kind)):
+        for k, v in counts.items():
+            launches[k] += v
 
     kernels = []
     for name, replaces, main_P in (
@@ -395,6 +705,21 @@ def main():
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": None,
             "weights": main["weights"], "P": main_P})
+    # the text -> wav path's shape (B = 1, 1536 frames) and the stream's
+    # (Vh = 4096 samples a step)
+    for name, replaces, key, shape in (
+            ("pwg_generate_streaming",
+             "fcl_taco2_tpu/vocoder/pwg_pallas.py:109", (1, 1536),
+             "B=1 Tm=1536"),
+            ("pwg_stream_step", "fcl_taco2_tpu/vocoder/pwg_pallas.py:266",
+             "step", "B=1 Vh=4096")):
+        row = pwg_rows[key]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "fcl_taco2_tpu_torch/csrc/pwg_stream.cu",
+            "replaces": replaces, "launches": launches[name],
+            **row, "library_ms": None, "weights": "float32",
+            "shape": shape})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,8 +11,6 @@ import math
 
 import torch
 
-from fcl_taco2_tpu_torch.models.components import VariancePredictor
-
 RELU_GAIN = math.sqrt(2.0)
 TANH_GAIN = 5.0 / 3.0
 
@@ -58,11 +56,13 @@ def _bn_(bn):
 
 
 def _torch_conv_(conv, gen):
-    """torch nn.Conv1d default: U(+-1/sqrt(Cin * W)) weight and bias."""
+    """torch nn.Conv1d default: U(+-1/sqrt(Cin * W)) weight and bias (if
+    any)."""
     _, in_ch, width = conv.weight.shape
     bound = 1.0 / math.sqrt(in_ch * width)
     _uniform_(conv.weight, bound, gen)
-    _uniform_(conv.bias, bound, gen)
+    if conv.bias is not None:
+        _uniform_(conv.bias, bound, gen)
 
 
 def _variance_predictor_(vp, gen):
@@ -77,6 +77,7 @@ def _variance_predictor_(vp, gen):
 
 def init_tacotron2sa_(model, generator):
     """Fill every parameter of a ``Tacotron2SA`` in place."""
+    from fcl_taco2_tpu_torch.models.components import VariancePredictor
     gen = generator
     enc, dec = model.encoder, model.decoder
     emb = torch.empty(enc.embed.weight.shape).normal_(generator=gen)

@@ -146,3 +146,67 @@ def params_to_numpy(state_dict):
     for part in ("encoder", "decoder"):  # JAX always carries both
         state.setdefault(part, {})
     return _lists(params), _lists(state)
+
+
+# --------------------------------------------------------------------------
+# Parallel WaveGAN: the JAX ``pwg_init`` tree <-> ``ParallelWaveGAN``
+# --------------------------------------------------------------------------
+
+_PWG_BLOCK = {"conv": "conv", "aux": "conv1x1_aux", "out": "conv1x1_out",
+              "skip": "conv1x1_skip"}
+_PWG_TOP = {"first_conv": "first_conv", "conv_in": "upsample_net.conv_in",
+            "last1": "last_conv_layers.1", "last2": "last_conv_layers.3"}
+
+
+def _up_key(i):
+    return f"upsample_net.upsample.up_layers.{2 * i + 1}.weight"
+
+
+def pwg_params_from_jax(tree_np):
+    """JAX PWG param tree of numpy arrays -> a ``state_dict`` for
+    ``vocoder.pwg.ParallelWaveGAN``.  Conv kernels (W, Cin, Cout) become
+    (Cout, Cin, W); the smoothing taps (1, 1, 2s+1, 1) become
+    (1, 1, 1, 2s+1)."""
+    sd = {}
+
+    def conv(prefix, node):
+        sd[f"{prefix}.weight"] = torch.from_numpy(
+            _relayout(np.asarray(node["kernel"]), "conv"))
+        if "bias" in node:
+            sd[f"{prefix}.bias"] = torch.from_numpy(
+                np.array(node["bias"], copy=True))
+
+    for jname, tname in _PWG_TOP.items():
+        conv(tname, tree_np[jname])
+    for i, up in enumerate(tree_np["upsample"]):
+        sd[_up_key(i)] = torch.from_numpy(np.array(
+            np.asarray(up["kernel"]).transpose(0, 1, 3, 2), order="C",
+            copy=True))
+    for i, blk in enumerate(tree_np["blocks"]):
+        for jname, tname in _PWG_BLOCK.items():
+            conv(f"conv_layers.{i}.{tname}", blk[jname])
+    return sd
+
+
+def pwg_params_to_numpy(state_dict):
+    """Inverse of ``pwg_params_from_jax``: a ``ParallelWaveGAN``
+    ``state_dict`` -> the JAX PWG param tree of numpy arrays."""
+    sd = {k: v.detach().cpu().float().numpy() for k, v in state_dict.items()}
+
+    def conv(prefix):
+        node = {"kernel": _relayout(sd[f"{prefix}.weight"], "conv")}
+        if f"{prefix}.bias" in sd:
+            node["bias"] = np.array(sd[f"{prefix}.bias"], copy=True)
+        return node
+
+    tree = {jname: conv(tname) for jname, tname in _PWG_TOP.items()}
+    n_up = sum(1 for k in sd if k.startswith("upsample_net.upsample."))
+    tree["upsample"] = [
+        {"kernel": np.ascontiguousarray(sd[_up_key(i)].transpose(0, 1, 3, 2))}
+        for i in range(n_up)]
+    n_blocks = len({k.split(".")[1] for k in sd
+                    if k.startswith("conv_layers.")})
+    tree["blocks"] = [{jname: conv(f"conv_layers.{i}.{tname}")
+                       for jname, tname in _PWG_BLOCK.items()}
+                      for i in range(n_blocks)]
+    return tree

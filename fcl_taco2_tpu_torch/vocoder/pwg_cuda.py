@@ -1,0 +1,430 @@
+"""Streaming Parallel-WaveGAN generator as one CUDA kernel for Hopper (port
+of ``fcl_taco2_tpu/vocoder/pwg_pallas.py``).
+
+Causal reformulation (as the Pallas kernel): each 'same'-padded dilated
+conv (kernel 3, dilation d) is re-indexed as a causal conv whose output
+stream lags by d.  Layer i reads its input stream at positions p - 2d,
+p - d and p, the mel conditioning at p - cum_i (cum_i = d_0 + .. + d_i),
+and adds its skip output into an accumulator at p + delay - cum_i, so all
+skips align at ``delay = _round8(total_delay(cfg))`` samples.  Masking
+each layer's stream to its valid window [cum_i, W + cum_i) reproduces the
+graph's zero padding on both edges, so the emitted stream equals
+``pwg_generate`` delayed by ``delay``; the caller trims.
+
+Two entries keep the Pallas names, arguments and trim/pad conventions:
+
+- ``pwg_generate_streaming``: one-shot, zero state, position 0.
+- ``pwg_stream_step``: one chunk of the sample stream with the state
+  (aux history, skip accumulator, one ring of past inputs per layer) in
+  and out, in the JAX state's layout (``pwg_stream_state``).  Chained
+  steps equal the one-shot call.
+
+Both launch ``csrc/pwg_stream.cu`` once per call for CUDA tensors and run
+their plain PyTorch versions (``*_plain``, the same tile-by-tile ring
+algorithm as ``pwg_pallas.py:149-178``) for CPU tensors.  There is no
+fallback: a CUDA tensor launches the kernel or raises.  Everything is
+fp32, as the Pallas kernel computes.
+"""
+
+import ctypes
+import math
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from fcl_taco2_tpu_torch.utils.device import resolve_device
+from fcl_taco2_tpu_torch.vocoder.pwg import (PWGConfig, pwg_generate_chunked,
+                                             upsample_mel)
+
+KC = 16     # the kernel's contraction chunk: the gate product's K pads to it
+TM = 64     # stream positions per block tile
+ROWS_PER_PHASE = 16384  # B * (kernel time tile) per grid-wide phase
+MAX_LAYERS = 64
+
+
+def total_delay(cfg: PWGConfig) -> int:
+    return int(sum(cfg.dilations))
+
+
+def _round8(x):
+    return -(-x // 8) * 8
+
+
+def _buf_width(d):
+    """Per-layer history width: the 2d the taps need, at least 8 (the
+    JAX state's layout)."""
+    return max(8, 2 * d)
+
+
+class PackedPWG(NamedTuple):
+    """The generator's weights as the kernel takes them, fp32:
+
+    w1 (L, K1p, G): rows [t*C + c] tap t of the dilated conv, rows
+        [3C + a] the aux 1x1, zero rows up to K1p (a multiple of KC);
+    b1 (L, G); w2 (L, G/2, S + C) = [skip | out]; b2 (L, S + C);
+    first_w, first_b (C,); last1_w (S, S) as (in, out); last1_b (S,);
+    last2_w (S,); last2_b (1,).
+    """
+    w1: torch.Tensor
+    b1: torch.Tensor
+    w2: torch.Tensor
+    b2: torch.Tensor
+    first_w: torch.Tensor
+    first_b: torch.Tensor
+    last1_w: torch.Tensor
+    last1_b: torch.Tensor
+    last2_w: torch.Tensor
+    last2_b: torch.Tensor
+
+
+def pack_pwg_weights(params, cfg: PWGConfig) -> PackedPWG:
+    """Pre-pack a ``ParallelWaveGAN``'s weights into the kernel operands;
+    shared by both entries and their plain versions, so pack once and
+    reuse across ``pwg_stream_step`` calls."""
+    C, A = cfg.residual_channels, cfg.aux_channels
+    K1 = 3 * C + A
+    K1p = -(-K1 // KC) * KC
+    f32 = torch.float32
+    with torch.no_grad():
+        w1, b1, w2, b2 = [], [], [], []
+        for blk in params.conv_layers:
+            taps = blk.conv.weight.to(f32).permute(2, 1, 0)  # (3, C, G)
+            aux = blk.conv1x1_aux.weight.to(f32)[:, :, 0].t()  # (A, G)
+            w1.append(F.pad(torch.cat([taps.reshape(3 * C, -1), aux]),
+                            (0, 0, 0, K1p - K1)))
+            b1.append(blk.conv.bias.to(f32))
+            w2.append(torch.cat([blk.conv1x1_skip.weight.to(f32)[:, :, 0].t(),
+                                 blk.conv1x1_out.weight.to(f32)[:, :, 0].t()],
+                                dim=1))
+            b2.append(torch.cat([blk.conv1x1_skip.bias.to(f32),
+                                 blk.conv1x1_out.bias.to(f32)]))
+        last1, last2 = params.last_conv_layers[1], params.last_conv_layers[3]
+        return PackedPWG(*(t.detach().contiguous() for t in (
+            torch.stack(w1), torch.stack(b1), torch.stack(w2),
+            torch.stack(b2), params.first_conv.weight.to(f32)[:, 0, 0],
+            params.first_conv.bias.to(f32), last1.weight.to(f32)[:, :, 0].t(),
+            last1.bias.to(f32), last2.weight.to(f32)[0, :, 0],
+            last2.bias.to(f32))))
+
+
+def pwg_stream_state(cfg: PWGConfig, B: int = 1, device="cuda"):
+    """Zero cross-call stream state (a fresh stream), the JAX state's
+    arrays and shapes (``pwg_pallas.py:254-263``)."""
+    dev = resolve_device(device)
+    delay = _round8(total_delay(cfg))
+    z = dict(dtype=torch.float32, device=dev)
+    return {
+        "aux_hist": torch.zeros(B, delay, cfg.aux_channels, **z),
+        "acc": torch.zeros(B, delay, cfg.skip_channels, **z),
+        "bufs": tuple(torch.zeros(B, _buf_width(d), cfg.residual_channels,
+                                  **z) for d in cfg.dilations),
+    }
+
+
+# ----------------------------------------------------------------------
+# plain PyTorch versions: the Pallas kernel's tile loop
+# ----------------------------------------------------------------------
+
+def _stream_plain(packed, cfg, state, aux, noise, start, W, T):
+    """Tiles of T positions over [start, start + N), state in and out
+    (``pwg_pallas.py:282-336``).  aux (B, N, A), noise (B, N), N % T == 0."""
+    B, N, A = aux.shape
+    C, S = cfg.residual_channels, cfg.skip_channels
+    half = cfg.gate_channels // 2
+    delay = _round8(total_delay(cfg))
+    ah = state["aux_hist"].float()
+    acc = torch.cat([state["acc"].float(), aux.new_zeros(B, T, S)], dim=1)
+    bufs = [b.float() for b in state["bufs"]]
+    rows = torch.arange(T, device=aux.device)
+    outs = []
+    for t in range(N // T):
+        tile = slice(t * T, (t + 1) * T)
+        aux_ext = torch.cat([ah, aux[:, tile]], dim=1)
+        ah = aux_ext[:, T:]
+        pos = (start + t * T + rows)[None, :, None]
+        x = noise[:, tile, None] * packed.first_w + packed.first_b
+        x = torch.where(pos < W, x, 0.0)
+        cum = 0
+        for i, d in enumerate(cfg.dilations):
+            cum += d
+            bw = _buf_width(d)
+            inp = torch.cat([bufs[i], x], dim=1)  # (B, bw + T, C)
+            bufs[i] = inp[:, T:]
+            base = bw - 2 * d
+            off = delay - cum
+            w1 = packed.w1[i]
+            h = (inp[:, base:base + T] @ w1[:C]
+                 + inp[:, base + d:base + d + T] @ w1[C:2 * C]
+                 + inp[:, base + 2 * d:base + 2 * d + T] @ w1[2 * C:3 * C]
+                 + aux_ext[:, off:off + T] @ w1[3 * C:3 * C + A]
+                 + packed.b1[i])
+            g = torch.tanh(h[..., :half]) * torch.sigmoid(h[..., half:])
+            gs = g @ packed.w2[i]
+            acc[:, off:off + T] = (acc[:, off:off + T] + gs[..., :S]
+                                   + packed.b2[i, :S])
+            x = (gs[..., S:] + packed.b2[i, S:]
+                 + inp[:, base + d:base + d + T]) * math.sqrt(0.5)
+            x = torch.where((pos >= cum) & (pos < W + cum), x, 0.0)
+        z = torch.relu(acc[:, :T] * math.sqrt(1.0 / cfg.layers))
+        acc = torch.cat([acc[:, T:], acc.new_zeros(B, T, S)], dim=1)
+        z = torch.relu(z @ packed.last1_w + packed.last1_b)
+        outs.append(z @ packed.last2_w + packed.last2_b)
+    return torch.cat(outs, dim=1), {"aux_hist": ah, "acc": acc[:, :delay],
+                                    "bufs": tuple(bufs)}
+
+
+def _check_oneshot(cfg, mel, noise):
+    B, Tm, _ = mel.shape
+    W = Tm * cfg.hop
+    if tuple(noise.shape) != (B, W):
+        raise ValueError(f"noise has shape {tuple(noise.shape)}, expected "
+                         f"{(B, W)}")
+    return B, W
+
+
+@torch.no_grad()
+def pwg_generate_streaming_plain(params, cfg: PWGConfig, mel, noise,
+                                 tile: int = 1024):
+    """Plain PyTorch version of ``pwg_generate_streaming``."""
+    B, W = _check_oneshot(cfg, mel, noise)
+    delay = _round8(total_delay(cfg))
+    T = tile
+    Wp = -(-(W + delay) // T) * T
+    aux = F.pad(upsample_mel(params, cfg, mel.float()), (0, 0, 0, Wp - W))
+    noise_p = F.pad(noise.float(), (0, Wp - W))
+    state = pwg_stream_state(cfg, B, device=mel.device)
+    wav, _ = _stream_plain(pack_pwg_weights(params, cfg), cfg, state, aux,
+                           noise_p, 0, W, T)
+    return wav[:, delay:delay + W]
+
+
+def _check_step(aux, noise, tile):
+    B, Vh, _ = aux.shape
+    if Vh % tile:
+        raise ValueError(f"chunk of {Vh} samples is not a multiple of the "
+                         f"tile {tile}")
+    if tuple(noise.shape) != (B, Vh):
+        raise ValueError(f"noise has shape {tuple(noise.shape)}, expected "
+                         f"{(B, Vh)}")
+
+
+@torch.no_grad()
+def pwg_stream_step_plain(packed, cfg: PWGConfig, state, aux, noise, start,
+                          W, tile: int = 1024):
+    """Plain PyTorch version of ``pwg_stream_step``."""
+    _check_step(aux, noise, tile)
+    return _stream_plain(packed, cfg, state, aux.float(), noise.float(),
+                         int(start), int(W), tile)
+
+
+# ----------------------------------------------------------------------
+# the CUDA launch
+# ----------------------------------------------------------------------
+
+_PTR_FIELDS = ("noise", "aux", "w1", "b1", "w2", "b2", "first_w", "first_b",
+               "last1_w", "last1_b", "last2_w", "last2_b", "ah_in", "acc_in",
+               "bufs_in", "wav", "ah_out", "acc_out", "bufs_out", "ring_x",
+               "ring_acc")
+_INT_FIELDS = ("B", "N", "n_aux", "n_noise", "start", "W", "A", "K1p", "L",
+               "delay", "tile", "rx", "ra", "sum_bw")
+_LAYER_FIELDS = ("dil", "cum", "bw", "buf_off")
+
+
+class _PwgArgs(ctypes.Structure):
+    """Mirror of ``struct PwgArgs`` in csrc/pwg_stream.cu."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in _PTR_FIELDS]
+                + [(n, ctypes.c_int) for n in _INT_FIELDS]
+                + [("z_scale", ctypes.c_float)]
+                + [(n, ctypes.c_int * MAX_LAYERS) for n in _LAYER_FIELDS])
+
+
+def _lib():
+    from fcl_taco2_tpu_torch.utils.cuda_build import load_library
+    lib = load_library("pwg_stream")
+    if not getattr(lib, "_typed", False):
+        lib.pwg_stream_launch.argtypes = [ctypes.POINTER(_PwgArgs),
+                                          ctypes.c_void_p,
+                                          ctypes.POINTER(ctypes.c_int)]
+        lib.pwg_stream_launch.restype = ctypes.c_int
+        lib._typed = True
+    return lib
+
+
+def _pow2_at_least(n):
+    return 1 << max(0, int(n - 1).bit_length())
+
+
+def kernel_tile(B, N):
+    """The kernel's time tile: about ROWS_PER_PHASE rows (B x positions)
+    per grid-wide phase, a multiple of TM, at most N rounded up."""
+    rows = max(TM, ROWS_PER_PHASE // B // TM * TM)
+    return min(rows, -(-N // TM) * TM)
+
+
+def _operand(t, name, shape, device):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    t = t.to(torch.float32).contiguous()
+    if t.data_ptr() % 16:
+        t = t.clone()  # the kernel reads rows as 16-byte vectors
+    return t
+
+
+def _launch(packed, cfg, aux, noise, start, W, N, state):
+    """Validate, allocate the output, the rings and the state out, launch.
+    aux (B, n_aux, A) covers positions [start, start + n_aux), noise
+    (B, n_noise) likewise; both read as zero past their ends."""
+    C, G, S, A = (cfg.residual_channels, cfg.gate_channels,
+                  cfg.skip_channels, cfg.aux_channels)
+    L = cfg.layers
+    if (C, G, S) != (64, 128, 64) or A % 4 or A > 128 or L > MAX_LAYERS:
+        raise ValueError(
+            "the CUDA kernel takes residual and skip channels 64, gate "
+            f"channels 128, aux channels a multiple of 4 up to 128 and at "
+            f"most {MAX_LAYERS} layers; got {(C, G, S, A, L)}")
+    dev = aux.device
+    B, n_aux = aux.shape[0], aux.shape[1]
+    n_noise = noise.shape[1]
+    K1p = packed.w1.shape[1]
+    delay = _round8(total_delay(cfg))
+    dils = cfg.dilations
+    bws = [_buf_width(d) for d in dils]
+    sum_bw = sum(bws)
+    shapes = {"noise": (B, n_noise), "aux": (B, n_aux, A),
+              "w1": (L, K1p, G), "b1": (L, G), "w2": (L, G // 2, S + C),
+              "b2": (L, S + C), "first_w": (C,), "first_b": (C,),
+              "last1_w": (S, S), "last1_b": (S,), "last2_w": (S,),
+              "last2_b": (1,)}
+    t = {"noise": noise, "aux": aux, **packed._asdict()}
+    if state is not None:
+        shapes.update({"ah_in": (B, delay, A), "acc_in": (B, delay, S),
+                       "bufs_in": (B, sum_bw, C)})
+        t.update({"ah_in": state["aux_hist"], "acc_in": state["acc"],
+                  "bufs_in": torch.cat([b.to(torch.float32)
+                                        for b in state["bufs"]], dim=1)})
+    t = {k: _operand(t[k], k, shp, dev) for k, shp in shapes.items()}
+    # the head's product takes 128 columns: last1 zero-padded
+    t["last1_w"] = F.pad(t["last1_w"], (0, G - S)).contiguous()
+
+    tile = kernel_tile(B, N)
+    rx = _pow2_at_least(tile + max(bws))
+    ra = _pow2_at_least(tile + delay)
+    f32 = dict(dtype=torch.float32, device=dev)
+    t["wav"] = torch.empty(B, N, **f32)
+    t["ring_x"] = torch.empty(B, L, rx, C, **f32)
+    t["ring_acc"] = torch.empty(B, ra, S, **f32)
+    if state is not None:
+        t["ah_out"] = torch.empty(B, delay, A, **f32)
+        t["acc_out"] = torch.empty(B, delay, S, **f32)
+        t["bufs_out"] = torch.empty(B, sum_bw, C, **f32)
+    ptrs = {n: (t[n].data_ptr() if n in t else None) for n in _PTR_FIELDS}
+    cum = [sum(dils[:i + 1]) for i in range(L)]
+    offs = [sum(bws[:i]) for i in range(L)]
+    layer = {n: (ctypes.c_int * MAX_LAYERS)(*v)
+             for n, v in zip(_LAYER_FIELDS, (dils, cum, bws, offs))}
+    args = _PwgArgs(**ptrs, B=B, N=N, n_aux=n_aux, n_noise=n_noise,
+                    start=int(start), W=int(W), A=A, K1p=K1p, L=L,
+                    delay=delay, tile=tile, rx=rx, ra=ra, sum_bw=sum_bw,
+                    z_scale=math.sqrt(1.0 / L), **layer)
+    grid = ctypes.c_int(0)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _lib().pwg_stream_launch(ctypes.byref(args),
+                                   ctypes.c_void_p(stream),
+                                   ctypes.byref(grid))
+    if err != 0:
+        raise RuntimeError(f"pwg_stream launch failed with CUDA error {err} "
+                           f"(B={B}, N={N}, grid={grid.value})")
+    new_state = None
+    if state is not None:
+        new_state = {"aux_hist": t["ah_out"], "acc": t["acc_out"],
+                     "bufs": tuple(t["bufs_out"].split(bws, dim=1))}
+    return t["wav"], new_state
+
+
+@torch.no_grad()
+def pwg_generate_streaming(params, cfg: PWGConfig, mel, noise,
+                           tile: int = 1024):
+    """mel (B, Tm, aux), noise (B, Tm*hop) -> wav (B, Tm*hop)
+    (``pwg_pallas.py:181-236``).
+
+    One kernel launch for CUDA tensors, the plain version for CPU ones.
+    Exact (fp reassociation only) against ``pwg_generate`` over the whole
+    utterance, tail included.  ``tile`` is the plain version's time tile;
+    the kernel picks its own (``kernel_tile``), which does not change the
+    result."""
+    if not mel.is_cuda:
+        return pwg_generate_streaming_plain(params, cfg, mel, noise, tile)
+    B, W = _check_oneshot(cfg, mel, noise)
+    delay = _round8(total_delay(cfg))
+    aux = upsample_mel(params, cfg, mel.float())
+    wav, _ = _launch(pack_pwg_weights(params, cfg), cfg, aux, noise, 0, W,
+                     W + delay, None)
+    pwg_generate_streaming.launches += 1
+    return wav[:, delay:delay + W]
+
+
+pwg_generate_streaming.launches = 0
+
+
+@torch.no_grad()
+def pwg_stream_step(packed, cfg: PWGConfig, state, aux, noise, start, W,
+                    tile: int = 1024):
+    """One streaming-vocoder call over a chunk of the sample stream
+    (``pwg_pallas.py:339-422``).
+
+    Args:
+        packed: ``pack_pwg_weights`` output.
+        state: ``pwg_stream_state`` or the previous call's new state.
+        aux: (B, Vh, aux_channels) upsampled conditioning for stream
+            positions [start, start + Vh); rows at positions >= W must be
+            zero (the one-shot path's zero padding).
+        noise: (B, Vh) input noise for the same positions (content past
+            W is ignored: the kernel masks it).
+        start: stream position of aux[:, 0]; W: the stream's real sample
+            count (frames * hop).
+        tile: Vh must be a multiple of it (the Pallas tile); the kernel
+            picks its own time tile.
+
+    Returns (wav (B, Vh), new_state).  Positions [delay, delay + W) carry
+    the audio (delay = ``_round8(total_delay(cfg))``); the caller trims.
+    Chained calls over [0, ceil((W + delay) / Vh) * Vh) equal
+    ``pwg_generate_streaming``.
+    """
+    if not aux.is_cuda:
+        return pwg_stream_step_plain(packed, cfg, state, aux, noise, start,
+                                     W, tile)
+    _check_step(aux, noise, tile)
+    wav, new_state = _launch(packed, cfg, aux, noise, start, W, aux.shape[1],
+                             state)
+    pwg_stream_step.launches += 1
+    return wav, new_state
+
+
+pwg_stream_step.launches = 0
+
+
+@torch.no_grad()
+def vocode(params, cfg: PWGConfig, mel, noise, backend: str = "auto",
+           tile: int = 1024):
+    """Vocode dispatch (``pwg_pallas.py:425-440``): ``auto`` is the
+    streaming kernel for CUDA tensors and the exact chunked conv graph
+    (``pwg_generate_chunked``, the JAX package's ``xla`` path) for CPU
+    tensors; ``pallas`` is always ``pwg_generate_streaming`` (the plain
+    version on the CPU).  Same (B, W) output either way."""
+    if backend == "auto":
+        backend = "pallas" if mel.is_cuda else "xla"
+    if backend == "pallas":
+        return pwg_generate_streaming(params, cfg, mel, noise, tile=tile)
+    if backend != "xla":
+        raise ValueError(f"backend must be 'auto', 'pallas' or 'xla', got "
+                         f"{backend!r}")
+    # one-sided receptive field: the conv stack (total_delay samples) plus
+    # the mel-grid context of conv_in and the upsample smoothing convs
+    ctx = (-(-total_delay(cfg) // cfg.hop) + cfg.aux_context_window
+           + sum(cfg.upsample_scales) + 1)
+    return pwg_generate_chunked(params, cfg, mel, noise, chunk_frames=128,
+                                context_frames=ctx)

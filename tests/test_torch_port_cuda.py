@@ -127,3 +127,94 @@ def test_synthesize_routes_through_the_kernels(cuda):
     assert K.fused_ar_decode_hbm.launches == n0 + 1
     assert torch.equal(out["olens"], durs.sum(1).to(out["olens"].dtype))
     assert torch.isfinite(out["mel"]).all()
+
+
+TOL_PWG = 1e-4  # fp32 sums in another order, over 6 residual layers
+
+
+@pytest.fixture
+def full_fp32(cuda):
+    """Full fp32 products in the plain versions (no TF32), restored
+    afterwards."""
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield cuda
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = flags
+
+
+def _pwg_inputs(dev, B, Tm, seed=0):
+    from fcl_taco2_tpu_torch.vocoder.pwg import PWGConfig, ParallelWaveGAN
+    cfg = PWGConfig(layers=6, stacks=2)  # PWG v1 widths, 6 layers
+    pwg = ParallelWaveGAN(cfg, device=dev, seed=seed)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mel = torch.randn(B, Tm, cfg.aux_channels, generator=g, device=dev)
+    noise = torch.randn(B, Tm * cfg.hop, generator=g, device=dev)
+    return cfg, pwg, mel, noise
+
+
+def test_pwg_kernels_match_plain_versions(full_fp32):
+    from fcl_taco2_tpu_torch.vocoder import pwg_cuda as PC
+    from fcl_taco2_tpu_torch.vocoder.pwg import upsample_mel
+
+    dev = full_fp32
+    B, Tm = 2, 24
+    cfg, pwg, mel, noise = _pwg_inputs(dev, B, Tm)
+    W = Tm * cfg.hop
+    n0 = PC.pwg_generate_streaming.launches
+    oneshot = PC.pwg_generate_streaming(pwg, cfg, mel, noise)
+    assert PC.pwg_generate_streaming.launches == n0 + 1
+    want = PC.pwg_generate_streaming_plain(pwg, cfg, mel, noise)
+    assert (oneshot - want).abs().max().item() < TOL_PWG
+
+    packed = PC.pack_pwg_weights(pwg, cfg)
+    delay = PC._round8(PC.total_delay(cfg))
+    Vh = 1024
+    n = -(-(W + delay) // Vh)
+    aux = torch.zeros(B, n * Vh, cfg.aux_channels, device=dev)
+    aux[:, :W] = upsample_mel(pwg, cfg, mel)
+    nz = torch.zeros(B, n * Vh, device=dev)
+    nz[:, :W] = noise
+    st = PC.pwg_stream_state(cfg, B, device=dev)
+    st_plain = PC.pwg_stream_state(cfg, B, device=dev)
+    outs = []
+    n1 = PC.pwg_stream_step.launches
+    for j in range(n):
+        sl = slice(j * Vh, (j + 1) * Vh)
+        args = (aux[:, sl], nz[:, sl], j * Vh, W)
+        wav, st = PC.pwg_stream_step(packed, cfg, st, *args)
+        wp, st_plain = PC.pwg_stream_step_plain(packed, cfg, st_plain, *args)
+        assert (wav - wp).abs().max().item() < TOL_PWG
+        for a, b in zip([st["aux_hist"], st["acc"], *st["bufs"]],
+                        [st_plain["aux_hist"], st_plain["acc"],
+                         *st_plain["bufs"]]):
+            assert a.shape == b.shape
+            assert (a - b).abs().max().item() < TOL_PWG
+        outs.append(wav)
+    assert PC.pwg_stream_step.launches == n1 + n
+    # every output element sums in one order whatever the tiling
+    assert torch.equal(torch.cat(outs, dim=1)[:, delay:delay + W], oneshot)
+
+
+def test_serving_paths_route_through_the_pwg_kernels(full_fp32):
+    from fcl_taco2_tpu_torch.infer import StreamTTS, TTSPipeline
+    from fcl_taco2_tpu_torch.models import Tacotron2SA
+    from fcl_taco2_tpu_torch.vocoder import pwg_cuda as PC
+
+    dev = full_fp32
+    cfg, pwg, _, _ = _pwg_inputs(dev, 1, 1)
+    model = Tacotron2SA(tiny_config(odim=cfg.aux_channels, dropout_rate=0.0),
+                        device=dev)
+    n0 = PC.pwg_generate_streaming.launches
+    wavs, stats = TTSPipeline(model, pwg, device=dev).tts_batch(
+        [np.array([1, 4, 2, 7]), np.array([3, 5])], 0)
+    assert PC.pwg_generate_streaming.launches > n0
+    assert sum(len(w) for w in wavs) == stats["frames"] * cfg.hop
+    assert all(np.isfinite(w).all() for w in wavs)
+    n1 = PC.pwg_stream_step.launches
+    wav = StreamTTS(model, pwg, chunk_phonemes=2, device=dev).tts(
+        np.array([1, 4, 2, 7]), 0, durations=[2, 3, 1, 4])
+    assert PC.pwg_stream_step.launches > n1
+    assert wav.shape == (10 * cfg.hop,) and np.isfinite(wav).all()

@@ -82,3 +82,61 @@ def test_plain_prenet_dropout_keep_rate():
         assert abs(keep - (1 - rate)) < 5e-3, (rate, keep)
         torch.testing.assert_close(m[m > 0],
                                    torch.full_like(m[m > 0], 1 / (1 - rate)))
+
+
+def _small_pwg_config():
+    from fcl_taco2_tpu_torch.vocoder.pwg import PWGConfig
+    return PWGConfig(layers=4, stacks=2, residual_channels=8,
+                     gate_channels=16, skip_channels=8, aux_channels=8,
+                     upsample_scales=(2, 2))
+
+
+def test_vocoder_entry_points_default_to_the_card(monkeypatch):
+    from fcl_taco2_tpu_torch.infer import StreamTTS, TTSPipeline
+    from fcl_taco2_tpu_torch.models import Tacotron2SA
+    from fcl_taco2_tpu_torch.vocoder.pwg import ParallelWaveGAN
+    from fcl_taco2_tpu_torch.vocoder.pwg_cuda import pwg_stream_state
+    from helpers import tiny_config
+    from torch_port_helpers import port_config
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pcfg = _small_pwg_config()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ParallelWaveGAN(pcfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pwg_stream_state(pcfg)
+    pwg = ParallelWaveGAN(pcfg, device="cpu")
+    model = Tacotron2SA(port_config(tiny_config()), device="cpu")
+    for cls in (TTSPipeline, StreamTTS):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cls(model, pwg)
+
+
+def test_cpu_vocoder_runs_the_plain_version(monkeypatch):
+    from fcl_taco2_tpu_torch.vocoder import pwg_cuda as PC
+    from fcl_taco2_tpu_torch.vocoder.pwg import ParallelWaveGAN
+
+    def no_launch(*_, **__):
+        raise AssertionError("a CPU tensor reached the CUDA launch")
+
+    monkeypatch.setattr(PC, "_launch", no_launch)
+    cfg = _small_pwg_config()
+    pwg = ParallelWaveGAN(cfg, device="cpu")
+    g = torch.Generator().manual_seed(0)
+    mel = torch.randn(1, 10, 8, generator=g)
+    noise = torch.randn(1, 40, generator=g)
+    before = (PC.pwg_generate_streaming.launches, PC.pwg_stream_step.launches)
+    torch.testing.assert_close(
+        PC.pwg_generate_streaming(pwg, cfg, mel, noise, tile=8),
+        PC.pwg_generate_streaming_plain(pwg, cfg, mel, noise, tile=8),
+        rtol=0, atol=0)
+    packed = PC.pack_pwg_weights(pwg, cfg)
+    state = PC.pwg_stream_state(cfg, 1, device="cpu")
+    aux, nz = torch.randn(1, 16, 8, generator=g), torch.randn(1, 16,
+                                                              generator=g)
+    got, _ = PC.pwg_stream_step(packed, cfg, state, aux, nz, 0, 40, tile=8)
+    want, _ = PC.pwg_stream_step_plain(packed, cfg, state, aux, nz, 0, 40,
+                                       tile=8)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert (PC.pwg_generate_streaming.launches,
+            PC.pwg_stream_step.launches) == before

@@ -46,3 +46,14 @@ def segment_inputs(idim, dur, D, seed=0):
     position = np.where(frame_mask, d / np.maximum(dur[:, None], 1),
                         0.0).astype(np.float32)
     return enc, frame_mask, position
+
+
+def port_pwg(jcfg, params):
+    """A CPU ``ParallelWaveGAN`` of the port holding JAX ``pwg_init``
+    weights, and its config."""
+    from fcl_taco2_tpu_torch.utils.params import pwg_params_from_jax
+    from fcl_taco2_tpu_torch.vocoder.pwg import ParallelWaveGAN, PWGConfig
+    cfg = PWGConfig(**dataclasses.asdict(jcfg))
+    model = ParallelWaveGAN(cfg, device="cpu")
+    model.load_state_dict(pwg_params_from_jax(np_tree(params)))
+    return model, cfg
