@@ -16,9 +16,13 @@ prints no result):
 4. Dropout statistics of the kernel's Philox draws.
 5. PWG kernels vs plain versions at ``PWGConfig()`` (PWG v1): one-shot
    ``pwg_generate_streaming`` at B=1, Tm=1536 (the text -> wav path's
-   budget) and B=8, Tm=512; ``pwg_stream_step`` chained in Vh=4096
-   chunks over the B=1 utterance, each step against its plain version
-   and the chain against the one-shot kernel.
+   budget) and B=8, Tm=512, timed as the kernel alone (prepared aux,
+   packed weights) and as the whole call (upsample + launch), and the
+   kernel alone at B=16, Tm=1536 (no plain version: minutes);
+   ``pwg_stream_step`` chained in Vh=4096 chunks over the B=1 utterance,
+   each step against its plain version and the chain bit-equal to the
+   one-shot kernel.  Each launch's grid, block tiles and grid barriers are
+   logged; bounds at the TF32 tensor cores (3 passes) beside fp32.
 6. Main paths, with the headline benchmark's protocol (bench.py: idim 70,
    odim 80, 96 phonemes, Poisson(8) durations clipped to [1, 50], seed 0,
    durations given), seeded full-width weights, bf16 compute.  Text ->
@@ -48,7 +52,9 @@ IDIM, ODIM = 70, 80
 N_PHONES, MEAN_DUR, MAX_DUR = 96, 8, 50
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12,
-            torch.int8: 989e12}  # int8 codes are multiplied as bf16
+            torch.int8: 989e12,  # int8 codes are multiplied as bf16
+            "tf32": 495e12}      # dense TF32 tensor cores
+TF32_PASSES = 3  # the PWG kernel's products: 3xTF32 for fp32 accuracy
 TOL_F32 = 1e-4
 TOL_F32_WHY = ("fp32 products in another summation order than the "
                "plain version's GEMMs, carried through up to 50 AR steps")
@@ -401,7 +407,7 @@ def pwg_work(cfg, B, positions, inputs_floats, state=False):
     """Least bytes and operations of one PWG call producing ``positions``
     samples a row: the weights once, the inputs (``inputs_floats`` a row),
     noise and wav, the state in and out for a stream step; 2 x the
-    stack's multiply-adds per sample (fp32)."""
+    stack's multiply-adds per sample (the fp32 function's operations)."""
     from fcl_taco2_tpu_torch.vocoder import pwg_cuda as PC
     C, G, S, A, L = (cfg.residual_channels, cfg.gate_channels,
                      cfg.skip_channels, cfg.aux_channels, cfg.layers)
@@ -416,6 +422,17 @@ def pwg_work(cfg, B, positions, inputs_floats, state=False):
     return nbytes, 2 * macs * B * positions
 
 
+def pwg_bounds(cfg, B, positions, inputs_floats, state=False):
+    """The PWG kernel's bound at the type it multiplies in (TF32 tensor
+    cores, three passes a product), and the fp32 CUDA-core bound of the
+    same function beside it."""
+    nbytes, ops = pwg_work(cfg, B, positions, inputs_floats, state)
+    b_ms, b_by = bound_ms(nbytes, TF32_PASSES * ops, "tf32")
+    b32_ms, _ = bound_ms(nbytes, ops, torch.float32)
+    return dict(bound_ms=b_ms, bound_by=b_by, bound_dtype="tf32 x3",
+                bound_fp32_ms=b32_ms)
+
+
 def phase_pwg_kernels():
     """Both PWG entries against their plain versions at PWG v1."""
     from fcl_taco2_tpu_torch.vocoder import pwg_cuda as PC
@@ -423,40 +440,67 @@ def phase_pwg_kernels():
                                                  upsample_mel)
     cfg = PWGConfig()
     pwg = ParallelWaveGAN(cfg, seed=0)
+    packed = PC.pack_pwg_weights(pwg, cfg)
     A, hop = cfg.aux_channels, cfg.hop
     delay = PC._round8(PC.total_delay(cfg))
     rows = {}
     main = None
-    for B, Tm in ((1, 1536), (8, 512)):
+    for B, Tm, check in ((1, 1536, True), (8, 512, True), (16, 1536, False)):
         g = torch.Generator(device="cuda").manual_seed(B)
         mel = torch.randn(B, Tm, A, generator=g, device="cuda")
         noise = torch.randn(B, Tm * hop, generator=g, device="cuda")
+        W = Tm * hop
 
-        def kernel():
-            return PC.pwg_generate_streaming(pwg, cfg, mel, noise)
+        def call():
+            return PC.pwg_generate_streaming(pwg, cfg, mel, noise,
+                                             packed=packed)
 
-        def plain():
-            return PC.pwg_generate_streaming_plain(pwg, cfg, mel, noise)
-
-        got, want = kernel(), plain()
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        ms = median_ms(kernel, 5)
-        plain_ms = median_ms(plain, 2, warmup=0)
-        nbytes, ops = pwg_work(cfg, B, Tm * hop, Tm * A)
-        b_ms, b_by = bound_ms(nbytes, ops, torch.float32)
-        rows[(B, Tm)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             bound_ms=b_ms, bound_by=b_by)
-        log(f"[pwg] pwg_generate_streaming B={B} Tm={Tm} (W={Tm * hop}): "
-            f"max_abs_err={err:.3e} (tol {TOL_PWG:g}: {TOL_PWG_WHY}; output "
-            f"scale {float(want.abs().max()):.3f}) kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), "
-            f"{B * Tm * hop / ms / 1e3:.2f} Msamples/s")
-        if not np.isfinite(err) or err > TOL_PWG:
-            raise RuntimeError(f"pwg_generate_streaming disagrees with its "
-                               f"plain version: {err}")
-        if main is None:
-            main = (mel, noise, got)
+        # the kernel alone: prepared aux, packed weights
+        with torch.no_grad():
+            aux = upsample_mel(pwg, cfg, mel)
+        k_ms = median_ms(lambda: PC._launch(packed, cfg, aux, noise, 0, W,
+                                            W + delay, None), 5)
+        info = dict(PC.last_launch)
+        del aux
+        call_ms = median_ms(call, 5)
+        row = dict(ms=k_ms, call_ms=call_ms, grid=info["grid"],
+                   block_rows=info["block_rows"],
+                   block_tiles=info["block_tiles"],
+                   barriers=info["barriers"],
+                   **pwg_bounds(cfg, B, W, Tm * A))
+        line = (f"[pwg] pwg_generate_streaming B={B} Tm={Tm} (W={W}): "
+                f"kernel alone {k_ms:.3f} ms, whole call (upsample + "
+                f"launch) {call_ms:.3f} ms, bound {row['bound_ms']:.4f} ms "
+                f"(operations, tf32 x3; fp32 CUDA cores "
+                f"{row['bound_fp32_ms']:.4f} ms), "
+                f"{B * W / k_ms / 1e3:.2f} Msamples/s; grid {info['grid']} "
+                f"blocks, {info['block_tiles']} block tiles of "
+                f"{info['block_rows']} rows a phase, {info['barriers']} "
+                f"grid barriers a call, {info['groups']} warp groups and "
+                f"{info['smem_bytes']} B of shared memory a block")
+        if check:
+            got = call()
+            want = PC.pwg_generate_streaming_plain(pwg, cfg, mel, noise)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            row["max_abs_err"] = err
+            row["plain_ms"] = median_ms(
+                lambda: PC.pwg_generate_streaming_plain(pwg, cfg, mel,
+                                                        noise), 2, warmup=0)
+            line += (f"; max_abs_err={err:.3e} (tol {TOL_PWG:g}: "
+                     f"{TOL_PWG_WHY}; output scale "
+                     f"{float(want.abs().max()):.3f}), plain "
+                     f"{row['plain_ms']:.3f} ms")
+            if not np.isfinite(err) or err > TOL_PWG:
+                log(line)
+                raise RuntimeError(f"pwg_generate_streaming disagrees with "
+                                   f"its plain version: {err}")
+            if main is None:
+                main = (mel, noise, got)
+        else:
+            line += " (no plain version at this size: it would take minutes)"
+        rows[(B, Tm)] = row
+        log(line)
 
     # stream steps of Vh = 4096 over the B = 1 utterance
     mel, noise, oneshot = main
@@ -467,7 +511,6 @@ def phase_pwg_kernels():
     aux[:, :W] = upsample_mel(pwg, cfg, mel)
     nz = torch.zeros(1, n * Vh, device="cuda")
     nz[:, :W] = noise
-    packed = PC.pack_pwg_weights(pwg, cfg)
     st = PC.pwg_stream_state(cfg, 1)
     st_plain = PC.pwg_stream_state(cfg, 1)
     outs, errs, mid = [], [], None
@@ -487,25 +530,36 @@ def phase_pwg_kernels():
             outs.append(wav)
     chain = torch.cat(outs, dim=1)[:, delay:delay + W]
     chain_err = float((chain - oneshot).abs().max())
+    exact = torch.equal(chain, oneshot)
     err = max(errs)
     st_mid, args = mid
     ms = median_ms(lambda: PC.pwg_stream_step(packed, cfg, st_mid, *args),
                    10)
+    info = dict(PC.last_launch)
     plain_ms = median_ms(
         lambda: PC.pwg_stream_step_plain(packed, cfg, st_mid, *args), 3)
-    nbytes, ops = pwg_work(cfg, 1, Vh, Vh * A, state=True)
-    b_ms, b_by = bound_ms(nbytes, ops, torch.float32)
     rows["step"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                        bound_ms=b_ms, bound_by=b_by)
+                        grid=info["grid"], block_rows=info["block_rows"],
+                        block_tiles=info["block_tiles"],
+                        barriers=info["barriers"],
+                        **pwg_bounds(cfg, 1, Vh, Vh * A, state=True))
     log(f"[pwg] pwg_stream_step Vh={Vh} x {n} steps: max_abs_err vs plain "
         f"(wav and state, every step) {err:.3e} (tol {TOL_PWG:g}: "
         f"{TOL_PWG_WHY}); chain vs one-shot kernel {chain_err:.3e} "
-        f"(bit-exact: {torch.equal(chain, oneshot)}; tol {TOL_PWG:g}); "
-        f"kernel {ms:.3f} ms a step, plain {plain_ms:.3f} ms, bound "
-        f"{b_ms:.4f} ms ({b_by})")
-    if not np.isfinite(err) or err > TOL_PWG or chain_err > TOL_PWG:
-        raise RuntimeError(f"pwg_stream_step disagrees: step {err}, chain "
-                           f"{chain_err}")
+        f"(bit-exact: {exact}); kernel {ms:.3f} ms a step, plain "
+        f"{plain_ms:.3f} ms, bound {rows['step']['bound_ms']:.4f} ms "
+        f"(operations, tf32 x3; fp32 CUDA cores "
+        f"{rows['step']['bound_fp32_ms']:.4f} ms); grid {info['grid']} "
+        f"blocks, {info['block_tiles']} block tiles of {info['block_rows']} "
+        f"rows a phase, {info['barriers']} grid barriers a call, "
+        f"{info['groups']} warp groups and {info['smem_bytes']} B of shared "
+        f"memory a block")
+    if not np.isfinite(err) or err > TOL_PWG:
+        raise RuntimeError(f"pwg_stream_step disagrees with its plain "
+                           f"version: {err}")
+    if not exact:
+        raise RuntimeError(f"chained pwg_stream_step calls are not bit-equal "
+                           f"to the one-shot kernel: {chain_err}")
     return pwg, rows
 
 
@@ -562,7 +616,7 @@ def phase_tts(models, pwg, kind):
             mel = out["mel"].to(pipe.pwg_dtype).float()
             nzr = noise.to(pipe.pwg_dtype).float()
             wav, voc_ms = _timed(lambda: vocode(pipe.pwg, pipe.pwg_cfg, mel,
-                                                nzr))
+                                                nzr, packed=pipe.packed))
             rows.append((syn_ms, voc_ms))
         syn_ms, voc_ms = np.median(np.array(rows[1:]), axis=0)
         log(f"[breakdown] {tag} on {kind}: synthesize {syn_ms:.2f} ms + "

@@ -1,51 +1,79 @@
-// Streaming Parallel-WaveGAN generator for Hopper (sm_90a), fp32.
+// Streaming Parallel-WaveGAN generator for Hopper (sm_90a): fp32 data,
+// products on the TF32 tensor cores at fp32 accuracy (3xTF32).
 //
 // Replaces the two Pallas TPU kernels of fcl_taco2_tpu/vocoder/pwg_pallas.py:
-//   pwg_generate_streaming (_kernel)         one-shot, zero state
-//   pwg_stream_step        (_stream_kernel)  one chunk, state in and out
+//   pwg_generate_streaming (_kernel :109, pallas_call :227)  one-shot, zero
+//                                                            state
+//   pwg_stream_step (_stream_kernel :266, pallas_call :409)  one chunk,
+//                                                            state in and out
 // Both run the causal reformulation of the 30-layer generator: layer i reads
 // its input stream x_i at positions p-2d, p-d, p, the upsampled mel at
 // p - cum_i, adds its skip output at p + delay - cum_i, and masks its output
 // to [cum_i, W + cum_i); x_0 = noise * first_w + first_b masked to p < W.
 // The entries differ only where the TPU kernels differ: the stream entry
-// loads its state before the first tile and stores it after the last, and
-// takes start and W at run time.
+// reads its state at the first tile and writes it after the last, and takes
+// start and W at run time.
 //
-// The TPU grid walks the tiles in order and carries the state in VMEM
-// scratch; Hopper blocks run in no order, and at PWG v1 the state is about
-// 3.6 MB a row (layer rings, aux history, skip accumulator), far beyond one
-// block's 227 KB.  So the state lives in device memory, indexed by absolute
-// stream position: one ring per layer input (slot = p & (rx - 1)) and one
-// for the skip accumulator (slot = q & (ra - 1)); the aux history is read
-// in place from the caller's aux (positions >= start) or the state's
-// aux_hist (positions < start).  A ring needs no shift between tiles, and
-// the JAX state layout appears only in the prologue and epilogue.
+// What bounds it on the H100.  PWG v1 does 1,294,400 multiply-adds per
+// output sample (3*64*128 + 80*128 + 64*128 per layer, 30 layers, plus the
+// head).  The JAX kernel multiplies fp32 operands into fp32 sums, and the
+// port holds this kernel to 1e-4 of an fp32 plain version, so every product
+// is split into TF32 halves, x ~ hi + lo with hi = x truncated to TF32 and
+// lo = (x - hi) truncated likewise (2^-20 relative), and
+// a.b ~ a_lo.b_hi + a_hi.b_lo + a_hi.b_hi, three m16n8k8 TF32 mma into one
+// fp32 accumulator (3xTF32): 3 x 2.59 MFLOP a sample at the 495 TFLOP/s
+// TF32 peak is 15.7 ns a sample, 6.17 ms for the 393,216 samples of a
+// 96-phoneme utterance's frame budget (15.19 ms in fp32 on the CUDA cores),
+// against about 0.2 ms for its bytes.  So the ideal kernel is bound by
+// tensor-core operations.  mma.sync is used, not wgmma: wgmma wants 64-row
+// warpgroup tiles and B in shared memory in its own layout, so the hi/lo
+// halves of the weights would have to sit in shared memory twice over
+// (278 KB for one layer's w1 alone), beyond the 227 KB a block has.
+// mma.sync takes both operands from registers, so the halves are formed as
+// the operands are loaded.  Measured on the card, mma.sync reaches about
+// half the TF32 peak, so this design's own floor is about 12.5 ms there.
+// No thread-block cluster: one layer's fp32 weights (172 KB) fit in one
+// block beside two 16-row A tiles, so the 128 gate columns need no split
+// across blocks; a 2-block cluster (64 columns a block, g exchanged through
+// distributed shared memory) is what would make room for the hi/lo halves
+// that wgmma needs.
 //
-// One cooperative launch walks the time tiles in order.  Per tile of n
-// positions (all B rows): phase F writes x_0; phases 0..L-1 run the layers;
-// phase H reads the skip sum and runs the head (relu, last1, relu, last2).
-// A grid-wide barrier separates the phases; inside a phase the B*n rows are
-// cut into 64-row block tiles spread over all blocks, so batch 1 fills the
-// card as batch 8 does.  Each block tile is two register-blocked fp32
-// products staged through shared memory: h = [x(p-2d) x(p-d) x(p) aux] @ w1
-// (K = 3*64 + A padded to 16, N = 128 gate columns), then
-// [skip | out] = g @ w2 (K = 64, N = 128).  Every output element sums its
-// products in one fixed order whatever the tiling, so chained stream steps
-// equal the one-shot call bit for bit.
+// Schedule.  One cooperative launch walks the time tiles in order.  Per
+// tile of n positions (all B rows): phases 0..L-1 run the layers; phase H
+// reads the skip sum, runs the head (relu, last1, relu, last2) and writes
+// x_0 of the next tile.  A grid-wide barrier separates the phases (1 +
+// tiles * (L + 1) a call; the launcher reports the count).  Inside a phase
+// the B*n rows are cut into 16-row block tiles, dealt to the warp groups of
+// persistent blocks, one block per SM: two groups of 8 warps a block, each
+// with its own A tile and g tile and its own named barrier, so one group's
+// gather, gate and stores overlap the other's products (one group where the
+// aux width leaves no room for two).  Tiles go to the groups group-major,
+// so a batch-1 stream step of 4096 samples (256 tiles) still puts work on
+// all 132 SMs.  A block loads its layer's weights once a phase with
+// cp.async into shared memory, w1 (K1p x 128, 139 KB at PWG v1) and w2
+// (64 x 128), both packed in m16n8k8 B-fragment order so a lane reads its
+// four values of a k step as one 16-byte load.  Each of a group's 8 warps
+// owns 8 tanh columns and the matching 8 sigmoid columns, so the gate forms
+// in registers; g goes through shared memory to the second product
+// (K = 64, N = 128: [skip | out]).  The gather of a group's next A tile
+// ([x(p-2d) x(p-d) x(p) aux], K1p = 3*64 + A padded to 8) is in flight
+// while the other group multiplies.
 //
-// What bounds it on the H100.  PWG v1 does 1.29 M multiply-adds per output
-// sample (3*64*128 + 80*128 + 64*64 + 64*64 per layer, 30 layers, plus the
-// head); in fp32 on the CUDA cores (67 TFLOP/s) that is 38.6 ns a sample,
-// 15.2 ms for the 393,216 samples of a 96-phoneme utterance's frame budget,
-// while its bytes (weights 5.2 MB once, aux 126 MB, noise and wav) take
-// 39 us at 3.35 TB/s.  So the ideal kernel is bound by fp32 operations.
-// What the design does about it: the whole layer stack runs in one launch;
-// activations, rings and the 5.2 MB of weights stay in the 50 MB L2 at the
-// chosen tile (B * tile = 16,384 rows a phase); each thread computes a 4 x 8
-// block of outputs from 16-byte shared-memory loads (3 vector loads per 32
-// FMAs).  Left for later PRs: tensor cores (TF32 or bf16x3 would change the
-// numbers and need a tolerance decision), cp.async/TMA staging of the weight
-// chunks, and fusing the upsampler so the 126 MB aux never leaves the chip.
+// Where the data lives.  The current tile's activations pass between layers
+// in a ping-pong buffer of one tile (2 x B x tile x 64 fp32, 8.4 MB at
+// B * tile = 16,384 rows); each layer keeps only the 2d-row history its taps
+// need (max(8, 2d) rows, the JAX state's layout) in two buffers that
+// alternate by tile parity (3.2 MB a batch row at PWG v1); the skip sums
+// sit in a ring of pow2(tile + delay) rows (8.4 MB).  At B=1 that is about
+// 20 MB besides the aux (5.2 MB a tile, re-read by every layer), within the
+// 50 MB L2.  The JAX state layout appears only at the ends: the first tile
+// reads the layer histories from bufs_in and the last one writes them to
+// bufs_out.
+//
+// Exactness.  Every output element sums its products in one fixed order
+// (K steps of 8, three mma each, in order) whatever the row tile or the
+// time tile, and the head's column sums reduce in a fixed tree; so chained
+// stream steps equal the one-shot call bit for bit.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -60,13 +88,15 @@ extern "C" {
 struct PwgArgs {
   const float* noise;    // (B, n_noise): positions [start, start + n_noise)
   const float* aux;      // (B, n_aux, A): positions [start, start + n_aux)
-  const float* w1;       // (L, K1p, 128)
+  const float* w1k;      // (L, K1p/8, 8, 32, 4): w1 (K1p, 128) as the B
+                         // fragments of each k step, warp and lane
   const float* b1;       // (L, 128)
-  const float* w2;       // (L, 64, 128): [skip | out]
+  const float* w2k;      // (L, 8, 8, 32, 4): w2 (64, 128) = [skip | out]
+                         // in the same fragment order
   const float* b2;       // (L, 128)
   const float* first_w;  // (64,)
   const float* first_b;  // (64,)
-  const float* last1_w;  // (64, 128), columns 64.. zero
+  const float* last1_w;  // (64, 64) as (in, out)
   const float* last1_b;  // (64,)
   const float* last2_w;  // (64,)
   const float* last2_b;  // (1,)
@@ -77,24 +107,25 @@ struct PwgArgs {
   float* ah_out;         // (B, delay, A) or null (no state out)
   float* acc_out;        // (B, delay, 64) or null
   float* bufs_out;       // (B, sum_bw, 64) or null
-  float* ring_x;         // (B, L, rx, 64) scratch
-  float* ring_acc;       // (B, ra, 64) scratch
-  int B, N, n_aux, n_noise, start, W, A, K1p, L, delay, tile, rx, ra, sum_bw;
+  float* xbuf;           // (2, B, tile, 64) ping-pong of one time tile
+  float* hbuf;           // (2, B, sum_bw, 64) layer histories by tile parity
+  float* ring_acc;       // (B, ra, 64) skip sums
+  int B, N, n_aux, n_noise, start, W, A, K1p, L, delay, tile, ra, sum_bw;
   float z_scale;         // sqrt(1 / L)
   int dil[MAX_LAYERS];
   int cum[MAX_LAYERS];     // d_0 + .. + d_i
   int bw[MAX_LAYERS];      // max(8, 2 d_i)
-  int buf_off[MAX_LAYERS]; // row offset of layer i in bufs_in / bufs_out
+  int buf_off[MAX_LAYERS]; // row offset of layer i in the history arrays
 };
 }
 
 namespace {
 
 constexpr int C = 64;     // residual channels (= skip channels = gates / 2)
-constexpr int NC = 128;   // output columns of every product
-constexpr int NT = 256;   // threads: 16 column groups x 16 row groups
-constexpr int TM = 64;    // rows (stream positions) per block tile
-constexpr int KC = 16;    // contraction rows per staged weight chunk
+constexpr int NC = 128;   // output columns of the layer products
+constexpr int GW = 8;     // warps of a group: 8 x (8 tanh + 8 sigmoid) columns
+constexpr int TM = 16;    // rows (stream positions) of a block tile
+constexpr int GS = C + 4;   // g / z tile row stride (no bank conflicts)
 constexpr float SQRT_HALF = 0.70710678118654752f;
 
 __device__ __forceinline__ float4 ld4(const float* p) {
@@ -103,93 +134,108 @@ __device__ __forceinline__ float4 ld4(const float* p) {
 __device__ __forceinline__ void st4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
 }
-
-// Conditioning at stream position q, columns col..col+3: the caller's aux
-// from start on, the state's history before it, zero past the aux's end.
-__device__ __forceinline__ float4 aux4(const PwgArgs& a, int b, int q,
-                                       int col) {
-  const int j = q - a.start;
-  if (j >= 0) {
-    if (j < a.n_aux)
-      return ld4(a.aux + ((size_t)b * a.n_aux + j) * a.A + col);
-    return make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  if (a.ah_in != nullptr)
-    return ld4(a.ah_in + ((size_t)b * a.delay + j + a.delay) * a.A + col);
-  return make_float4(0.f, 0.f, 0.f, 0.f);
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ void st2(float* p, float2 v) {
+  *reinterpret_cast<float2*>(p) = v;
 }
 
-__device__ __forceinline__ float* xrow(const PwgArgs& a, int b, int layer,
-                                       int p) {
-  return a.ring_x + (((size_t)b * a.L + layer) * a.rx + (p & (a.rx - 1))) * C;
+__device__ __forceinline__ void cp16(float* smem, const float* gmem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// x ~ hi + lo, both TF32 (the fp32 mantissa truncated to 10 bits; the
+// low 13 bits cleared, so the tensor cores see exact TF32 values): hi
+// carries x to 2^-10, x - hi is exact, lo carries it on to 2^-20.
+constexpr uint32_t TF32_MASK = 0xffffe000u;
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & TF32_MASK;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & TF32_MASK;
+}
+
+__device__ __forceinline__ void mma(float c[4], const uint32_t a[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a.b in 3xTF32: the two small terms first, then hi.hi
+__device__ __forceinline__ void mma3(float c[4], const uint32_t ah[4],
+                                     const uint32_t al[4], const uint32_t bh[2],
+                                     const uint32_t bl[2]) {
+  mma(c, al, bh[0], bh[1]);
+  mma(c, ah, bl[0], bl[1]);
+  mma(c, ah, bh[0], bh[1]);
+}
+
+// The A fragment of m16n8k8 (rows g, g+8; columns t, t+4) from a
+// row-major tile with row stride ld, split into TF32 halves.
+__device__ __forceinline__ void load_a(const float* p, int ld, uint32_t ah[4],
+                                       uint32_t al[4]) {
+  split(p[0], ah[0], al[0]);
+  split(p[8 * ld], ah[1], al[1]);
+  split(p[4], ah[2], al[2]);
+  split(p[8 * ld + 4], ah[3], al[3]);
+}
+
+// The B fragment (rows t, t+4 of a row-major K x N matrix, column col)
+__device__ __forceinline__ void load_b(const float* p, int ld, uint32_t bh[2],
+                                       uint32_t bl[2]) {
+  split(p[0], bh[0], bl[0]);
+  split(p[4 * ld], bh[1], bl[1]);
+}
+
+// Conditioning row at stream position q: the caller's aux from start on,
+// the state's history before it; null (zero) past the aux's end or with
+// no state.
+__device__ __forceinline__ const float* aux_row(const PwgArgs& a, int b,
+                                                int q) {
+  const int j = q - a.start;
+  if (j >= 0)
+    return j < a.n_aux ? a.aux + ((size_t)b * a.n_aux + j) * a.A : nullptr;
+  return a.ah_in ? a.ah_in + ((size_t)b * a.delay + j + a.delay) * a.A
+                 : nullptr;
 }
 
 __device__ __forceinline__ float* accrow(const PwgArgs& a, int b, int q) {
   return a.ring_acc + ((size_t)b * a.ra + (q & (a.ra - 1))) * C;
 }
 
-// acc[r][c] = sum_k a_s[k][4ty + r] * W[k][col(c)], k in [0, K), where
-// col(c) = 4tx + c for c < 4 and 64 + 4tx + (c - 4) otherwise.  W (K, 128)
-// is read from global memory in KC-row chunks, double-buffered in w_s; the
-// next chunk's loads are in flight while the current one is multiplied.
-// Ends with a barrier, so w_s and a_s are free on return.
-__device__ __forceinline__ void block_gemm(const float* __restrict__ w, int K,
-                                           const float* a_s, float* w_s,
-                                           float acc[4][8], int tx, int ty,
-                                           int tid) {
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
-  const int nch = K / KC;
-  // a chunk is KC x 128 floats = 512 float4: two per thread
-  const int e0 = tid, e1 = tid + NT;
-  float4 pre0 = ld4(w + (size_t)(e0 / 32) * NC + (e0 % 32) * 4);
-  float4 pre1 = ld4(w + (size_t)(e1 / 32) * NC + (e1 % 32) * 4);
-  st4(w_s + (e0 / 32) * NC + (e0 % 32) * 4, pre0);
-  st4(w_s + (e1 / 32) * NC + (e1 % 32) * 4, pre1);
-  __syncthreads();
-  for (int ch = 0; ch < nch; ++ch) {
-    if (ch + 1 < nch) {
-      const float* wc = w + (size_t)(ch + 1) * KC * NC;
-      pre0 = ld4(wc + (e0 / 32) * NC + (e0 % 32) * 4);
-      pre1 = ld4(wc + (e1 / 32) * NC + (e1 % 32) * 4);
-    }
-    const float* wb = w_s + (ch & 1) * KC * NC;
-    const float* ab = a_s + ch * KC * TM;
-#pragma unroll
-    for (int kk = 0; kk < KC; ++kk) {
-      const float4 av = ld4(ab + kk * TM + 4 * ty);
-      const float4 w0 = ld4(wb + kk * NC + 4 * tx);
-      const float4 w1 = ld4(wb + kk * NC + 64 + 4 * tx);
-      const float ar[4] = {av.x, av.y, av.z, av.w};
-      const float wr[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(ar[r], wr[c], acc[r][c]);
-    }
-    if (ch + 1 < nch) {
-      float* wn = w_s + ((ch + 1) & 1) * KC * NC;
-      st4(wn + (e0 / 32) * NC + (e0 % 32) * 4, pre0);
-      st4(wn + (e1 / 32) * NC + (e1 % 32) * 4, pre1);
-    }
-    __syncthreads();
-  }
+__device__ __forceinline__ float* xcur(const PwgArgs& a, int par, int b,
+                                       int r) {
+  return a.xbuf + (((size_t)par * a.B + b) * a.tile + r) * C;
 }
 
-// Load the state into the rings (zero where there is none).
+// One time tile: positions [s0, s0 + n); the layer histories are read from
+// hread (positions [s0 - bw_i, s0)) and written to hwrite (positions
+// [s0 + n - bw_i, s0 + n)); either may be null (zero state / none kept).
+struct Tile {
+  int s0, n;
+  const float* hread;
+  float* hwrite;
+};
+
+// Offset of row r of layer i's history (batch row b) in a history array.
+__device__ __forceinline__ size_t hrow(const PwgArgs& a, int b, int i,
+                                       int r) {
+  return ((size_t)b * a.sum_bw + a.buf_off[i] + r) * C;
+}
+
+// Load the state's skip sums into the ring (zero elsewhere).
 __device__ void prologue(const PwgArgs& a, size_t gtid, size_t gstride) {
-  const size_t nbuf = (size_t)a.B * a.sum_bw * C;
-  for (size_t e = gtid; e < nbuf; e += gstride) {
-    const int c = e % C;
-    const int row = (e / C) % a.sum_bw;
-    const int b = e / ((size_t)C * a.sum_bw);
-    int i = 0;
-    while (row >= a.buf_off[i] + a.bw[i]) ++i;
-    const int p = a.start - a.bw[i] + (row - a.buf_off[i]);
-    xrow(a, b, i, p)[c] = a.bufs_in ? a.bufs_in[e] : 0.f;
-  }
   const size_t nacc = (size_t)a.B * a.ra * C;
   for (size_t e = gtid; e < nacc; e += gstride) {
     const int c = e % C;
@@ -202,16 +248,19 @@ __device__ void prologue(const PwgArgs& a, size_t gtid, size_t gstride) {
   }
 }
 
-// Store the state after the last tile (stream entry only).
+// Store the aux history and the skip sums after the last tile (stream
+// entry only; the layer histories were written by the last tile).
 __device__ void epilogue(const PwgArgs& a, size_t gtid, size_t gstride) {
   const int end = a.start + a.N;
-  const size_t nah = (size_t)a.B * a.delay * (a.A / 4);
+  const int A4 = a.A / 4;
+  const size_t nah = (size_t)a.B * a.delay * A4;
   for (size_t e = gtid; e < nah; e += gstride) {
-    const int c4 = e % (a.A / 4);
-    const int j = (e / (a.A / 4)) % a.delay;
-    const int b = e / ((size_t)(a.A / 4) * a.delay);
+    const int c4 = e % A4;
+    const int j = (e / A4) % a.delay;
+    const int b = e / ((size_t)A4 * a.delay);
+    const float* src = aux_row(a, b, end - a.delay + j);
     st4(a.ah_out + ((size_t)b * a.delay + j) * a.A + 4 * c4,
-        aux4(a, b, end - a.delay + j, 4 * c4));
+        src ? ld4(src + 4 * c4) : make_float4(0.f, 0.f, 0.f, 0.f));
   }
   const size_t nacc = (size_t)a.B * a.delay * C;
   for (size_t e = gtid; e < nacc; e += gstride) {
@@ -220,126 +269,258 @@ __device__ void epilogue(const PwgArgs& a, size_t gtid, size_t gstride) {
     const int b = e / ((size_t)C * a.delay);
     a.acc_out[e] = accrow(a, b, end + j)[c];
   }
-  const size_t nbuf = (size_t)a.B * a.sum_bw * C;
-  for (size_t e = gtid; e < nbuf; e += gstride) {
-    const int c = e % C;
-    const int row = (e / C) % a.sum_bw;
-    const int b = e / ((size_t)C * a.sum_bw);
-    int i = 0;
-    while (row >= a.buf_off[i] + a.bw[i]) ++i;
-    a.bufs_out[e] = xrow(a, b, i, end - a.bw[i] + (row - a.buf_off[i]))[c];
+}
+
+// x_0 at positions [s0, s0 + n) of every row into ping-pong buffer 0.
+__device__ void first_conv(const PwgArgs& a, int s0, int n, size_t gtid,
+                           size_t gstride) {
+  const size_t total = (size_t)a.B * n * (C / 4);
+  for (size_t e = gtid; e < total; e += gstride) {
+    const int c = 4 * (e % (C / 4));
+    const int r = (e / (C / 4)) % n;
+    const int b = e / ((size_t)(C / 4) * n);
+    const int p = s0 + r;
+    const int j = p - a.start;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (p < a.W) {
+      const float nz = j < a.n_noise ? a.noise[(size_t)b * a.n_noise + j] : 0.f;
+      const float4 w = ld4(a.first_w + c), bb = ld4(a.first_b + c);
+      v = make_float4(nz * w.x + bb.x, nz * w.y + bb.y, nz * w.z + bb.z,
+                      nz * w.w + bb.w);
+    }
+    st4(xcur(a, 0, b, r) + c, v);
   }
 }
 
-// Phase F: x_0 at positions [s0, s0 + n) of every row.
-__device__ void first_conv(const PwgArgs& a, int s0, int n, size_t gtid,
-                           size_t gstride) {
-  const size_t total = (size_t)a.B * n * C;
+// Layer i's history for the next tile: x_i at [s0 + n - bw, s0 + n), from
+// the current tile's buffer or, where n < bw, the older history.
+__device__ void write_history(const PwgArgs& a, int i, const Tile& tl,
+                              size_t gtid, size_t gstride) {
+  if (tl.hwrite == nullptr) return;
+  const int bw = a.bw[i];
+  const size_t total = (size_t)a.B * bw * (C / 4);
   for (size_t e = gtid; e < total; e += gstride) {
-    const int c = e % C;
-    const int r = (e / C) % n;
-    const int b = e / ((size_t)C * n);
-    const int p = s0 + r;
-    const int j = p - a.start;
-    float v = 0.f;
-    if (p < a.W) {
-      const float nz = j < a.n_noise ? a.noise[(size_t)b * a.n_noise + j] : 0.f;
-      v = nz * a.first_w[c] + a.first_b[c];
-    }
-    xrow(a, b, 0, p)[c] = v;
+    const int c = 4 * (e % (C / 4));
+    const int r = (e / (C / 4)) % bw;
+    const int b = e / ((size_t)(C / 4) * bw);
+    const int q = tl.s0 + tl.n - bw + r;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q >= tl.s0)
+      v = ld4(xcur(a, i & 1, b, q - tl.s0) + c);
+    else if (tl.hread != nullptr)
+      v = ld4(tl.hread + hrow(a, b, i, r + tl.n) + c);
+    st4(tl.hwrite + hrow(a, b, i, r) + c, v);
   }
+}
+
+// Gather block tile rt of layer i into a group's A tile (TM x KA):
+// [x_i(p-2d) x_i(p-d) x_i(p) aux(p-cum) 0-pad], a row per warp, 16-byte
+// cp.async per piece, zeros stored where there is no source.
+__device__ void gather(const PwgArgs& a, int i, const Tile& tl, int rt,
+                       float* as, int wid, int lane) {
+  const int rows = a.B * tl.n;
+  const int KQ = a.K1p / 4, KA = a.K1p + 4;
+  const int d = a.dil[i], cum = a.cum[i], bw = a.bw[i];
+  const int aux_end = 3 * (C / 4) + a.A / 4;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int m = wid; m < TM; m += GW) {
+    float* dst = as + m * KA;
+    const int jg = rt * TM + m;
+    if (jg >= rows) {
+      for (int c4 = lane; c4 < KQ; c4 += 32) st4(dst + 4 * c4, zero);
+      continue;
+    }
+    const int b = jg / tl.n, p = tl.s0 + (jg - b * tl.n);
+    const float* arow = aux_row(a, b, p - cum);
+    for (int c4 = lane; c4 < KQ; c4 += 32) {
+      const float* src = nullptr;
+      if (c4 < 3 * (C / 4)) {
+        const int tap = c4 >> 4, col = 4 * (c4 & 15);
+        const int q = p - (2 - tap) * d;
+        if (q >= tl.s0)
+          src = xcur(a, i & 1, b, q - tl.s0) + col;
+        else if (tl.hread != nullptr)
+          src = tl.hread + hrow(a, b, i, bw - (tl.s0 - q)) + col;
+      } else if (c4 < aux_end && arow != nullptr) {
+        src = arow + 4 * (c4 - 3 * (C / 4));
+      }
+      if (src != nullptr)
+        cp16(dst + 4 * c4, src);
+      else
+        st4(dst + 4 * c4, zero);
+    }
+  }
+}
+
+// The per-thread view of a block: NG groups of GW warps; each group works
+// on its own block tiles with its own A tile and g tile, synchronised by
+// its own named barrier, so one group's gather, gate and stores overlap
+// the other's products.  Tiles go to groups group-major (tile rt to
+// group rt / grid of block rt % grid), so a phase of fewer tiles than
+// groups still puts work on every block.
+struct Lanes {
+  int grp, wid, lane, g, t;
+};
+
+__device__ __forceinline__ void group_sync(int grp) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + grp), "r"(GW * 32)
+               : "memory");
 }
 
 // Phase i: layer i over the rows [s0, s0 + n) of every batch row.
-__device__ void layer(const PwgArgs& a, int i, int s0, int n, float* a_s,
-                      float* w_s, float* g_s, int tx, int ty, int tid) {
-  const int rows = a.B * n;
+template <int NG>
+__device__ void layer(const PwgArgs& a, int i, const Tile& tl, float* w_s,
+                      float* w2_s, float* a_s, float* g_s, const Lanes& q,
+                      size_t gtid, size_t gstride) {
+  write_history(a, i, tl, gtid, gstride);
+  const int rows = a.B * tl.n;
   const int n_rt = (rows + TM - 1) / TM;
-  const int d = a.dil[i], cum = a.cum[i];
-  const int k_aux = 3 * C, k_end = 3 * C + a.A;
-  const float* w1 = a.w1 + (size_t)i * a.K1p * NC;
-  const float* w2 = a.w2 + (size_t)i * C * NC;
-  for (int rt = blockIdx.x; rt < n_rt; rt += gridDim.x) {
-    // A tile, k-major: a_s[k][m]
-    for (int e = tid; e < (a.K1p / 4) * TM; e += NT) {
-      const int m = e % TM, k = 4 * (e / TM);
-      const int jg = rt * TM + m;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (jg < rows) {
-        const int b = jg / n, p = s0 + jg % n;
-        if (k < k_aux) {
-          const int t = k / C;
-          v = ld4(xrow(a, b, i, p - (2 - t) * d) + (k % C));
-        } else if (k < k_end) {
-          v = aux4(a, b, p - cum, k - k_aux);
-        }
-      }
-      a_s[(k + 0) * TM + m] = v.x;
-      a_s[(k + 1) * TM + m] = v.y;
-      a_s[(k + 2) * TM + m] = v.z;
-      a_s[(k + 3) * TM + m] = v.w;
+  if ((int)blockIdx.x >= n_rt) return;
+  const int tid = threadIdx.x;
+  const int KA = a.K1p + 4;
+  const int wid = q.wid, lane = q.lane, g = q.g, t = q.t;
+  const int cum = a.cum[i];
+  const int n_groups = gridDim.x * NG;
+  float* const as = a_s + q.grp * TM * KA;
+  float* const gs = g_s + q.grp * TM * GS;
+
+  // this layer's weights into shared memory, with each group's first tile
+  const float* w1 = a.w1k + (size_t)i * a.K1p * NC;
+  for (int e = tid; e < a.K1p * (NC / 4); e += NG * GW * 32)
+    cp16(w_s + 4 * e, w1 + 4 * e);
+  const float* w2 = a.w2k + (size_t)i * C * NC;
+  for (int e = tid; e < C * (NC / 4); e += NG * GW * 32)
+    cp16(w2_s + 4 * e, w2 + 4 * e);
+  int rt = q.grp * gridDim.x + blockIdx.x;  // group-major: all SMs busy
+  if (rt < n_rt) gather(a, i, tl, rt, as, wid, lane);
+  cp_commit();
+  cp_wait<0>();
+  __syncthreads();
+
+  const float* b1 = a.b1 + i * NC;
+  const float* b2 = a.b2 + i * NC;
+  const int ccol = 8 * wid + 2 * t;  // C-fragment columns ccol, ccol + 1
+  const float2 b1t = ld2(b1 + ccol), b1s = ld2(b1 + 64 + ccol);
+  const float2 b2s = ld2(b2 + ccol), b2o = ld2(b2 + 64 + ccol);
+  const bool xnext = i + 1 < a.L;
+
+  for (; rt < n_rt; rt += n_groups) {
+    // h = A @ w1: this warp's 8 tanh columns and their sigmoid partners
+    float acc[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
+#pragma unroll 4
+    for (int s = 0; s < a.K1p / 8; ++s) {
+      uint32_t bh[2][2], bl[2][2], ah[4], al[4];
+      const float4 bv = ld4(w_s + ((s * GW + wid) * 32 + lane) * 4);
+      split(bv.x, bh[0][0], bl[0][0]);
+      split(bv.y, bh[0][1], bl[0][1]);
+      split(bv.z, bh[1][0], bl[1][0]);
+      split(bv.w, bh[1][1], bl[1][1]);
+      load_a(as + g * KA + 8 * s + t, KA, ah, al);
+      mma3(acc[0], ah, al, bh[0], bl[0]);
+      mma3(acc[1], ah, al, bh[1], bl[1]);
     }
-    __syncthreads();
-    float acc[4][8];
-    block_gemm(w1, a.K1p, a_s, w_s, acc, tx, ty, tid);
-    // gated activation; g_s[k][m] is the second product's A tile
+    // gated activation into the g tile (rows g, g + 8)
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+    for (int h = 0; h < 2; ++h) {
+      const float t0 = acc[0][2 * h] + b1t.x;
+      const float t1 = acc[0][2 * h + 1] + b1t.y;
+      const float s0 = acc[1][2 * h] + b1s.x;
+      const float s1 = acc[1][2 * h + 1] + b1s.y;
+      float2 gv;
+      gv.x = tanhf(t0) * (1.f / (1.f + expf(-s0)));
+      gv.y = tanhf(t1) * (1.f / (1.f + expf(-s1)));
+      st2(gs + (g + 8 * h) * GS + ccol, gv);
+    }
+    // the skip sums this tile adds to, loaded while g @ w2 runs, and the
+    // residual x_i(p - d) from the A tile, which is then free
+    float2 sk[2], center[2];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float ht = acc[r][c] + a.b1[i * NC + 4 * tx + c];
-        const float hs = acc[r][4 + c] + a.b1[i * NC + 64 + 4 * tx + c];
-        g_s[(4 * tx + c) * TM + 4 * ty + r] =
-            tanhf(ht) * (1.f / (1.f + expf(-hs)));
+    for (int h = 0; h < 2; ++h) {
+      const int jg = rt * TM + g + 8 * h;
+      sk[h] = make_float2(0.f, 0.f);
+      if (jg < rows) {
+        const int b = jg / tl.n, p = tl.s0 + (jg - b * tl.n);
+        sk[h] = ld2(accrow(a, b, p + a.delay - cum) + ccol);
       }
-    __syncthreads();
-    block_gemm(w2, C, g_s, w_s, acc, tx, ty, tid);
-    const float* b2 = a.b2 + i * NC;
+      center[h] = ld2(as + (g + 8 * h) * KA + C + ccol);
+    }
+    group_sync(q.grp);
+    // the next tile's gather runs under this tile's second product
+    if (rt + n_groups < n_rt) gather(a, i, tl, rt + n_groups, as, wid, lane);
+    cp_commit();
+    // [skip | out] = g @ w2
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int m = 4 * ty + r;
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
+#pragma unroll
+    for (int s = 0; s < C / 8; ++s) {
+      uint32_t bh[2][2], bl[2][2], ah[4], al[4];
+      const float4 bv = ld4(w2_s + ((s * GW + wid) * 32 + lane) * 4);
+      split(bv.x, bh[0][0], bl[0][0]);
+      split(bv.y, bh[0][1], bl[0][1]);
+      split(bv.z, bh[1][0], bl[1][0]);
+      split(bv.w, bh[1][1], bl[1][1]);
+      load_a(gs + g * GS + 8 * s + t, GS, ah, al);
+      mma3(acc[0], ah, al, bh[0], bl[0]);
+      mma3(acc[1], ah, al, bh[1], bl[1]);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = g + 8 * h;
       const int jg = rt * TM + m;
       if (jg >= rows) continue;
-      const int b = jg / n, p = s0 + jg % n;
-      float* ap = accrow(a, b, p + a.delay - cum) + 4 * tx;
-      float4 s = ld4(ap);
-      s.x = s.x + acc[r][0] + b2[4 * tx + 0];
-      s.y = s.y + acc[r][1] + b2[4 * tx + 1];
-      s.z = s.z + acc[r][2] + b2[4 * tx + 2];
-      s.w = s.w + acc[r][3] + b2[4 * tx + 3];
-      st4(ap, s);
-      if (i + 1 < a.L) {
+      const int b = jg / tl.n, r = jg - b * tl.n, p = tl.s0 + r;
+      float2 sum = sk[h];
+      sum.x = sum.x + acc[0][2 * h] + b2s.x;
+      sum.y = sum.y + acc[0][2 * h + 1] + b2s.y;
+      st2(accrow(a, b, p + a.delay - cum) + ccol, sum);
+      if (xnext) {
         const bool keep = p >= cum && p < a.W + cum;
-        float xo[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const float center = a_s[(C + 4 * tx + c) * TM + m];  // x_i(p - d)
-          xo[c] = keep ? ((acc[r][4 + c] + b2[64 + 4 * tx + c]) + center) *
-                             SQRT_HALF
-                       : 0.f;
+        float2 xo = make_float2(0.f, 0.f);
+        if (keep) {
+          xo.x = ((acc[1][2 * h] + b2o.x) + center[h].x) * SQRT_HALF;
+          xo.y = ((acc[1][2 * h + 1] + b2o.y) + center[h].y) * SQRT_HALF;
         }
-        st4(xrow(a, b, i + 1, p) + 4 * tx,
-            make_float4(xo[0], xo[1], xo[2], xo[3]));
+        st2(xcur(a, (i + 1) & 1, b, r) + ccol, xo);
       }
     }
-    __syncthreads();  // a_s and g_s are reused by the next block tile
+    cp_wait<0>();
+    group_sync(q.grp);  // the next A tile is in, the g tile is free
   }
 }
 
 // Phase H: wav at positions [s0, s0 + n); the read skip slots are zeroed
 // for their reuse ra positions later.
-__device__ void head(const PwgArgs& a, int s0, int n, float* a_s, float* w_s,
-                     int tx, int ty, int tid) {
-  const int rows = a.B * n;
+template <int NG>
+__device__ void head(const PwgArgs& a, const Tile& tl, float* a_s,
+                     float* g_s, const Lanes& q) {
+  const int rows = a.B * tl.n;
   const int n_rt = (rows + TM - 1) / TM;
-  for (int rt = blockIdx.x; rt < n_rt; rt += gridDim.x) {
-    for (int e = tid; e < (C / 4) * TM; e += NT) {
-      const int m = e % TM, k = 4 * (e / TM);
+  const int wid = q.wid, lane = q.lane, g = q.g, t = q.t;
+  const int gl = wid * 32 + lane;  // thread in the group
+  const int col = 8 * wid + g, ccol = 8 * wid + 2 * t;
+  uint32_t lh[8][2], ll[8][2];
+#pragma unroll
+  for (int s = 0; s < 8; ++s)
+    load_b(a.last1_w + (8 * s + t) * C + col, C, lh[s], ll[s]);
+  const float2 l1b = ld2(a.last1_b + ccol), l2w = ld2(a.last2_w + ccol);
+  float* const red = a_s + q.grp * TM * (a.K1p + 4);  // (TM, GW) partials
+  float* const zs = g_s + q.grp * TM * GS;
+  const int n_groups = gridDim.x * NG;
+  for (int rt = q.grp * gridDim.x + blockIdx.x; rt < n_rt;
+       rt += n_groups) {
+    for (int e = gl; e < TM * (C / 4); e += GW * 32) {
+      const int m = e / (C / 4), c = 4 * (e % (C / 4));
       const int jg = rt * TM + m;
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
       if (jg < rows) {
-        const int b = jg / n, p = s0 + jg % n;
-        float* ap = accrow(a, b, p) + k;
+        const int b = jg / tl.n, p = tl.s0 + (jg - b * tl.n);
+        float* ap = accrow(a, b, p) + c;
         v = ld4(ap);
         st4(ap, make_float4(0.f, 0.f, 0.f, 0.f));
         v.x = fmaxf(v.x * a.z_scale, 0.f);
@@ -347,98 +528,145 @@ __device__ void head(const PwgArgs& a, int s0, int n, float* a_s, float* w_s,
         v.z = fmaxf(v.z * a.z_scale, 0.f);
         v.w = fmaxf(v.w * a.z_scale, 0.f);
       }
-      a_s[(k + 0) * TM + m] = v.x;
-      a_s[(k + 1) * TM + m] = v.y;
-      a_s[(k + 2) * TM + m] = v.z;
-      a_s[(k + 3) * TM + m] = v.w;
+      st4(zs + m * GS + c, v);
     }
-    __syncthreads();
-    float acc[4][8];
-    block_gemm(a.last1_w, C, a_s, w_s, acc, tx, ty, tid);
+    group_sync(q.grp);
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      float part = 0.f;
+    for (int s = 0; s < 8; ++s) {
+      uint32_t ah[4], al[4];
+      load_a(zs + g * GS + 8 * s + t, GS, ah, al);
+      mma3(acc, ah, al, lh[s], ll[s]);
+    }
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float z = fmaxf(acc[r][c] + a.last1_b[4 * tx + c], 0.f);
-        part = fmaf(z, a.last2_w[4 * tx + c], part);
-      }
-      // the 16 column groups of a row sit in one half-warp
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        part += __shfl_xor_sync(0xffffffffu, part, off);
-      const int jg = rt * TM + 4 * ty + r;
-      if (tx == 0 && jg < rows) {
-        const int b = jg / n, p = s0 + jg % n;
-        a.wav[(size_t)b * a.N + (p - a.start)] = part + a.last2_b[0];
+    for (int h = 0; h < 2; ++h) {
+      const float z0 = fmaxf(acc[2 * h] + l1b.x, 0.f);
+      const float z1 = fmaxf(acc[2 * h + 1] + l1b.y, 0.f);
+      float part = fmaf(z1, l2w.y, z0 * l2w.x);
+      part += __shfl_xor_sync(0xffffffffu, part, 1);
+      part += __shfl_xor_sync(0xffffffffu, part, 2);
+      if (t == 0) red[(g + 8 * h) * GW + wid] = part;
+    }
+    group_sync(q.grp);
+    if (gl < TM) {
+      const int jg = rt * TM + gl;
+      if (jg < rows) {
+        const float* pr = red + gl * GW;
+        const float sum = ((pr[0] + pr[1]) + (pr[2] + pr[3])) +
+                          ((pr[4] + pr[5]) + (pr[6] + pr[7]));
+        const int b = jg / tl.n, p = tl.s0 + (jg - b * tl.n);
+        a.wav[(size_t)b * a.N + (p - a.start)] = sum + a.last2_b[0];
       }
     }
+    group_sync(q.grp);  // red and the z tile are reused by the next tile
   }
 }
 
-__global__ void __launch_bounds__(NT, 2) pwg_stream_kernel(PwgArgs a) {
+template <int NG>
+__global__ void __launch_bounds__(NG * GW * 32, 1)
+    pwg_stream_kernel(PwgArgs a) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ float4 smem4[];
-  float* a_s = reinterpret_cast<float*>(smem4);  // (K1p, TM)
-  float* w_s = a_s + (size_t)a.K1p * TM;         // (2, KC, 128)
-  float* g_s = w_s + 2 * KC * NC;                 // (64, TM)
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const size_t gtid = (size_t)blockIdx.x * NT + tid;
-  const size_t gstride = (size_t)gridDim.x * NT;
+  float* w_s = reinterpret_cast<float*>(smem4);   // (K1p * 128) w1k
+  float* w2_s = w_s + (size_t)a.K1p * NC;         // (64 * 128) w2k
+  float* a_s = w2_s + C * NC;                     // (NG, TM, K1p + 4)
+  float* g_s = a_s + NG * TM * (a.K1p + 4);       // (NG, TM, GS)
+  Lanes q;
+  q.grp = threadIdx.x / (GW * 32);
+  q.wid = (threadIdx.x / 32) % GW;
+  q.lane = threadIdx.x & 31;
+  q.g = q.lane >> 2;
+  q.t = q.lane & 3;
+  const size_t gtid = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t gstride = (size_t)gridDim.x * blockDim.x;
+  const size_t hsize = (size_t)a.B * a.sum_bw * C;
 
   prologue(a, gtid, gstride);
-  grid.sync();
   const int end = a.start + a.N;
-  for (int s0 = a.start; s0 < end; s0 += a.tile) {
-    const int n = min(a.tile, end - s0);
-    first_conv(a, s0, n, gtid, gstride);
-    grid.sync();
+  first_conv(a, a.start, min(a.tile, a.N), gtid, gstride);
+  grid.sync();
+  int t = 0;
+  for (int s0 = a.start; s0 < end; s0 += a.tile, ++t) {
+    const bool last = s0 + a.tile >= end;
+    Tile tl;
+    tl.s0 = s0;
+    tl.n = min(a.tile, end - s0);
+    tl.hread = t == 0 ? a.bufs_in : a.hbuf + (t & 1) * hsize;
+    tl.hwrite = last ? a.bufs_out : a.hbuf + ((t + 1) & 1) * hsize;
     for (int i = 0; i < a.L; ++i) {
-      layer(a, i, s0, n, a_s, w_s, g_s, tx, ty, tid);
+      layer<NG>(a, i, tl, w_s, w2_s, a_s, g_s, q, gtid, gstride);
       grid.sync();
     }
-    head(a, s0, n, a_s, w_s, tx, ty, tid);
+    head<NG>(a, tl, a_s, g_s, q);
+    if (!last)
+      first_conv(a, s0 + a.tile, min(a.tile, end - s0 - a.tile), gtid,
+                 gstride);
     grid.sync();
   }
   if (a.ah_out != nullptr) epilogue(a, gtid, gstride);
+}
+
+size_t smem_bytes(int NG, int K1p) {
+  return ((size_t)K1p * NC + C * NC + NG * TM * (K1p + 4 + GS)) *
+         sizeof(float);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Returns a cudaError_t (0 on success); *grid_out gets the blocks launched.
-int pwg_stream_launch(const PwgArgs* a, void* stream, int* grid_out) {
-  const size_t smem =
-      ((size_t)a->K1p * TM + 2 * KC * NC + (size_t)C * TM) * sizeof(float);
-  auto kern = pwg_stream_kernel;
-  int dev = 0, sms = 0, coop = 0, occ = 0;
+// Returns a cudaError_t (0 on success).  info gets, in order: the blocks
+// launched, the rows of a block tile, the block tiles of the first phase,
+// the grid-wide barriers of the call, the warp groups of a block and the
+// dynamic shared memory of a block in bytes.
+int pwg_stream_launch(const PwgArgs* a, void* stream, int* info) {
+  int dev = 0, sms = 0, coop = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
   e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev);
+  if (e != cudaSuccess) return e;
   if (!coop) return cudaErrorNotSupported;
-  if (a->K1p % KC || a->A % 4 || a->L > MAX_LAYERS || a->N < 1 ||
-      (a->rx & (a->rx - 1)) || (a->ra & (a->ra - 1)))
+  if (a->K1p % 8 || a->K1p < 3 * C + a->A || a->A % 4 || a->L > MAX_LAYERS ||
+      a->N < 1 || a->tile < 1 || (a->ra & (a->ra - 1)))
     return cudaErrorInvalidValue;
+  // two groups of 8 warps where both groups' tiles fit beside the
+  // weights (aux up to 104 channels), one group otherwise
+  const int NG = smem_bytes(2, a->K1p) <= (size_t)optin ? 2 : 1;
+  const size_t smem = smem_bytes(NG, a->K1p);
+  if (smem > (size_t)optin) return cudaErrorInvalidValue;
+  const void* kern = NG == 2 ? reinterpret_cast<const void*>(
+                                   pwg_stream_kernel<2>)
+                             : reinterpret_cast<const void*>(
+                                   pwg_stream_kernel<1>);
+  const int threads = NG * GW * 32;
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
   if (e != cudaSuccess) return e;
   // cooperative launch needs every block co-resident: size the grid from
   // the occupancy calculator, capped at the block tiles of one phase
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kern, NT, smem);
+  int occ = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kern, threads,
+                                                    smem);
   if (e != cudaSuccess) return e;
   if (occ < 1) return cudaErrorCooperativeLaunchTooLarge;
-  const int n_rt = (a->B * a->tile + TM - 1) / TM;
+  const int rows = a->B * min(a->tile, a->N);
+  const int n_rt = (rows + TM - 1) / TM;
   const int grid = max(1, min(occ * sms, n_rt));
-  *grid_out = grid;
+  const int n_tiles = (a->N + a->tile - 1) / a->tile;
+  info[0] = grid;
+  info[1] = TM;
+  info[2] = n_rt;
+  info[3] = 1 + n_tiles * (a->L + 1);
+  info[4] = NG;
+  info[5] = (int)smem;
   void* params[] = {const_cast<PwgArgs*>(a)};
-  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kern),
-                                  dim3(grid), dim3(NT), params, smem,
-                                  static_cast<cudaStream_t>(stream));
+  e = cudaLaunchCooperativeKernel(kern, dim3(grid), dim3(threads), params,
+                                  smem, static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }

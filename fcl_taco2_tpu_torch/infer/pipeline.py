@@ -19,7 +19,7 @@ from fcl_taco2_tpu_torch.models.taco2_sa import _generator
 from fcl_taco2_tpu_torch.ops.decoder_cuda import maybe_prequantize
 from fcl_taco2_tpu_torch.utils.device import resolve_device
 from fcl_taco2_tpu_torch.vocoder.pwg import PWGConfig, pwg_generate
-from fcl_taco2_tpu_torch.vocoder.pwg_cuda import vocode
+from fcl_taco2_tpu_torch.vocoder.pwg_cuda import pack_pwg_weights, vocode
 
 
 def pwg_receptive_field(cfg: PWGConfig):
@@ -64,6 +64,8 @@ class TTSPipeline:
         self.pwg_cfg = pwg_cfg or pwg.cfg
         self.pwg_dtype = getattr(torch, pwg_dtype)
         self.pwg = _rounded_copy(pwg, self.pwg_dtype, self.device)
+        # the kernel's operands, packed once (as StreamTTS does)
+        self.packed = pack_pwg_weights(self.pwg, self.pwg_cfg)
         self.quantize = quantize
         self.prequant = maybe_prequantize(
             self.model.cfg, self.model.decoder.jax_layout(), quantize)
@@ -87,7 +89,7 @@ class TTSPipeline:
         dt = self.pwg_dtype
         mel = out["mel"].to(dt).float()
         noise = noise.to(self.device).to(dt).float()
-        wav = vocode(self.pwg, self.pwg_cfg, mel, noise)
+        wav = vocode(self.pwg, self.pwg_cfg, mel, noise, packed=self.packed)
         return wav.float(), out["olens"] * hop, out["olens"]
 
     def tts_batch(self, token_lists: List[np.ndarray], rng,

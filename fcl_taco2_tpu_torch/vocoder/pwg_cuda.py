@@ -22,8 +22,12 @@ Two entries keep the Pallas names, arguments and trim/pad conventions:
 Both launch ``csrc/pwg_stream.cu`` once per call for CUDA tensors and run
 their plain PyTorch versions (``*_plain``, the same tile-by-tile ring
 algorithm as ``pwg_pallas.py:149-178``) for CPU tensors.  There is no
-fallback: a CUDA tensor launches the kernel or raises.  Everything is
-fp32, as the Pallas kernel computes.
+fallback: a CUDA tensor launches the kernel or raises.  Inputs, outputs,
+state and sums are fp32, as the Pallas kernel computes; the kernel runs
+its products on the TF32 tensor cores at fp32 accuracy (3xTF32: each
+operand truncated into TF32 halves, x ~ hi + lo to 2^-20, and
+a.b ~ a_lo.b_hi + a_hi.b_lo + a_hi.b_hi summed in fp32), the plain
+versions in plain fp32 matmuls.
 """
 
 import ctypes
@@ -37,8 +41,7 @@ from fcl_taco2_tpu_torch.utils.device import resolve_device
 from fcl_taco2_tpu_torch.vocoder.pwg import (PWGConfig, pwg_generate_chunked,
                                              upsample_mel)
 
-KC = 16     # the kernel's contraction chunk: the gate product's K pads to it
-TM = 64     # stream positions per block tile
+KC = 8      # the kernel's contraction step (m16n8k8): the gate K pads to it
 ROWS_PER_PHASE = 16384  # B * (kernel time tile) per grid-wide phase
 MAX_LAYERS = 64
 
@@ -64,7 +67,13 @@ class PackedPWG(NamedTuple):
         [3C + a] the aux 1x1, zero rows up to K1p (a multiple of KC);
     b1 (L, G); w2 (L, G/2, S + C) = [skip | out]; b2 (L, S + C);
     first_w, first_b (C,); last1_w (S, S) as (in, out); last1_b (S,);
-    last2_w (S,); last2_b (1,).
+    last2_w (S,); last2_b (1,);
+    w1k (L, K1p / 8, 8, 32, 4): w1 in the kernel's order, the m16n8k8 B
+        fragments of each k step s, warp w and lane 4g + t:
+        [w1[8s+t, 8w+g], w1[8s+t+4, 8w+g], w1[8s+t, G/2+8w+g],
+        w1[8s+t+4, G/2+8w+g]] (tanh columns, then their sigmoid partners);
+    w2k (L, G/16, 8, 32, 4): w2 in the same order (skip columns, then the
+        out columns).
     """
     w1: torch.Tensor
     b1: torch.Tensor
@@ -76,6 +85,8 @@ class PackedPWG(NamedTuple):
     last1_b: torch.Tensor
     last2_w: torch.Tensor
     last2_b: torch.Tensor
+    w1k: torch.Tensor
+    w2k: torch.Tensor
 
 
 def pack_pwg_weights(params, cfg: PWGConfig) -> PackedPWG:
@@ -100,12 +111,25 @@ def pack_pwg_weights(params, cfg: PWGConfig) -> PackedPWG:
             b2.append(torch.cat([blk.conv1x1_skip.bias.to(f32),
                                  blk.conv1x1_out.bias.to(f32)]))
         last1, last2 = params.last_conv_layers[1], params.last_conv_layers[3]
+        w1, w2 = torch.stack(w1), torch.stack(w2)
         return PackedPWG(*(t.detach().contiguous() for t in (
-            torch.stack(w1), torch.stack(b1), torch.stack(w2),
+            w1, torch.stack(b1), w2,
             torch.stack(b2), params.first_conv.weight.to(f32)[:, 0, 0],
             params.first_conv.bias.to(f32), last1.weight.to(f32)[:, :, 0].t(),
             last1.bias.to(f32), last2.weight.to(f32)[0, :, 0],
-            last2.bias.to(f32))))
+            last2.bias.to(f32), _fragment_order(w1), _fragment_order(w2))))
+
+
+def _fragment_order(w):
+    """(L, K, 128) -> the kernel's (L, K/8, 8, 32, 4) B-fragment order
+    (``PackedPWG.w1k``, ``.w2k``); empty for widths the kernel does not
+    take (it needs 128 columns: 8 warps x 8 columns x 2)."""
+    L, K, N = w.shape
+    if N != 128 or K % KC:
+        return w.new_empty(0)
+    # k = 8s + 4 half + t, column = 64 j + 8 w + g
+    x = w.reshape(L, K // 8, 2, 4, 2, 8, 8)  # L s half t j w g
+    return x.permute(0, 1, 5, 6, 3, 4, 2).reshape(L, K // 8, 8, 32, 4)
 
 
 def pwg_stream_state(cfg: PWGConfig, B: int = 1, device="cuda"):
@@ -126,9 +150,12 @@ def pwg_stream_state(cfg: PWGConfig, B: int = 1, device="cuda"):
 # plain PyTorch versions: the Pallas kernel's tile loop
 # ----------------------------------------------------------------------
 
-def _stream_plain(packed, cfg, state, aux, noise, start, W, T):
+def _stream_plain(packed, cfg, state, aux, noise, start, W, T,
+                  matmul=torch.matmul):
     """Tiles of T positions over [start, start + N), state in and out
-    (``pwg_pallas.py:282-336``).  aux (B, N, A), noise (B, N), N % T == 0."""
+    (``pwg_pallas.py:282-336``).  aux (B, N, A), noise (B, N), N % T == 0.
+    ``matmul`` computes every product (a numerics emulation may stand in
+    for the fp32 default)."""
     B, N, A = aux.shape
     C, S = cfg.residual_channels, cfg.skip_channels
     half = cfg.gate_channels // 2
@@ -154,13 +181,14 @@ def _stream_plain(packed, cfg, state, aux, noise, start, W, T):
             base = bw - 2 * d
             off = delay - cum
             w1 = packed.w1[i]
-            h = (inp[:, base:base + T] @ w1[:C]
-                 + inp[:, base + d:base + d + T] @ w1[C:2 * C]
-                 + inp[:, base + 2 * d:base + 2 * d + T] @ w1[2 * C:3 * C]
-                 + aux_ext[:, off:off + T] @ w1[3 * C:3 * C + A]
+            h = (matmul(inp[:, base:base + T], w1[:C])
+                 + matmul(inp[:, base + d:base + d + T], w1[C:2 * C])
+                 + matmul(inp[:, base + 2 * d:base + 2 * d + T],
+                          w1[2 * C:3 * C])
+                 + matmul(aux_ext[:, off:off + T], w1[3 * C:3 * C + A])
                  + packed.b1[i])
             g = torch.tanh(h[..., :half]) * torch.sigmoid(h[..., half:])
-            gs = g @ packed.w2[i]
+            gs = matmul(g, packed.w2[i])
             acc[:, off:off + T] = (acc[:, off:off + T] + gs[..., :S]
                                    + packed.b2[i, :S])
             x = (gs[..., S:] + packed.b2[i, S:]
@@ -168,7 +196,7 @@ def _stream_plain(packed, cfg, state, aux, noise, start, W, T):
             x = torch.where((pos >= cum) & (pos < W + cum), x, 0.0)
         z = torch.relu(acc[:, :T] * math.sqrt(1.0 / cfg.layers))
         acc = torch.cat([acc[:, T:], acc.new_zeros(B, T, S)], dim=1)
-        z = torch.relu(z @ packed.last1_w + packed.last1_b)
+        z = torch.relu(matmul(z, packed.last1_w) + packed.last1_b)
         outs.append(z @ packed.last2_w + packed.last2_b)
     return torch.cat(outs, dim=1), {"aux_hist": ah, "acc": acc[:, :delay],
                                     "bufs": tuple(bufs)}
@@ -185,7 +213,7 @@ def _check_oneshot(cfg, mel, noise):
 
 @torch.no_grad()
 def pwg_generate_streaming_plain(params, cfg: PWGConfig, mel, noise,
-                                 tile: int = 1024):
+                                 tile: int = 1024, packed=None):
     """Plain PyTorch version of ``pwg_generate_streaming``."""
     B, W = _check_oneshot(cfg, mel, noise)
     delay = _round8(total_delay(cfg))
@@ -194,8 +222,9 @@ def pwg_generate_streaming_plain(params, cfg: PWGConfig, mel, noise,
     aux = F.pad(upsample_mel(params, cfg, mel.float()), (0, 0, 0, Wp - W))
     noise_p = F.pad(noise.float(), (0, Wp - W))
     state = pwg_stream_state(cfg, B, device=mel.device)
-    wav, _ = _stream_plain(pack_pwg_weights(params, cfg), cfg, state, aux,
-                           noise_p, 0, W, T)
+    if packed is None:
+        packed = pack_pwg_weights(params, cfg)
+    wav, _ = _stream_plain(packed, cfg, state, aux, noise_p, 0, W, T)
     return wav[:, delay:delay + W]
 
 
@@ -222,12 +251,16 @@ def pwg_stream_step_plain(packed, cfg: PWGConfig, state, aux, noise, start,
 # the CUDA launch
 # ----------------------------------------------------------------------
 
-_PTR_FIELDS = ("noise", "aux", "w1", "b1", "w2", "b2", "first_w", "first_b",
-               "last1_w", "last1_b", "last2_w", "last2_b", "ah_in", "acc_in",
-               "bufs_in", "wav", "ah_out", "acc_out", "bufs_out", "ring_x",
-               "ring_acc")
+_PTR_FIELDS = ("noise", "aux", "w1k", "b1", "w2k", "b2", "first_w",
+               "first_b", "last1_w", "last1_b", "last2_w", "last2_b",
+               "ah_in", "acc_in", "bufs_in", "wav", "ah_out", "acc_out",
+               "bufs_out", "xbuf", "hbuf", "ring_acc")
 _INT_FIELDS = ("B", "N", "n_aux", "n_noise", "start", "W", "A", "K1p", "L",
-               "delay", "tile", "rx", "ra", "sum_bw")
+               "delay", "tile", "ra", "sum_bw")
+# what the last launch reported (csrc/pwg_stream.cu::pwg_stream_launch)
+_INFO = ("grid", "block_rows", "block_tiles", "barriers", "groups",
+         "smem_bytes")
+last_launch = {}
 _LAYER_FIELDS = ("dil", "cum", "bw", "buf_off")
 
 
@@ -245,7 +278,8 @@ def _lib():
     if not getattr(lib, "_typed", False):
         lib.pwg_stream_launch.argtypes = [ctypes.POINTER(_PwgArgs),
                                           ctypes.c_void_p,
-                                          ctypes.POINTER(ctypes.c_int)]
+                                          ctypes.POINTER(ctypes.c_int
+                                                         * len(_INFO))]
         lib.pwg_stream_launch.restype = ctypes.c_int
         lib._typed = True
     return lib
@@ -257,9 +291,9 @@ def _pow2_at_least(n):
 
 def kernel_tile(B, N):
     """The kernel's time tile: about ROWS_PER_PHASE rows (B x positions)
-    per grid-wide phase, a multiple of TM, at most N rounded up."""
-    rows = max(TM, ROWS_PER_PHASE // B // TM * TM)
-    return min(rows, -(-N // TM) * TM)
+    per grid-wide phase, a multiple of 64, at most N rounded up."""
+    rows = max(64, ROWS_PER_PHASE // B // 64 * 64)
+    return min(rows, -(-N // 64) * 64)
 
 
 def _operand(t, name, shape, device):
@@ -275,7 +309,8 @@ def _operand(t, name, shape, device):
 
 
 def _launch(packed, cfg, aux, noise, start, W, N, state):
-    """Validate, allocate the output, the rings and the state out, launch.
+    """Validate, allocate the output, the scratch and the state out,
+    launch.
     aux (B, n_aux, A) covers positions [start, start + n_aux), noise
     (B, n_noise) likewise; both read as zero past their ends."""
     C, G, S, A = (cfg.residual_channels, cfg.gate_channels,
@@ -295,7 +330,8 @@ def _launch(packed, cfg, aux, noise, start, W, N, state):
     bws = [_buf_width(d) for d in dils]
     sum_bw = sum(bws)
     shapes = {"noise": (B, n_noise), "aux": (B, n_aux, A),
-              "w1": (L, K1p, G), "b1": (L, G), "w2": (L, G // 2, S + C),
+              "w1k": (L, K1p // KC, 8, 32, 4), "b1": (L, G),
+              "w2k": (L, G // 2 // KC, 8, 32, 4),
               "b2": (L, S + C), "first_w": (C,), "first_b": (C,),
               "last1_w": (S, S), "last1_b": (S,), "last2_w": (S,),
               "last2_b": (1,)}
@@ -307,15 +343,13 @@ def _launch(packed, cfg, aux, noise, start, W, N, state):
                   "bufs_in": torch.cat([b.to(torch.float32)
                                         for b in state["bufs"]], dim=1)})
     t = {k: _operand(t[k], k, shp, dev) for k, shp in shapes.items()}
-    # the head's product takes 128 columns: last1 zero-padded
-    t["last1_w"] = F.pad(t["last1_w"], (0, G - S)).contiguous()
 
     tile = kernel_tile(B, N)
-    rx = _pow2_at_least(tile + max(bws))
     ra = _pow2_at_least(tile + delay)
     f32 = dict(dtype=torch.float32, device=dev)
     t["wav"] = torch.empty(B, N, **f32)
-    t["ring_x"] = torch.empty(B, L, rx, C, **f32)
+    t["xbuf"] = torch.empty(2, B, tile, C, **f32)
+    t["hbuf"] = torch.empty(2, B, sum_bw, C, **f32)
     t["ring_acc"] = torch.empty(B, ra, S, **f32)
     if state is not None:
         t["ah_out"] = torch.empty(B, delay, A, **f32)
@@ -328,16 +362,17 @@ def _launch(packed, cfg, aux, noise, start, W, N, state):
              for n, v in zip(_LAYER_FIELDS, (dils, cum, bws, offs))}
     args = _PwgArgs(**ptrs, B=B, N=N, n_aux=n_aux, n_noise=n_noise,
                     start=int(start), W=int(W), A=A, K1p=K1p, L=L,
-                    delay=delay, tile=tile, rx=rx, ra=ra, sum_bw=sum_bw,
+                    delay=delay, tile=tile, ra=ra, sum_bw=sum_bw,
                     z_scale=math.sqrt(1.0 / L), **layer)
-    grid = ctypes.c_int(0)
+    info = (ctypes.c_int * len(_INFO))()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().pwg_stream_launch(ctypes.byref(args),
                                    ctypes.c_void_p(stream),
-                                   ctypes.byref(grid))
+                                   ctypes.byref(info))
     if err != 0:
         raise RuntimeError(f"pwg_stream launch failed with CUDA error {err} "
-                           f"(B={B}, N={N}, grid={grid.value})")
+                           f"(B={B}, N={N}, tile={tile})")
+    last_launch.update(zip(_INFO, info))
     new_state = None
     if state is not None:
         new_state = {"aux_hist": t["ah_out"], "acc": t["acc_out"],
@@ -347,7 +382,7 @@ def _launch(packed, cfg, aux, noise, start, W, N, state):
 
 @torch.no_grad()
 def pwg_generate_streaming(params, cfg: PWGConfig, mel, noise,
-                           tile: int = 1024):
+                           tile: int = 1024, packed=None):
     """mel (B, Tm, aux), noise (B, Tm*hop) -> wav (B, Tm*hop)
     (``pwg_pallas.py:181-236``).
 
@@ -355,14 +390,17 @@ def pwg_generate_streaming(params, cfg: PWGConfig, mel, noise,
     Exact (fp reassociation only) against ``pwg_generate`` over the whole
     utterance, tail included.  ``tile`` is the plain version's time tile;
     the kernel picks its own (``kernel_tile``), which does not change the
-    result."""
+    result.  ``packed``: ``pack_pwg_weights(params, cfg)`` made once by the
+    caller; packed here when not given."""
+    if packed is None:
+        packed = pack_pwg_weights(params, cfg)
     if not mel.is_cuda:
-        return pwg_generate_streaming_plain(params, cfg, mel, noise, tile)
+        return pwg_generate_streaming_plain(params, cfg, mel, noise, tile,
+                                            packed=packed)
     B, W = _check_oneshot(cfg, mel, noise)
     delay = _round8(total_delay(cfg))
     aux = upsample_mel(params, cfg, mel.float())
-    wav, _ = _launch(pack_pwg_weights(params, cfg), cfg, aux, noise, 0, W,
-                     W + delay, None)
+    wav, _ = _launch(packed, cfg, aux, noise, 0, W, W + delay, None)
     pwg_generate_streaming.launches += 1
     return wav[:, delay:delay + W]
 
@@ -409,16 +447,18 @@ pwg_stream_step.launches = 0
 
 @torch.no_grad()
 def vocode(params, cfg: PWGConfig, mel, noise, backend: str = "auto",
-           tile: int = 1024):
+           tile: int = 1024, packed=None):
     """Vocode dispatch (``pwg_pallas.py:425-440``): ``auto`` is the
     streaming kernel for CUDA tensors and the exact chunked conv graph
     (``pwg_generate_chunked``, the JAX package's ``xla`` path) for CPU
     tensors; ``pallas`` is always ``pwg_generate_streaming`` (the plain
-    version on the CPU).  Same (B, W) output either way."""
+    version on the CPU), with ``packed`` weights when given.  Same (B, W)
+    output either way."""
     if backend == "auto":
         backend = "pallas" if mel.is_cuda else "xla"
     if backend == "pallas":
-        return pwg_generate_streaming(params, cfg, mel, noise, tile=tile)
+        return pwg_generate_streaming(params, cfg, mel, noise, tile=tile,
+                                      packed=packed)
     if backend != "xla":
         raise ValueError(f"backend must be 'auto', 'pallas' or 'xla', got "
                          f"{backend!r}")

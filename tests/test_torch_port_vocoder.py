@@ -225,3 +225,19 @@ def test_vocode_dispatch_matches_jax_on_cpu():
         PC.pwg_generate_streaming_plain(model, cfg, tm, tn), rtol=0, atol=0)
     with pytest.raises(ValueError, match="backend"):
         PC.vocode(model, cfg, tm, tn, backend="mosaic")
+
+
+def test_prepacked_weights_give_the_same_wav():
+    """Packing once (as ``TTSPipeline`` and ``StreamTTS`` do) changes
+    nothing: the plain one-shot and ``vocode(backend="pallas")`` with
+    ``packed=`` equal a fresh pack bit for bit."""
+    _, _, model, cfg = _setup("stream")
+    mel, noise = _inputs(cfg, 2, 20, 4)
+    tm, tn = torch.from_numpy(mel), torch.from_numpy(noise)
+    packed = PC.pack_pwg_weights(model, cfg)
+    fresh = PC.pwg_generate_streaming(model, cfg, tm, tn, tile=16)
+    for got in (PC.pwg_generate_streaming(model, cfg, tm, tn, tile=16,
+                                          packed=packed),
+                PC.vocode(model, cfg, tm, tn, backend="pallas", tile=16,
+                          packed=packed)):
+        torch.testing.assert_close(got, fresh, rtol=0, atol=0)
