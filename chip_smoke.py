@@ -11,8 +11,12 @@ prints no result):
 3. Decoder kernels vs plain versions on the card, full width, dropout 0:
    ``fused_ar_decode`` (student weights; fp32, bf16) and
    ``fused_ar_decode_hbm`` (teacher weights; bf16, int8), P = 96 and
-   2048, ragged on and off; max abs error against the stated tolerance,
-   median ms of each.
+   2048, ragged on and off, and the streamed mode (teacher weights in
+   fp32, P = 96 ragged); max abs error against the stated tolerance; the
+   launch's mode (weights stationary in shared memory or streamed), grid,
+   cluster, shared memory a block, grid barriers a step; median ms of the
+   kernel alone (packed weights, prepared operands) and of the call, us a
+   step, plain ms, bound; and the batch-16 decode (P = 1536) alone.
 4. Dropout statistics of the kernel's Philox draws.
 5. PWG kernels vs plain versions at ``PWGConfig()`` (PWG v1): one-shot
    ``pwg_generate_streaming`` at B=1, Tm=1536 (the text -> wav path's
@@ -54,7 +58,7 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12,
             torch.int8: 989e12,  # int8 codes are multiplied as bf16
             "tf32": 495e12}      # dense TF32 tensor cores
-TF32_PASSES = 3  # the PWG kernel's products: 3xTF32 for fp32 accuracy
+TF32_PASSES = 3  # fp32 products on tensor cores: 3xTF32 for fp32 accuracy
 TOL_F32 = 1e-4
 TOL_F32_WHY = ("fp32 products in another summation order than the "
                "plain version's GEMMs, carried through up to 50 AR steps")
@@ -182,56 +186,127 @@ def phase_build():
                 log(f"[build] {line.strip()}")
 
 
+MMA = {True: "3xTF32 mma.sync m16n8k8", False: "bf16 mma.sync m16n8k16"}
+
+
+def decoder_case(model, P, ragged, wdt, fn):
+    """One kernel-vs-plain case: the packed weights, the launch of the
+    kernel alone (prepared operands) and the wrapper's call."""
+    from fcl_taco2_tpu_torch.ops import decoder_cuda as K
+    cfg = model.cfg
+    dp = model.decoder.jax_layout()
+    enc, pos, fm, bounds = segment_batch(cfg, P, 0, ragged)
+    resident = fn is K.fused_ar_decode
+    pk = K.pack_decoder_weights(dp, cfg.dec_idim, wdt)
+    kw = dict(zoneout=cfg.zoneout_rate, dropout=0.0, weights_dtype=wdt,
+              bounds=bounds)
+    if resident:
+        t = {"enc": enc, "pos": pos,
+             "enc_gates": torch.empty(P, 4 * pk.H, device="cuda"),
+             "enc_out": torch.empty(P, pk.odim, device="cuda")}
+    else:
+        with torch.no_grad():
+            eg, eo = K._hoisted_enc(enc, pk._asdict())
+        t = {"pos": pos, "enc_gates": eg.contiguous(),
+             "enc_out": eo.contiguous()}
+
+    def alone():
+        return K._launch(pk, resident=resident, tensors=t, P=P,
+                         D=cfg.max_dur, bounds=bounds,
+                         zoneout=cfg.zoneout_rate, dropout=0.0, seed=0)
+
+    def call():
+        return fn(dp, enc, pos, 0, packed=pk, **kw)
+    steps = int(K._row_bounds(bounds, P, cfg.max_dur, "cuda").max())
+    return dp, enc, pos, fm, bounds, kw, alone, call, steps
+
+
 def phase_kernels(models):
-    """Each kernel against its plain version at full width."""
+    """Each decoder entry against its plain version at full width, timed
+    as the kernel alone (packed weights, prepared operands) and as the
+    wrapper's call."""
     from fcl_taco2_tpu_torch.ops import decoder_cuda as K
     rows = []
-    for name, fn, plain, model_key, wdts in (
-            ("fused_ar_decode", K.fused_ar_decode, K.fused_ar_decode_plain,
-             "student", (torch.float32, torch.bfloat16)),
-            ("fused_ar_decode_hbm", K.fused_ar_decode_hbm,
-             K.fused_ar_decode_hbm_plain, "teacher",
-             (torch.bfloat16, torch.int8))):
+    cases = [("fused_ar_decode", K.fused_ar_decode, K.fused_ar_decode_plain,
+              "student", wdt, P, ragged)
+             for P in (96, 2048) for ragged in (True, False)
+             for wdt in (torch.float32, torch.bfloat16)]
+    cases += [("fused_ar_decode_hbm", K.fused_ar_decode_hbm,
+               K.fused_ar_decode_hbm_plain, "teacher", wdt, P, ragged)
+              for P in (96, 2048) for ragged in (True, False)
+              for wdt in (torch.bfloat16, torch.int8)]
+    # streamed mode: fp32 teacher slices (426 KB a block) do not fit
+    cases.append(("fused_ar_decode_hbm", K.fused_ar_decode_hbm,
+                  K.fused_ar_decode_hbm_plain, "teacher", torch.float32, 96,
+                  True))
+    for name, fn, plain, model_key, wdt, P, ragged in cases:
         model = models[model_key]
         cfg = model.cfg
-        dp = model.decoder.jax_layout()
-        for P in (96, 2048):
-            for ragged in (True, False):
-                enc, pos, fm, bounds = segment_batch(cfg, P, 0, ragged)
-                for wdt in wdts:
-                    kw = dict(zoneout=cfg.zoneout_rate, dropout=0.0,
-                              weights_dtype=wdt, bounds=bounds)
-                    with torch.no_grad():
-                        got = fn(dp, enc, pos, 0, **kw)
-                        want = plain(dp, enc, pos, 0, **kw)
-                        torch.cuda.synchronize()
-                        err = ((got - want) * fm[..., None]).abs().max()
-                        err = float(err)
-                        tol, why = (TOL_F32, TOL_F32_WHY) \
-                            if wdt == torch.float32 else (TOL_BF16,
-                                                          TOL_BF16_WHY)
-                        ms = median_ms(lambda: fn(dp, enc, pos, 0, **kw), 5)
-                        plain_ms = median_ms(
-                            lambda: plain(dp, enc, pos, 0, **kw), 3)
-                    # int8 streams codes; the resident weights stay bf16
-                    rdt = torch.bfloat16 if wdt == torch.int8 else wdt
-                    nbytes, ops = work(cfg, P, bounds, cfg.max_dur, rdt,
-                                       fn is K.fused_ar_decode, wdt)
-                    b_ms, b_by = bound_ms(nbytes, ops, wdt)
-                    row = dict(name=name, P=P, ragged=ragged,
-                               weights=str(wdt).replace("torch.", ""),
-                               max_abs_err=err, tol=tol, ms=ms,
-                               plain_ms=plain_ms, bound_ms=b_ms,
-                               bound_by=b_by)
-                    rows.append(row)
-                    log(f"[kernel] {name} P={P} ragged={ragged} "
-                        f"weights={row['weights']}: max_abs_err={err:.3e} "
-                        f"(tol {tol:g}: {why}) kernel {ms:.3f} ms, plain "
-                        f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms "
-                        f"({b_by})")
-                    if not np.isfinite(err) or err > tol:
-                        raise RuntimeError(f"{name} disagrees with its "
-                                           f"plain version: {row}")
+        dp, enc, pos, fm, bounds, kw, alone, call, steps = decoder_case(
+            model, P, ragged, wdt, fn)
+        with torch.no_grad():
+            got = call()
+            info = dict(K.last_launch)
+            want = plain(dp, enc, pos, 0, **kw)
+            torch.cuda.synchronize()
+            err = float(((got - want) * fm[..., None]).abs().max())
+            tol, why = (TOL_F32, TOL_F32_WHY) if wdt == torch.float32 \
+                else (TOL_BF16, TOL_BF16_WHY)
+            ms = median_ms(alone, 5)
+            call_ms = median_ms(call, 5)
+            plain_ms = median_ms(lambda: plain(dp, enc, pos, 0, **kw), 3)
+        # int8 streams codes; the resident weights stay bf16
+        rdt = torch.bfloat16 if wdt == torch.int8 else wdt
+        nbytes, ops = work(cfg, P, bounds, cfg.max_dur, rdt,
+                           fn is K.fused_ar_decode, wdt)
+        if wdt == torch.float32:  # 3xTF32 products, fp32 bound beside
+            b_ms, b_by = bound_ms(nbytes, TF32_PASSES * ops, "tf32")
+            b32_ms, _ = bound_ms(nbytes, ops, torch.float32)
+            b_dtype = "tf32 x3"
+        else:
+            b_ms, b_by = bound_ms(nbytes, ops, wdt)
+            b32_ms, b_dtype = None, "bf16"
+        mode = "stationary" if info["stationary"] else "streamed"
+        row = dict(name=name, P=P, ragged=ragged,
+                   weights=str(wdt).replace("torch.", ""),
+                   max_abs_err=err, tol=tol, ms=ms, call_ms=call_ms,
+                   plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                   bound_dtype=b_dtype, bound_fp32_ms=b32_ms, mode=mode,
+                   grid=info["grid"], cluster=info["cluster"],
+                   cooperative=info["cooperative"],
+                   units_per_block=info["units_per_block"],
+                   smem_bytes=info["smem_bytes"],
+                   barriers_per_step=info["barriers_per_step"],
+                   steps=steps, us_per_step=1e3 * ms / max(steps, 1))
+        rows.append(row)
+        log(f"[kernel] {name} P={P} ragged={ragged} "
+            f"weights={row['weights']}: max_abs_err={err:.3e} (tol {tol:g}: "
+            f"{why}); {mode}, grid {info['grid']} x {info['block_threads']} "
+            f"threads, cluster {info['cluster']} ("
+            f"{'cooperative' if info['cooperative'] else 'occupancy-checked'}"
+            f" launch), {info['units_per_block']} units a "
+            f"block, {info['smem_bytes']} B dynamic shared memory a block, "
+            f"{info['barriers_per_step']} grid barriers a step, tensor-core "
+            f"products ({MMA[wdt == torch.float32]}); "
+            f"{steps} steps, {row['us_per_step']:.2f} us a step; kernel "
+            f"alone {ms:.3f} ms, call {call_ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}, {b_dtype}"
+            + (f"; fp32 CUDA cores {b32_ms:.4f} ms" if b32_ms else "")
+            + ")")
+        if not np.isfinite(err) or err > tol:
+            raise RuntimeError(f"{name} disagrees with its plain version: "
+                               f"{row}")
+        if ms > plain_ms:
+            log(f"[kernel] note: {name} P={P} ragged={ragged} "
+                f"weights={row['weights']} is slower than its plain version")
+    # the batch-16 decode of the main path (P = 1536, ragged)
+    dp, enc, pos, fm, bounds, kw, alone, call, steps = decoder_case(
+        models["teacher"], 1536, True, torch.bfloat16, K.fused_ar_decode_hbm)
+    with torch.no_grad():
+        ms = median_ms(alone, 5)
+    log(f"[kernel] fused_ar_decode_hbm P=1536 ragged=True weights=bfloat16 "
+        f"(teacher batch 16): kernel alone {ms:.3f} ms, {steps} steps, "
+        f"{1e3 * ms / steps:.2f} us a step")
     return rows
 
 
@@ -755,10 +830,8 @@ def main():
             "name": name, "route": "cuda",
             "source": "fcl_taco2_tpu_torch/csrc/ar_decode.cu",
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": main["max_abs_err"], "ms": main["ms"],
-            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-            "bound_by": main["bound_by"], "library_ms": None,
-            "weights": main["weights"], "P": main_P})
+            "library_ms": None,
+            **{k: v for k, v in main.items() if k not in ("name", "tol")}})
     # the text -> wav path's shape (B = 1, 1536 frames) and the stream's
     # (Vh = 4096 samples a step)
     for name, replaces, key, shape in (

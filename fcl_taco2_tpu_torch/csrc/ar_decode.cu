@@ -1,55 +1,82 @@
 // Fused eval-mode AR decoder loop of FCL-taco2 for Hopper (sm_90a).
 //
 // Replaces the two Pallas TPU kernels of fcl_taco2_tpu/ops/decoder_pallas.py:
-//   fused_ar_decode      (_kernel,     weights resident in VMEM, student)
-//   fused_ar_decode_hbm  (_kernel_hbm, recurrent weights streamed, teacher,
-//                         optional per-column int8 codes)
-// Both compute the same step math; on Hopper neither model's decoder
-// weights fit one SM's 227 KB of shared memory and both fit the 50 MB L2,
-// so one kernel serves both entry points.  They differ only where the TPU
-// kernels differ: the resident entry computes the step-invariant
-// enc @ wx0_enc + bx0 and enc @ wf_enc itself (a prologue phase), the
-// streaming entry receives them precomputed.
+//   fused_ar_decode      (_kernel :66, pallas_call :582; weights resident in
+//                         VMEM, the student)
+//   fused_ar_decode_hbm  (_kernel_hbm :170, pallas_call :485; recurrent
+//                         weights streamed, the teacher, optional
+//                         per-column int8 codes)
+// One kernel serves both.  They differ only where the TPU kernels differ:
+// the resident entry computes the step-invariant enc @ wx0_enc + bx0 and
+// enc @ wf_enc itself (a prologue), the streaming entry receives them.
 //
-// Per step t (all P rows, dropout from a counter-based Philox keyed on
+// Per step t (all P rows; dropout from a counter-based Philox keyed on
 // (seed, row, step, layer, unit), so the draws do not depend on the tiling):
-//   S1  p1 = drop(relu(prev @ W1 + b1))             prev = out[:, t-1] or 0
-//   S2  p2 = drop(relu(p1 @ W2 + b2))
-//   S3  g0 = enc_gates + p2 @ wx0_pre + pos_t * wx0_pos + h0 @ wh0 + bh0
-//       (h0, c0) <- zoneout-blended LSTM update
-//   S4  g1 = h0 @ wx1 + h1 @ wh1 + bx1 + bh1;  (h1, c1) <- update
-//   S5  out[:, t] = h1 @ wf_z + enc_out
-// One cooperative launch runs the whole loop; a grid-wide barrier separates
-// the dependent phases.  Each phase is cut into tiles of TM rows x TU output
-// columns; in S3/S4 a tile is TU hidden units with all four gate columns
-// {j, H+j, 2H+j, 3H+j}, so each thread owns whole (row, unit) cells and
-// updates c and h in registers.  Activations are rounded to the weight type
-// before each product and accumulated in fp32, as the Pallas kernels' `mm`
-// does; int8 codes ride as exact bf16 values and each matrix's sum is scaled
-// once by its per-column scale.  Ragged mode: a row tile stops at its bound
-// (bounds[row / 128], decoder_cuda.TILE) and its frames past the bound are
-// zero.
+//   p1 = drop(relu(prev @ W1 + b1))              prev = out[:, t-1] or 0
+//   p2 = drop(relu(p1 @ W2 + b2))
+//   g0 = enc_gates + p2 @ wx0_pre + pos_t * wx0_pos + h0 @ wh0 + bh0
+//        (h0, c0) <- zoneout-blended LSTM update
+//   g1 = h0 @ wx1 + h1 @ wh1 + bx1 + bh1;  (h1, c1) <- update
+//   out[:, t] = h1 @ wf_z + enc_out
+// Activations are rounded to the weight type before each product and the
+// products accumulate in fp32, as the Pallas kernels' `mm` does; int8 codes
+// ride as exact bf16 values and each matrix's sum is scaled once by its
+// per-column scale.  Ragged mode: rows stop at their tile's bound
+// (bounds[row / 128], decoder_cuda.TILE) and frames past it are zero.
 //
-// What bounds it on the H100.  Teacher (H=1024, prenet 256, odim 80) at the
-// main path's P=96: a step reads 25.2 MB of streamed bf16 weights (12.6 MB
-// as int8) plus 2.4 MB of resident ones and does 2.7 GFLOP; at 3.35 TB/s
-// and 989 TFLOP/s bf16 that is 8.2 us of bytes against 2.7 us of tensor-core
-// work, so the ideal kernel is bound by weight bytes (50 MB of L2 can hold
-// the bf16 set across steps).  Student (H=256) at P=96: 2.9 MB (bf16) or
-// 5.8 MB (fp32) of weights and 0.28 GFLOP a step, bound by bytes too.
-// What the design does about it: no per-step launches and no activation
-// round trips through the host; each block reads a weight chunk once per
-// row tile and step, 16 bytes a thread with cp.async into a two-stage
-// shared-memory ring, so the copy of chunk c+1 overlaps the products of
-// chunk c instead of every thread waiting on its own L2 loads.  With bf16
-// (or int8) weights the LSTM gate products, nearly all of a step's work,
-// run on the tensor cores (mma.sync m16n8k16, bf16 in, fp32 accumulate);
-// fp32 weights, the small prenet and feat_out products stay on the CUDA
-// cores.  What is left between this kernel and its bound is mostly the
-// per-chunk barriers and the weight re-reads from L2 at every step and row
-// tile; wider chunks, wgmma and keeping each block's slice of the streamed
-// matrices in shared memory across steps are the next levers (PERF.md has
-// the measured times).
+// What bounds it on the H100.  A step is a chain of five dependent
+// products, so the loop is bound by the latency of moving each step's
+// operands, not by the card's peak rates: the teacher (H = 1024, prenet
+// 256, odim 80) does 2.7 GFLOP a step at P = 96 (2.7 us at the bf16 peak)
+// and needs its 27 MB of bf16 gate weights every step.  Streaming them from
+// L2 for every 16-row tile and step made the previous design ~100x slower
+// than its bound.  The grid's 132 SMs hold 132 x 227 KB ~ 30 MB of shared
+// memory together, Hopper's counterpart of the TPU's VMEM residency, and
+// that is enough for the recurrent matrices.
+//
+// What the design does about it:
+// - Weight-stationary: the blocks run as clusters of two, and a cluster
+//   owns 2 UB hidden units of both LSTM layers, all four gate columns of
+//   each.  Block rank r of the cluster keeps the K half r of its pair's
+//   wx0_pre, wh0, wx1 and wh1 columns in shared memory for the whole launch
+//   (teacher bf16: UB = 8, 128 blocks, 208 KB a block; int8 codes 112 KB;
+//   student fp32: UB = 2, 32 KB), and reads only that half of the
+//   activations, so each activation row crosses L2 once a pair, not once a
+//   block.  The pair adds its halves through distributed shared memory:
+//   each rank sends the partner the sums of the partner's units and
+//   completes the cell update of its own, half 0 + half 1 in that order.
+//   Where the halves do not fit (fp32 teacher weights, 416 KB a block) the
+//   same code reads them from global memory each step ("streamed" mode).
+//   Weights are packed by ops/decoder_cuda.py in mma B-fragment order, so
+//   a lane reads its fragment of a k16 step with one 4-16 byte load.
+// - Every product on tensor cores: bf16 mma.sync m16n8k16 for bf16 weights
+//   and int8 codes (converted to exact bf16 in the fragment load), 3xTF32
+//   m16n8k8 for fp32 weights (csrc/tf32.cuh), fp32 accumulation.
+// - Activations are written once, in the type they are multiplied in and in
+//   fragment order (each 16-column group permuted so a lane's four values
+//   of a k16 step are adjacent): one 8 or 16 byte load a row and k16 step.
+//   h and c stay fp32 beside them for the zoneout blend.
+// - The gate columns of a slice are ordered unit-major (i, f, g, o of unit
+//   0, then unit 1, ...), so a lane's accumulators hold two gates of one
+//   unit and one shuffle with its neighbour completes the cell update in
+//   registers.
+// - Three grid-wide barriers a step: feat_out of step t-1 and the two
+//   prenet layers of step t are row-local (h1 row -> frame -> p1 -> p2) and
+//   run as one phase partitioned by 16-row tiles (feat_out's K split over
+//   four warp pairs, added in a fixed order); LSTM 0 needs whole p2 rows
+//   and LSTM 1 whole h0 rows.  The barrier is one arriving thread a block
+//   (release add on a counter, acquire spin); every block is resident: a
+//   cooperative launch with clusters where the driver takes one, and an
+//   occupancy check always.  Data written by other blocks is read through
+//   L2 (ld.global.cg).
+// - A warp multiplies one m16 tile over its K half in a fixed order, so a
+//   row's result does not depend on P or on its neighbours (StreamTTS's
+//   chunked decode equals the one-shot path).  The k loops stay rolled:
+//   the code a phase runs once a step has to come through the instruction
+//   cache every step.
+// What is left (PERF.md, scripts/torch_decoder_ablation.py): each step is
+// a chain of L2 round trips, and the fused phase runs on one block per
+// 16-row tile (6 of 128 blocks at P = 96); no wgmma.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -58,76 +85,114 @@
 
 #include <type_traits>
 
-namespace cg = cooperative_groups;
+#include "tf32.cuh"
 
 extern "C" {
-// Field order and types mirror _DecodeArgs in ops/decoder_cuda.py.
+// Field order and types mirror _DecodeArgs in ops/decoder_cuda.py.  Packed
+// matrices are [n-tile][k16 step][lane][4] (decoder_cuda.pack_b): a K x N
+// matrix with K padded to 16 and N to 8.
 struct DecodeArgs {
   const void* enc;        // (P, idim) f32, resident entry only
-  void* enc_gates;        // (P, 4H) f32: input (streaming) or scratch (resident)
+  void* enc_gates;        // (P, 4H) f32: input (streaming) or output (resident)
   void* enc_out;          // (P, odim) f32: likewise
   const void* pos;        // (P, D) f32
   const void* bounds;     // (ceil(P/128),) i32, ragged only
-  const void* pre_w1;     // (odim, units) WT
+  const void* w1k;        // pre_w1 (Op x Up) packed, WT
   const void* pre_b1;     // (units,) f32
-  const void* pre_w2;     // (units, units) WT
+  const void* w2k;        // pre_w2 (Up x Up) packed, WT
   const void* pre_b2;
-  const void* wx0_pre;    // (units, 4H) WT
-  const void* wx0_pos;    // (4H,) WT
+  const void* wx0k;       // wx0_pre (Up x 4Hp) packed in gate order, WT
+  const void* wx0_pos;    // (4H,) f32 (the WT-rounded weights)
   const void* bh0;        // (4H,) f32
-  const void* wh0;        // (H, 4H) BT
-  const void* wx1;        // (H, 4H) BT
-  const void* wh1;        // (H, 4H) BT
+  const void* wh0k;       // wh0 (Hp x 4Hp) packed in gate order, BT
+  const void* wx1k;       // wx1, likewise
+  const void* wh1k;       // wh1, likewise
   const void* bx1;
   const void* bh1;
-  const void* wf_z;       // (H, odim) WT
-  const void* wx0_enc;    // (idim, 4H) WT, resident only
+  const void* wfk;        // wf_z (Hp x Op) packed, WT
+  const void* wx0ek;      // wx0_enc (Ip x 4H) packed, WT, resident only
   const void* bx0;        // (4H,) f32, resident only
-  const void* wf_enc;     // (idim, odim) WT, resident only
+  const void* wfek;       // wf_enc (Ip x O) packed, WT, resident only
   const void* scales;     // (3, 4H) f32, int8 only
   void* out;              // (P, D, odim) f32
-  void* scratch;          // p1, p2 (P, units); h0 x2, c0, h1 x2, c1 (P, H)
+  void* scratch;          // activations and state (decoder_cuda._scratch_bytes)
+  void* barrier;          // one u32, zero at launch
+  void* trace;            // null, or (steps + 1) x 7 x grid u64 phase times
   int P, D, idim, odim, units, H;
   int ragged, resident, quantized;
+  int units_per_block;    // UB: 2, 4 or 8 (the pack's gate order)
   float zoneout, dropout;
   unsigned int seed;
 };
+
+// What a launch did, for the wrapper's log (decoder_cuda.last_launch).
+struct LaunchInfo {
+  int grid, block_threads, units_per_block, stationary, smem_bytes,
+      barriers_per_step, prologue_barriers, cluster, cooperative;
+};
 }
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int TU = 32;          // output columns (or units) per tile: a warp
-constexpr int RG = 4;           // warps per block
-constexpr int R = 4;            // rows per thread
-constexpr int TM = RG * R;      // rows per tile
-constexpr int KC = 32;          // contraction chunk staged in shared memory
-constexpr int NT = TU * RG;     // threads per block
-constexpr int BOUND_TILE = 128; // rows per ragged bound (decoder_cuda.TILE)
+constexpr int NW = 8;            // warps a block
+constexpr int NTH = NW * 32;     // threads a block
+constexpr int BOUND_TILE = 128;  // rows per ragged bound (decoder_cuda.TILE)
+constexpr int FEAT_NT = 10;      // feat_out n-tiles a round: 5 a warp half
+static_assert(NW == 8, "feat_out splits K over 4 warp pairs");
 
-template <typename T>
-__device__ __forceinline__ float load_w(const T* p, size_t i);
-template <>
-__device__ __forceinline__ float load_w<float>(const float* p, size_t i) {
-  return p[i];
-}
-template <>
-__device__ __forceinline__ float load_w<__nv_bfloat16>(const __nv_bfloat16* p,
-                                                       size_t i) {
-  return __bfloat162float(p[i]);
-}
-template <>
-__device__ __forceinline__ float load_w<int8_t>(const int8_t* p, size_t i) {
-  return static_cast<float>(p[i]);
+__host__ __device__ constexpr int r16(int x) { return (x + 15) / 16 * 16; }
+__host__ __device__ constexpr int r32(int x) { return (x + 31) / 32 * 32; }
+
+// Shared memory before the weight halves: in the fused phase one 16-row
+// tile's frame and p1 (AT) and the frame's fp32 sums; in the LSTM phases
+// the sums a cluster's partner sends (NT8 n-tiles a warp).
+__host__ __device__ inline int work_smem(int Op, int Up, int asize, int nt8) {
+  const int row = 16 * (Op + Up) * asize + 16 * 8 * FEAT_NT * 4;
+  const int pair = NW * nt8 * 4 * 32 * 4;
+  return row > pair ? row : pair;
 }
 
-// activation rounded to the (resident) weight type before a product
-template <typename T>
-__device__ __forceinline__ float act_cast(float x) {
+using bf16 = __nv_bfloat16;
+
+// the activation type of a weight type: fp32 weights multiply fp32
+// activations (3xTF32), bf16 weights and int8 codes bf16 ones
+template <typename WT>
+struct Act {
+  using T = bf16;
+};
+template <>
+struct Act<float> {
+  using T = float;
+};
+
+// Position of logical column k in the fragment-ordered activation layout:
+// within each group of 16, lane t's four values of a k16 step are adjacent
+// at 4t..4t+3 (bf16: columns 2t, 2t+1, 2t+8, 2t+9; fp32, two k8 steps:
+// t, t+4, t+8, t+12).  decoder_cuda.act_positions is the same map.
+template <typename AT>
+__device__ __forceinline__ int apos(int k);
+template <>
+__device__ __forceinline__ int apos<bf16>(int k) {
+  const int r = k & 15, q = r & 7;
+  return (k & ~15) + 4 * (q >> 1) + 2 * (r >> 3) + (q & 1);
+}
+template <>
+__device__ __forceinline__ int apos<float>(int k) {
+  const int r = k & 15;
+  return (k & ~15) + 4 * (r & 3) + (r >> 2);
+}
+
+template <typename AT>
+__device__ __forceinline__ AT to_act(float x);
+template <>
+__device__ __forceinline__ bf16 to_act<bf16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+template <>
+__device__ __forceinline__ float to_act<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ float act_cast<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 // Philox4x32-10, first output word.
@@ -152,7 +217,7 @@ __device__ __forceinline__ uint32_t philox_bits(uint32_t seed, uint32_t c0,
 
 // Unsigned compare against floor((1-rate) * 2^32): keep probability 1-rate
 // (rate 0 keeps everything, since no 32-bit value reaches 2^32).
-__device__ __forceinline__ bool prenet_keep(uint32_t seed, uint64_t thr,
+__device__ __noinline__ bool prenet_keep(uint32_t seed, uint64_t thr,
                                             int row, int step, int layer,
                                             int unit, int units) {
   const uint32_t bits = philox_bits(seed, (uint32_t)row, (uint32_t)step,
@@ -160,507 +225,688 @@ __device__ __forceinline__ bool prenet_keep(uint32_t seed, uint64_t thr,
   return (uint64_t)bits < thr;
 }
 
+// sigmoid and tanh from the fast exponential and divide: a few ulp, and
+// little code in the cell update that every step runs once
 __device__ __forceinline__ float sigmoid_f(float x) {
-  return 1.0f / (1.0f + expf(-x));
+  return __fdividef(1.0f, 1.0f + __expf(-x));
+}
+__device__ __forceinline__ float tanh_f(float x) {
+  return 2.0f * sigmoid_f(2.0f * x) - 1.0f;
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+// ---- fragment loads -------------------------------------------------------
 
-// Shared memory of one block: two stages of an A chunk (TM x KC fp32,
-// rows KA apart so the tensor-core fragment loads spread over the banks),
-// two stages of a W chunk (KC x NG x TU elements, at most fp32 with
-// NG = 4), and the gate tile that the tensor-core path hands back
-// (TM x 4 x TU fp32).
-constexpr int KA = KC + 4;
-struct Smem {
-  alignas(16) float a[2][TM * KA];
-  alignas(16) unsigned char w[2][KC * 4 * TU * 4];
-  float c[TM * 4 * TU];
+// A lane's four activations of one row and k16 step.  G: written by other
+// blocks during this launch, so read through L2 (never the non-coherent L1).
+template <typename AT, bool G>
+struct ALoad;
+template <bool G>
+struct ALoad<bf16, G> {
+  using F = uint2;
+  static __device__ __forceinline__ F ld(const bf16* p) {
+    if constexpr (G) return __ldcg(reinterpret_cast<const uint2*>(p));
+    return *reinterpret_cast<const uint2*>(p);
+  }
+};
+template <bool G>
+struct ALoad<float, G> {
+  using F = uint4;
+  static __device__ __forceinline__ F ld(const float* p) {
+    if constexpr (G) return __ldcg(reinterpret_cast<const uint4*>(p));
+    return *reinterpret_cast<const uint4*>(p);
+  }
 };
 
-// True when every 16-byte copy of stage_chunk is aligned.
-template <typename WT>
-__device__ __forceinline__ bool vec_ok(const float* A, long lda, int K,
-                                       const WT* W, int ldw, int ncols,
-                                       int gstride) {
-  constexpr int VEC = 16 / sizeof(WT);
-  return ((reinterpret_cast<uintptr_t>(W) & 15) == 0) && ldw % VEC == 0 &&
-         gstride % VEC == 0 && ncols % VEC == 0 &&
-         ((reinterpret_cast<uintptr_t>(A) & 15) == 0) && lda % 4 == 0 &&
-         K % 4 == 0;
+// bf16 bits of two int8 codes (exact)
+__device__ __forceinline__ uint32_t i8_pair(uint32_t w, int sh) {
+  const int lo = (int)(w << (24 - sh)) >> 24;
+  const int hi = (int)(w << (16 - sh)) >> 24;
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn((float)lo)) |
+         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn((float)hi))
+          << 16);
 }
 
-// Stage chunk c (rows k0 .. k0+KC of A's tile rows and of W's tile
-// columns col0 + [0, TU) in each of NG groups gstride apart) into buffer
-// buf, with cp.async through L2 (A was written by earlier phases, so never
-// through the non-coherent L1) or, where not 16-byte aligned, plain loads.
-// Entries past nrows, K or ncols are left as they were.
-template <int NG, typename WT>
-__device__ __forceinline__ void stage_chunk(Smem& sm, int buf, int c,
-                                            const float* A, long lda,
-                                            int row0, int nrows, int K,
-                                            const WT* W, int ldw, int col0,
-                                            int ncols, int gstride,
-                                            bool vec) {
-  constexpr int VEC = 16 / sizeof(WT);  // W elements per 16-byte copy
-  constexpr int SEG = TU / VEC;         // copies per (k, g) row segment
-  const int k0 = c * KC, kc = min(KC, K - k0);
-  WT* sw = reinterpret_cast<WT*>(sm.w[buf]);
-  float* sa = sm.a[buf];
-  if (vec) {
-    for (int i = threadIdx.x; i < KC * NG * SEG; i += NT) {
-      const int k = i / (NG * SEG), g = (i / SEG) % NG, v = i % SEG;
-      const int cc = col0 + v * VEC;
-      if (k < kc && cc < ncols)
-        cp_async16(sw + (k * NG + g) * TU + v * VEC,
-                   W + (size_t)(k0 + k) * ldw + (size_t)g * gstride + cc);
-    }
-    for (int i = threadIdx.x; i < TM * (KC / 4); i += NT) {
-      const int r = i / (KC / 4), v = i % (KC / 4);
-      if (r < nrows && v * 4 < kc)
-        cp_async16(sa + r * KA + v * 4,
-                   A + (long)(row0 + r) * lda + k0 + v * 4);
-    }
-  } else {
-    for (int i = threadIdx.x; i < KC * NG * TU; i += NT) {
-      const int k = i / (NG * TU), g = (i / TU) % NG, l = i % TU;
-      if (k < kc && col0 + l < ncols)
-        sw[i] = W[(size_t)(k0 + k) * ldw + (size_t)g * gstride + col0 + l];
-    }
-    for (int i = threadIdx.x; i < TM * KC; i += NT) {
-      const int r = i / KC, k = i % KC;
-      if (r < nrows && k < kc)
-        sa[r * KA + k] = __ldcg(A + (long)(row0 + r) * lda + k0 + k);
-    }
-  }
-  cp_async_commit();
-}
-
-// Wait for chunk c, staged two deep: chunk c+1 is in flight while the
-// block multiplies chunk c.  The caller closes each chunk with a barrier,
-// after which the other buffer may be overwritten.
-template <int NG, typename WT>
-__device__ __forceinline__ void next_chunk(Smem& sm, int c, int nchunks,
-                                           const float* A, long lda,
-                                           int row0, int nrows, int K,
-                                           const WT* W, int ldw, int col0,
-                                           int ncols, int gstride,
-                                           bool vec) {
-  if (c == 0)
-    stage_chunk<NG, WT>(sm, 0, 0, A, lda, row0, nrows, K, W, ldw, col0,
-                        ncols, gstride, vec);
-  if (c + 1 < nchunks) {
-    stage_chunk<NG, WT>(sm, (c + 1) & 1, c + 1, A, lda, row0, nrows, K, W,
-                        ldw, col0, ncols, gstride, vec);
-    cp_async_wait<1>();
-  } else {
-    cp_async_wait<0>();
-  }
-  __syncthreads();
-}
-
-// acc[g][r] += sum_k cast(A[row0 + warp*R + r, k]) * W[k, col0 + lane +
-// g*gstride] for k < K, on the CUDA cores in fp32.  Every thread of the
-// block must call it (it holds __syncthreads); columns past ncols are
-// never read and their sums are garbage the caller drops.
-template <int NG, typename AT, typename WT>
-__device__ __forceinline__ void mm_tile(float (&acc)[NG][R], Smem& sm,
-                                        const float* A, long lda, int row0,
-                                        int nrows, int K, const WT* W,
-                                        int ldw, int col0, int ncols,
-                                        int gstride) {
-  const int lane = threadIdx.x % TU, warp = threadIdx.x / TU;
-  const bool col_ok = col0 + lane < ncols;
-  const bool vec = vec_ok(A, lda, K, W, ldw, ncols, gstride);
-  const int nchunks = (K + KC - 1) / KC;
-  for (int c = 0; c < nchunks; ++c) {
-    next_chunk<NG, WT>(sm, c, nchunks, A, lda, row0, nrows, K, W, ldw, col0,
-                       ncols, gstride, vec);
-    if (col_ok) {
-      const int kc = min(KC, K - c * KC);
-      const WT* sw = reinterpret_cast<const WT*>(sm.w[c & 1]);
-      const float* sa = sm.a[c & 1];
-#pragma unroll 4
-      for (int k = 0; k < kc; ++k) {
-        float w[NG];
-#pragma unroll
-        for (int g = 0; g < NG; ++g)
-          w[g] = load_w<WT>(sw, (k * NG + g) * TU + lane);
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const float a = act_cast<AT>(sa[(warp * R + r) * KA + k]);
-#pragma unroll
-          for (int g = 0; g < NG; ++g) acc[g][r] = fmaf(a, w[g], acc[g][r]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// bf16 bits of a staged weight (int8 codes are exact in bf16)
-template <typename WT>
-__device__ __forceinline__ uint32_t w_bits(const WT* sw, int i);
+// A lane's B fragment of one n-tile and k16 step, from shared or global
+// memory (weights are never written during a launch).
+template <typename BT>
+struct BLoad;
 template <>
-__device__ __forceinline__ uint32_t w_bits<__nv_bfloat16>(
-    const __nv_bfloat16* sw, int i) {
-  return __bfloat16_as_ushort(sw[i]);
-}
+struct BLoad<bf16> {
+  using F = uint2;
+  static __device__ __forceinline__ F ld(const bf16* p) {
+    return *reinterpret_cast<const uint2*>(p);
+  }
+};
 template <>
-__device__ __forceinline__ uint32_t w_bits<int8_t>(const int8_t* sw, int i) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(static_cast<float>(sw[i])));
-}
+struct BLoad<int8_t> {
+  using F = uint2;
+  static __device__ __forceinline__ F ld(const int8_t* p) {
+    const uint32_t w = *reinterpret_cast<const uint32_t*>(p);
+    return make_uint2(i8_pair(w, 0), i8_pair(w, 16));
+  }
+};
+template <>
+struct BLoad<float> {
+  using F = uint4;
+  static __device__ __forceinline__ F ld(const float* p) {
+    return *reinterpret_cast<const uint4*>(p);
+  }
+};
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
-         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2, uint32_t a3,
                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// True when the gate products can take the tensor-core path: K in whole
-// k16 steps and aligned 16-byte staging.
-template <typename WT>
-__device__ __forceinline__ bool tc_ok(const float* A, long lda, int K,
-                                      const WT* W, int ldw, int ncols,
-                                      int gstride) {
-  return K % 16 == 0 && vec_ok(A, lda, K, W, ldw, ncols, gstride);
+// one k16 step of one m16 x n8 tile: bf16 ...
+__device__ __forceinline__ void mma_step(float (&c)[4], uint2 lo, uint2 hi,
+                                         uint2 b) {
+  mma_bf16(c, lo.x, hi.x, lo.y, hi.y, b.x, b.y);
+}
+// ... or 3xTF32, two k8 steps (columns t, t+4 then t+8, t+12)
+__device__ __forceinline__ void mma_step(float (&c)[4], uint4 lo, uint4 hi,
+                                         uint4 b) {
+  uint32_t ah[4], al[4], bh[2], bl[2];
+  split(__uint_as_float(lo.x), ah[0], al[0]);
+  split(__uint_as_float(hi.x), ah[1], al[1]);
+  split(__uint_as_float(lo.y), ah[2], al[2]);
+  split(__uint_as_float(hi.y), ah[3], al[3]);
+  split(__uint_as_float(b.x), bh[0], bl[0]);
+  split(__uint_as_float(b.y), bh[1], bl[1]);
+  mma3(c, ah, al, bh, bl);
+  split(__uint_as_float(lo.z), ah[0], al[0]);
+  split(__uint_as_float(hi.z), ah[1], al[1]);
+  split(__uint_as_float(lo.w), ah[2], al[2]);
+  split(__uint_as_float(hi.w), ah[3], al[3]);
+  split(__uint_as_float(b.z), bh[0], bl[0]);
+  split(__uint_as_float(b.w), bh[1], bl[1]);
+  mma3(c, ah, al, bh, bl);
 }
 
-// The LSTM gate tile of mm_tile<4> on the tensor cores: bf16 x bf16
-// products (activations rounded to bf16 as in mm_tile, int8 codes exact),
-// fp32 accumulation with mma.sync m16n8k16.  Warp w computes gate w's 32
-// columns for all TM = 16 rows (four n8 blocks); the tile goes through
-// shared memory to the (row, unit) layout of mm_tile, so the caller's LSTM
-// update is the same on both paths.  Needs tc_ok().
-template <typename WT>
-__device__ __forceinline__ void mm_tile_tc(float (&acc)[4][R], Smem& sm,
-                                           const float* A, long lda,
-                                           int row0, int nrows, int K,
-                                           const WT* W, int ldw, int col0,
-                                           int ncols, int gstride) {
-  const int lane = threadIdx.x % TU, warp = threadIdx.x / TU;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int nchunks = (K + KC - 1) / KC;
-  float c[4][4] = {};
-  for (int ch = 0; ch < nchunks; ++ch) {
-    next_chunk<4, WT>(sm, ch, nchunks, A, lda, row0, nrows, K, W, ldw, col0,
-                      ncols, gstride, true);
-    const int kc = min(KC, K - ch * KC);
-    const WT* sw = reinterpret_cast<const WT*>(sm.w[ch & 1]);
-    const float* sa = sm.a[ch & 1];
-    for (int ks = 0; ks < kc; ks += 16) {
-      const float* a_lo = sa + gid * KA + ks + tig * 2;
-      const float* a_hi = a_lo + 8 * KA;
-      const uint32_t a[4] = {pack_bf16(a_lo[0], a_lo[1]),
-                             pack_bf16(a_hi[0], a_hi[1]),
-                             pack_bf16(a_lo[8], a_lo[9]),
-                             pack_bf16(a_hi[8], a_hi[9])};
-      const int k0 = ks + tig * 2;
+// acc[n] += A . B(n-tile n) for one m16 tile over k16 steps [0, kgn), in
+// step order.  A: the tile's fragment-ordered rows, lda elements apart.
+// B: packed, n-tile n at B + n * bstride; tiles from nvalid on repeat tile
+// nvalid - 1 (the caller drops their sums).  UNR steps of loads are issued
+// before their products; the loops stay rolled so the code a phase runs
+// once a step stays small.
+template <typename AT, typename BT, int NT, int UNR, bool AG>
+__device__ __forceinline__ void warp_mma(float (&acc)[NT][4], const AT* A,
+                                         int lda, const BT* B, long bstride,
+                                         int kgn, int nvalid = NT) {
+  using AF = typename ALoad<AT, AG>::F;
+  using BF = typename BLoad<BT>::F;
+  const int lane = threadIdx.x & 31;
+  const AT* pa = A + (long)(lane >> 2) * lda + 4 * (lane & 3);
+  const BT* pb[NT];
 #pragma unroll
-      for (int nb = 0; nb < 4; ++nb) {
-        const int n = nb * 8 + gid;
-        auto at = [&](int k) { return (k * 4 + warp) * TU + n; };
-        const uint32_t b0 = w_bits<WT>(sw, at(k0)) |
-                            (w_bits<WT>(sw, at(k0 + 1)) << 16);
-        const uint32_t b1 = w_bits<WT>(sw, at(k0 + 8)) |
-                            (w_bits<WT>(sw, at(k0 + 9)) << 16);
-        mma_bf16(c[nb], a, b0, b1);
+  for (int n = 0; n < NT; ++n)
+    pb[n] = B + (n < nvalid ? n : nvalid - 1) * bstride + lane * 4;
+  int kg = 0;
+#pragma unroll 1
+  for (; kg + UNR <= kgn; kg += UNR) {
+    AF a[UNR][2];
+    BF b[UNR][NT];
+#pragma unroll
+    for (int u = 0; u < UNR; ++u) {
+      a[u][0] = ALoad<AT, AG>::ld(pa + 16 * (kg + u));
+      a[u][1] = ALoad<AT, AG>::ld(pa + 8L * lda + 16 * (kg + u));
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+        b[u][n] = BLoad<BT>::ld(pb[n] + (long)(kg + u) * 128);
+    }
+#pragma unroll
+    for (int u = 0; u < UNR; ++u)
+#pragma unroll
+      for (int n = 0; n < NT; ++n) mma_step(acc[n], a[u][0], a[u][1], b[u][n]);
+  }
+#pragma unroll 1
+  for (; kg < kgn; ++kg) {
+    const AF a0 = ALoad<AT, AG>::ld(pa + 16 * kg);
+    const AF a1 = ALoad<AT, AG>::ld(pa + 8L * lda + 16 * kg);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      mma_step(acc[n], a0, a1, BLoad<BT>::ld(pb[n] + (long)kg * 128));
+  }
+}
+
+// ---- the grid barrier ------------------------------------------------------
+
+// Every block adds one to the counter; barrier k of the launch waits for
+// k * gridDim.x arrivals.  The block barrier orders the block's writes
+// before thread 0's release add; its acquire load orders the other blocks'
+// writes before the block barrier that ends the wait.
+__device__ __forceinline__ void grid_sync(unsigned int* bar,
+                                          unsigned int& target) {
+  __syncthreads();
+  target += gridDim.x;
+  if (threadIdx.x == 0) {
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n" ::"l"(bar)
+                 : "memory");
+    unsigned int v;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+                   : "=r"(v)
+                   : "l"(bar)
+                   : "memory");
+    } while (v < target);
+  }
+  __syncthreads();
+}
+
+// Phase times for the ablation script's breakdown: event e of step t of
+// this block (0 step start, 1 fused phase done, 2 after barrier 1, 3 LSTM 0
+// done, 4 after barrier 2, 5 LSTM 1 done, 6 after barrier 3), in ns.
+__device__ __forceinline__ void mark(unsigned long long* trace, int t,
+                                     int e) {
+  if (trace == nullptr) return;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned long long ns;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+    trace[((long)t * 7 + e) * gridDim.x + blockIdx.x] = ns;
+  }
+}
+
+// ---- the kernel ------------------------------------------------------------
+
+template <typename WT, typename BT>
+struct Ctx {
+  using AT = typename Act<WT>::T;
+  int P, D, H, U, O, G, Hp, Up, Op, Ip, Pp, n16, T, UB;
+  const int* bounds;
+  bool ragged, quantized;
+  float zoneout, drop_scale;
+  uint64_t drop_thr;
+  bool use_drop;
+  uint32_t seed;
+  const float *pos, *pre_b1, *pre_b2, *wx0_pos, *bh0, *bx1, *bh1, *scales;
+  const WT *w1k, *w2k, *wfk;
+  const float* enc_gates;
+  const float* enc_out;
+  float* out;
+  AT *encA, *p2, *hx0, *hx1;  // hx*: two parity buffers of Pp x Hp
+  float *h0f, *c0, *h1f, *c1;
+  AT *sF, *sP1;  // shared: one 16-row tile's frame and p1
+  float* sRed;   // shared: the frame's fp32 sums (16 x 8 FEAT_NT)
+
+  __device__ int bound(int row) const {
+    return ragged ? min(bounds[row / BOUND_TILE], D) : D;
+  }
+};
+
+// One 16-row tile times a packed (K x 8 ntiles) matrix, the n-tiles dealt
+// to the warps (warp w: w, w + NW, .., NTW of them in one pass over K, so
+// they share its A fragments).  epi(n-tile, e4, sum) takes C element e4 of
+// the lane's fragment.
+template <typename AT, typename WT, int NTW, bool AG, typename Epi>
+__device__ __forceinline__ void tile_product(const AT* A, int lda,
+                                             const WT* B, int kg, int ntiles,
+                                             Epi epi) {
+  constexpr int UNR = sizeof(AT) == 4 ? 2 : 4;
+  for (int n0 = threadIdx.x >> 5; n0 < ntiles; n0 += NW * NTW) {
+    const int nv = min(NTW, (ntiles - n0 + NW - 1) / NW);
+    float acc[NTW][4] = {};
+    warp_mma<AT, WT, NTW, UNR, AG>(acc, A, lda, B + (long)n0 * kg * 128,
+                                      (long)NW * kg * 128, kg, nv);
+#pragma unroll
+    for (int i = 0; i < NTW; ++i)
+      if (i < nv)
+#pragma unroll
+        for (int e4 = 0; e4 < 4; ++e4) epi(n0 + NW * i, e4, acc[i][e4]);
+  }
+}
+
+// feat_out of step t-1 (t > 0) and the prenet of step t (t < T) for 16-row
+// tiles dealt round-robin to the blocks; all NW warps split the columns.
+template <typename WT, typename BT>
+__device__ void row_phase(const Ctx<WT, BT>& c, int t) {
+  using AT = typename Act<WT>::T;
+  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+  const AT* h1 = c.hx1 + (long)(t & 1) * c.Pp * c.Hp;  // h1 of step t-1
+  for (int rt = blockIdx.x; rt < c.n16; rt += gridDim.x) {
+    const int row0 = rt * 16, bnd = c.bound(row0);
+    const bool feat = t > 0 && t - 1 < bnd;
+    const bool pre = t < c.T && t < bnd;
+    if (!feat && !pre) continue;  // block-uniform
+    if (feat) {
+      // 4 warp pairs split K in quarters, the two warps of a pair the
+      // n-tiles of a round; the quarters' sums are added in quarter order
+      // through shared memory, so the result does not depend on timing
+      constexpr int UNR = sizeof(AT) == 4 ? 2 : 4;
+      const int warp = threadIdx.x >> 5, q = warp >> 1, half = warp & 1;
+      const int kg = c.Hp / 16, kq0 = q * kg / 4, kq1 = (q + 1) * kg / 4;
+      for (int nb = 0; nb < c.Op / 8; nb += FEAT_NT) {
+        const int n0 = nb + half * (FEAT_NT / 2);
+        const int nv = min(FEAT_NT / 2, c.Op / 8 - n0);
+        float acc[FEAT_NT / 2][4] = {};
+        if (nv > 0)
+          warp_mma<AT, WT, FEAT_NT / 2, UNR, true>(
+              acc, h1 + (long)row0 * c.Hp + 16 * kq0, c.Hp,
+              c.wfk + ((long)n0 * kg + kq0) * 128, (long)kg * 128, kq1 - kq0,
+              nv);
+        for (int qq = 0; qq < 4; ++qq) {
+          if (q == qq) {
+#pragma unroll
+            for (int i = 0; i < FEAT_NT / 2; ++i) {
+              if (i >= nv) break;
+#pragma unroll
+              for (int e4 = 0; e4 < 4; ++e4) {
+                const int r = gid + (e4 >> 1) * 8;
+                const int cl = (n0 - nb + i) * 8 + 2 * tig + (e4 & 1);
+                float* dst = c.sRed + r * (8 * FEAT_NT) + cl;
+                *dst = qq == 0 ? acc[i][e4] : *dst + acc[i][e4];
+              }
+            }
+          }
+          __syncthreads();
+        }
+        for (int i = threadIdx.x; i < 16 * 8 * FEAT_NT; i += NTH) {
+          const int r = i / (8 * FEAT_NT), col = nb * 8 + i % (8 * FEAT_NT);
+          const int row = row0 + r;
+          if (col >= c.Op) continue;
+          float v = 0.0f;  // padded columns and rows stay zero
+          if (row < c.P && col < c.O) {
+            v = c.sRed[i] + __ldcg(c.enc_out + (long)row * c.O + col);
+            c.out[((long)row * c.D + t - 1) * c.O + col] = v;
+          }
+          c.sF[r * c.Op + apos<AT>(col)] = to_act<AT>(v);
+        }
+        __syncthreads();
       }
     }
     __syncthreads();
-  }
-  // C fragment (row gid / gid+8, column nb*8 + tig*2 + {0,1}) -> sm.c
-#pragma unroll
-  for (int nb = 0; nb < 4; ++nb) {
-    const int col = nb * 8 + tig * 2;
-    sm.c[(gid * 4 + warp) * TU + col] = c[nb][0];
-    sm.c[(gid * 4 + warp) * TU + col + 1] = c[nb][1];
-    sm.c[((gid + 8) * 4 + warp) * TU + col] = c[nb][2];
-    sm.c[((gid + 8) * 4 + warp) * TU + col + 1] = c[nb][3];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int g = 0; g < 4; ++g)
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-      acc[g][r] += sm.c[((warp * R + r) * 4 + g) * TU + lane];
-  __syncthreads();
-}
-
-// The gate products of the LSTM phases: tensor cores for bf16 resident
-// weights (activations are rounded to bf16 either way), CUDA cores for
-// fp32 weights or operands the tensor-core staging cannot take.
-template <typename WT, typename BT>
-__device__ __forceinline__ void mm_gates(float (&acc)[4][R], Smem& sm,
-                                         const float* A, long lda, int row0,
-                                         int nrows, int K, const BT* W,
-                                         int ldw, int col0, int ncols,
-                                         int gstride) {
-  if constexpr (std::is_same<WT, __nv_bfloat16>::value) {
-    if (tc_ok(A, lda, K, W, ldw, ncols, gstride)) {
-      mm_tile_tc<BT>(acc, sm, A, lda, row0, nrows, K, W, ldw, col0, ncols,
-                     gstride);
-      return;
-    }
-  }
-  mm_tile<4, WT, BT>(acc, sm, A, lda, row0, nrows, K, W, ldw, col0, ncols,
-                     gstride);
-}
-
-// zoneout-blended LSTM cell update of one (row, unit); gt = (i, f, g, o)
-__device__ __forceinline__ void lstm_update(const float (&gt)[4], float zo,
-                                            float h_old, float* c,
-                                            float* h_new) {
-  const float c_old = *c;
-  const float c_n = sigmoid_f(gt[1]) * c_old + sigmoid_f(gt[0]) * tanhf(gt[2]);
-  const float h_n = sigmoid_f(gt[3]) * tanhf(c_n);
-  const float keep = 1.0f - zo;
-  *h_new = zo * h_old + keep * h_n;
-  *c = zo * c_old + keep * c_n;
-}
-
-// WT: resident weight type (float or bf16), also the activation cast.
-// BT: type of the three recurrent matrices wh0, wx1, wh1 (WT, or int8).
-template <typename WT, typename BT>
-__global__ void __launch_bounds__(NT) ar_decode_kernel(DecodeArgs a) {
-  cg::grid_group grid = cg::this_grid();
-  __shared__ Smem sm;
-
-  const int P = a.P, D = a.D, H = a.H, G = 4 * H, U = a.units, O = a.odim;
-  const int lane = threadIdx.x % TU, warp = threadIdx.x / TU;
-  const long PH = (long)P * H;
-  float* p1 = static_cast<float*>(a.scratch);
-  float* p2 = p1 + (long)P * U;
-  float* h0buf = p2 + (long)P * U;
-  float* c0 = h0buf + 2 * PH;
-  float* h1buf = c0 + PH;
-  float* c1 = h1buf + 2 * PH;
-  float* out = static_cast<float*>(a.out);
-  float* enc_gates = static_cast<float*>(a.enc_gates);
-  float* enc_out = static_cast<float*>(a.enc_out);
-  const float* pos = static_cast<const float*>(a.pos);
-  const int* bounds = static_cast<const int*>(a.bounds);
-  const float* pre_b1 = static_cast<const float*>(a.pre_b1);
-  const float* pre_b2 = static_cast<const float*>(a.pre_b2);
-  const float* bh0 = static_cast<const float*>(a.bh0);
-  const float* bx1 = static_cast<const float*>(a.bx1);
-  const float* bh1 = static_cast<const float*>(a.bh1);
-  const float* scales = static_cast<const float*>(a.scales);
-  const WT* pre_w1 = static_cast<const WT*>(a.pre_w1);
-  const WT* pre_w2 = static_cast<const WT*>(a.pre_w2);
-  const WT* wx0_pre = static_cast<const WT*>(a.wx0_pre);
-  const WT* wx0_pos = static_cast<const WT*>(a.wx0_pos);
-  const WT* wf_z = static_cast<const WT*>(a.wf_z);
-  const BT* wh0 = static_cast<const BT*>(a.wh0);
-  const BT* wx1 = static_cast<const BT*>(a.wx1);
-  const BT* wh1 = static_cast<const BT*>(a.wh1);
-
-  const float drop_scale = 1.0f / (1.0f - a.dropout);
-  const uint64_t drop_thr =
-      (uint64_t)((1.0 - (double)a.dropout) * 4294967296.0);
-  const bool use_drop = a.dropout > 0.0f;
-
-  const int n_rt = (P + TM - 1) / TM;
-  // a row tile lies inside one 128-row bound group (TM divides 128)
-  auto rt_bound = [&](int rt) -> int {
-    return a.ragged ? min(bounds[(rt * TM) / BOUND_TILE], D) : D;
-  };
-  int T = D;
-  if (a.ragged) {
-    T = 0;
-    for (int b = 0; b < (P + BOUND_TILE - 1) / BOUND_TILE; ++b)
-      T = max(T, min(bounds[b], D));
-  }
-
-  // ---- prologue: zero state and never-reached frames; enc projections
-  const long gtid = (long)blockIdx.x * NT + threadIdx.x;
-  const long gsize = (long)gridDim.x * NT;
-  for (long i = gtid; i < PH; i += gsize) {
-    h0buf[i] = 0.0f;
-    c0[i] = 0.0f;
-    h1buf[i] = 0.0f;
-    c1[i] = 0.0f;
-  }
-  for (long i = gtid; i < (long)P * D * O; i += gsize) {
-    const int r = (int)(i / ((long)D * O));
-    const int t = (int)((i / O) % D);
-    if (t >= rt_bound(r / TM)) out[i] = 0.0f;
-  }
-  if (a.resident) {
-    const WT* wx0_enc = static_cast<const WT*>(a.wx0_enc);
-    const WT* wf_enc = static_cast<const WT*>(a.wf_enc);
-    const float* bx0 = static_cast<const float*>(a.bx0);
-    const float* enc = static_cast<const float*>(a.enc);
-    const int nct_g = (G + TU - 1) / TU, nct_o = (O + TU - 1) / TU;
-    const int nct = nct_g + nct_o;
-    for (int tile = blockIdx.x; tile < n_rt * nct; tile += gridDim.x) {
-      const int rt = tile / nct, ct = tile % nct;
-      const int row0 = rt * TM, nrows = min(TM, P - row0);
-      const bool is_g = ct < nct_g;
-      const int ncol = is_g ? G : O;
-      const int col0 = (is_g ? ct : ct - nct_g) * TU, col = col0 + lane;
-      const bool ok = col < ncol;
-      float acc[1][R] = {};
-      mm_tile<1, WT, WT>(acc, sm, enc, a.idim, row0, nrows, a.idim,
-                         is_g ? wx0_enc : wf_enc, ncol, col0, ncol, 0);
-      if (ok) {
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const int row = row0 + warp * R + r;
-          if (row >= P) continue;
-          if (is_g)
-            enc_gates[(long)row * G + col] = acc[0][r] + bx0[col];
-          else
-            enc_out[(long)row * O + col] = acc[0][r];
-        }
-      }
-    }
-  }
-  grid.sync();
-
-  const int nct_u = (U + TU - 1) / TU;
-  const int nct_h = (H + TU - 1) / TU;
-  const int nct_o = (O + TU - 1) / TU;
-  for (int t = 0; t < T; ++t) {
-    const float* h0_old = h0buf + (t & 1) * PH;
-    float* h0_new = h0buf + ((t + 1) & 1) * PH;
-    const float* h1_old = h1buf + (t & 1) * PH;
-    float* h1_new = h1buf + ((t + 1) & 1) * PH;
-
-    // S1, S2: prenet layers (always-on dropout)
-    for (int layer = 0; layer < 2; ++layer) {
-      const float* A = layer == 0 ? out + (long)(t - 1) * O : p1;
-      const long lda = layer == 0 ? (long)D * O : U;
-      const int K = layer == 0 ? O : U;
-      const WT* W = layer == 0 ? pre_w1 : pre_w2;
-      const float* b = layer == 0 ? pre_b1 : pre_b2;
-      float* dst = layer == 0 ? p1 : p2;
-      for (int tile = blockIdx.x; tile < n_rt * nct_u; tile += gridDim.x) {
-        const int rt = tile / nct_u;
-        if (t >= rt_bound(rt)) continue;  // block-uniform
-        const int row0 = rt * TM, nrows = min(TM, P - row0);
-        const int col0 = (tile % nct_u) * TU, col = col0 + lane;
-        const bool ok = col < U;
-        float acc[1][R] = {};
-        if (layer == 1 || t > 0)  // prev is all zeros at t = 0
-          mm_tile<1, WT, WT>(acc, sm, A, lda, row0, nrows, K, W, U, col0, U,
-                             0);
-        if (!ok) continue;
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const int row = row0 + warp * R + r;
-          if (row >= P) continue;
-          float v = fmaxf(acc[0][r] + b[col], 0.0f);
-          if (use_drop)
-            v *= prenet_keep(a.seed, drop_thr, row, t, layer, col, U)
-                     ? drop_scale
+    if (pre) {
+      for (int layer = 0; layer < 2; ++layer) {
+        const float* b = layer == 0 ? c.pre_b1 : c.pre_b2;
+        auto epi = [&](int nt, int e4, float acc) {
+          const int r = gid + (e4 >> 1) * 8, row = row0 + r;
+          const int col = nt * 8 + 2 * tig + (e4 & 1);
+          if (col >= c.U) {  // zero: the LSTM phases reuse this buffer
+            if (layer == 0) c.sP1[r * c.Up + apos<AT>(col)] = to_act<AT>(0.0f);
+            return;
+          }
+          float v = fmaxf(acc + b[col], 0.0f);
+          if (c.use_drop)
+            v *= prenet_keep(c.seed, c.drop_thr, row, t, layer, col, c.U)
+                     ? c.drop_scale
                      : 0.0f;
-          dst[(long)row * U + col] = v;
-        }
+          if (layer == 0)
+            c.sP1[r * c.Up + apos<AT>(col)] = to_act<AT>(v);
+          else
+            c.p2[(long)row * c.Up + apos<AT>(col)] = to_act<AT>(v);
+        };
+        if (layer == 1)
+          tile_product<AT, WT, 4, false>(c.sP1, c.Up, c.w2k, c.Up / 16,
+                                         c.Up / 8, epi);
+        else if (t > 0)
+          tile_product<AT, WT, 4, false>(c.sF, c.Op, c.w1k, c.Op / 16,
+                                         c.Up / 8, epi);
+        else  // prev is all zeros at t = 0
+          for (int nt = threadIdx.x >> 5; nt < c.Up / 8; nt += NW)
+            for (int e4 = 0; e4 < 4; ++e4) epi(nt, e4, 0.0f);
+        __syncthreads();
       }
-      grid.sync();
     }
+  }
+}
 
-    // S3, S4: the two zoneout-LSTM layers
-    for (int layer = 0; layer < 2; ++layer) {
-      for (int tile = blockIdx.x; tile < n_rt * nct_h; tile += gridDim.x) {
-        const int rt = tile / nct_h;
-        if (t >= rt_bound(rt)) continue;  // block-uniform
-        const int row0 = rt * TM, nrows = min(TM, P - row0);
-        const int j0 = (tile % nct_h) * TU, j = j0 + lane;
-        const bool ok = j < H;
-        float acc[4][R] = {};
-        float accb[4][R] = {};
-        if (layer == 0) {
-          mm_gates<WT, WT>(acc, sm, p2, U, row0, nrows, U, wx0_pre, G, j0,
-                             H, H);
-          mm_gates<WT, BT>(accb, sm, h0_old, H, row0, nrows, H, wh0, G, j0,
-                             H, H);
-        } else {
-          mm_gates<WT, BT>(acc, sm, h0_new, H, row0, nrows, H, wx1, G, j0,
-                             H, H);
-          mm_gates<WT, BT>(accb, sm, h1_old, H, row0, nrows, H, wh1, G, j0,
-                             H, H);
-        }
-        if (!ok) continue;
-        float sa[4], sb[4];
+// K range of a cluster rank: rank 0 takes k16 steps [0, kg/2), rank 1
+// [kg/2, kg).
+__device__ __forceinline__ int half_start(int kg, int rank) {
+  return rank ? kg / 2 : 0;
+}
+__device__ __forceinline__ int half_len(int kg, int rank) {
+  return rank ? kg - kg / 2 : kg / 2;
+}
+
+// One LSTM layer at step t for the unit slices 2 pair and 2 pair + 1 of a
+// cluster of two blocks: rank r multiplies the K half r of both slices'
+// gate columns (2 NT8 n-tiles) with the same half of the activations, so
+// each block reads half of them; the sums of the partner's slice go to the
+// partner's shared memory (xbuf), and each rank completes the zoneout
+// cell update of its own slice in registers, half 0 + half 1 in that order
+// whatever the rank.  Warp w takes m16 tiles w, w + NW, ..; both ranks
+// walk the same tiles, one round of NW a cluster barrier pair.
+template <typename WT, typename BT, int NT8, typename XT>
+__device__ void lstm_pair(const Ctx<WT, BT>& c, int layer, int t, int pair,
+                          int rank, const XT* Bx, long bsx, const BT* Bh,
+                          long bsh, float* xbuf, float* xbuf_peer) {
+  using AT = typename Act<WT>::T;
+  constexpr bool Q = std::is_same<BT, int8_t>::value;  // scaled apart
+  constexpr int UNR = sizeof(AT) == 4 ? 2 : 4;
+  constexpr int NT = 2 * NT8;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const long PH = (long)c.Pp * c.Hp;
+  const int Kx = layer == 0 ? c.Up : c.Hp;
+  const AT* Ax = layer == 0 ? c.p2 : c.hx0 + (long)((t + 1) & 1) * PH;
+  const AT* Ah = layer == 0 ? c.hx0 + (long)(t & 1) * PH
+                            : c.hx1 + (long)(t & 1) * PH;
+  AT* hx_new = (layer == 0 ? c.hx0 : c.hx1) + (long)((t + 1) & 1) * PH;
+  float* hf = layer == 0 ? c.h0f : c.h1f;
+  float* cf = layer == 0 ? c.c0 : c.c1;
+  const int x0 = half_start(Kx / 16, rank), xn = half_len(Kx / 16, rank);
+  const int h0 = half_start(c.Hp / 16, rank), hn = half_len(c.Hp / 16, rank);
+  const int G = c.G, s = 2 * pair + rank;
+  float* mine = xbuf + warp * (NT8 * 4 * 32);
+  float* theirs = xbuf_peer + warp * (NT8 * 4 * 32);
+  cg::cluster_group cluster = cg::this_cluster();
+  for (int r0 = 0; r0 < c.n16; r0 += NW) {
+    const int row0 = (r0 + warp) * 16;
+    const bool live = row0 < c.Pp && t < c.bound(row0);
+    float v[NT][4];
+    if (live) {
+      float ax[NT][4] = {}, ah[NT][4] = {};
+      warp_mma<AT, XT, NT, UNR, true>(ax, Ax + (long)row0 * Kx + 16 * x0,
+                                         Kx, Bx, bsx, xn);
+      if constexpr (Q)
+        warp_mma<AT, BT, NT, UNR, true>(
+            ah, Ah + (long)row0 * c.Hp + 16 * h0, c.Hp, Bh, bsh, hn);
+      else  // unscaled: one sum
+        warp_mma<AT, BT, NT, UNR, true>(
+            ax, Ah + (long)row0 * c.Hp + 16 * h0, c.Hp, Bh, bsh, hn);
 #pragma unroll
-        for (int g = 0; g < 4; ++g) {
-          const int cg_ = g * H + j;
-          sa[g] = (a.quantized && layer == 1) ? scales[G + cg_] : 1.0f;
-          sb[g] = a.quantized ? scales[(layer == 0 ? 0 : 2) * G + cg_] : 1.0f;
-        }
+      for (int n = 0; n < NT; ++n) {
+        // lane (gid, tig) of n-tile n: unit j of slice 2 pair + n / NT8,
+        // gates 2(tig&1) + {0,1}, rows gid, gid + 8
+        const int j = (2 * pair + n / NT8) * c.UB + 2 * (n % NT8) + (tig >> 1);
 #pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const int row = row0 + warp * R + r;
-          if (row >= P) continue;
-          float gt[4];
-          if (layer == 0) {
-            const float pt = pos[(long)row * D + t];
-#pragma unroll
-            for (int g = 0; g < 4; ++g) {
-              const int cg_ = g * H + j;
-              gt[g] = __ldcg(enc_gates + (long)row * G + cg_) + acc[g][r] +
-                      pt * load_w<WT>(wx0_pos, cg_) + accb[g][r] * sb[g] +
-                      bh0[cg_];
+        for (int e4 = 0; e4 < 4; ++e4) {
+          v[n][e4] = ax[n][e4];
+          if constexpr (Q) {
+            const int col = (2 * (tig & 1) + (e4 & 1)) * c.H + j;
+            float sx = 1.0f, sh = 0.0f;
+            if (j < c.H) {
+              sx = layer == 0 ? 1.0f : c.scales[G + col];
+              sh = c.scales[(layer == 0 ? 0 : 2) * G + col];
             }
-            lstm_update(gt, a.zoneout, h0_old[(long)row * H + j],
-                        c0 + (long)row * H + j, h0_new + (long)row * H + j);
-          } else {
-#pragma unroll
-            for (int g = 0; g < 4; ++g) {
-              const int cg_ = g * H + j;
-              gt[g] = bx1[cg_] + bh1[cg_] + acc[g][r] * sa[g] +
-                      accb[g][r] * sb[g];
-            }
-            lstm_update(gt, a.zoneout, h1_old[(long)row * H + j],
-                        c1 + (long)row * H + j, h1_new + (long)row * H + j);
+            v[n][e4] = ax[n][e4] * sx + ah[n][e4] * sh;
           }
         }
       }
-      grid.sync();
-    }
-
-    // S5: feat_out; the frame is the next step's prenet input
-    for (int tile = blockIdx.x; tile < n_rt * nct_o; tile += gridDim.x) {
-      const int rt = tile / nct_o;
-      if (t >= rt_bound(rt)) continue;  // block-uniform
-      const int row0 = rt * TM, nrows = min(TM, P - row0);
-      const int col0 = (tile % nct_o) * TU, col = col0 + lane;
-      const bool ok = col < O;
-      float acc[1][R] = {};
-      mm_tile<1, WT, WT>(acc, sm, h1_new, H, row0, nrows, H, wf_z, O, col0, O,
-                         0);
-      if (!ok) continue;
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int row = row0 + warp * R + r;
-        if (row >= P) continue;
-        out[(long)row * D * O + (long)t * O + col] =
-            acc[0][r] + __ldcg(enc_out + (long)row * O + col);
+      for (int i = 0; i < NT8; ++i)
+#pragma unroll
+        for (int e4 = 0; e4 < 4; ++e4)
+          theirs[(i * 4 + e4) * 32 + lane] = v[(1 - rank) * NT8 + i][e4];
+    }
+    cluster.sync();  // the partner's sums of this rank's slice are here
+    if (live) {
+#pragma unroll
+      for (int i = 0; i < NT8; ++i) {
+        const int j = s * c.UB + 2 * i + (tig >> 1);
+        float g[4];
+#pragma unroll
+        for (int e4 = 0; e4 < 4; ++e4) {
+          const int row = row0 + gid + (e4 >> 1) * 8;
+          const int col = (2 * (tig & 1) + (e4 & 1)) * c.H + j;
+          const float own = v[rank * NT8 + i][e4];
+          const float peer = mine[(i * 4 + e4) * 32 + lane];
+          const float prod = rank == 0 ? own + peer : peer + own;
+          g[e4] = 0.0f;
+          if (j < c.H && row < c.P) {
+            if (layer == 0)
+              g[e4] = __ldcg(c.enc_gates + (long)row * G + col) + prod +
+                      c.pos[(long)row * c.D + t] * c.wx0_pos[col] +
+                      c.bh0[col];
+            else
+              g[e4] = c.bx1[col] + c.bh1[col] + prod;
+          }
+        }
+        // even tig holds (i, f), odd tig (g, o): swap so the even lane
+        // updates row gid and the odd lane row gid + 8
+        const bool odd = tig & 1;
+        const float s0 = __shfl_xor_sync(0xffffffffu, odd ? g[0] : g[2], 1);
+        const float s1 = __shfl_xor_sync(0xffffffffu, odd ? g[1] : g[3], 1);
+        const float gi = odd ? s0 : g[0], gf = odd ? s1 : g[1];
+        const float gg = odd ? g[2] : s0, go = odd ? g[3] : s1;
+        const int row = row0 + gid + (odd ? 8 : 0);
+        if (j < c.H && row < c.P) {
+          const long at = (long)row * c.Hp + j;
+          const float c_old = cf[at], h_old = hf[at];
+          const float c_n = sigmoid_f(gf) * c_old + sigmoid_f(gi) * tanh_f(gg);
+          const float h_n = sigmoid_f(go) * tanh_f(c_n);
+          const float keep = 1.0f - c.zoneout;
+          const float h = c.zoneout * h_old + keep * h_n;
+          cf[at] = c.zoneout * c_old + keep * c_n;
+          hf[at] = h;
+          hx_new[(long)row * c.Hp + apos<AT>(j)] = to_act<AT>(h);
+        }
       }
     }
-    grid.sync();
+    cluster.sync();  // xbuf is free for the next round
   }
+}
+
+// The block's weight halves: in shared memory, [2 NT8 n-tiles][the larger
+// half's k16 steps][32][4] a matrix; streamed, in place in the pack.
+template <typename WT, typename BT>
+struct Halves {
+  const WT* wx0;
+  const BT *wh0, *wx1, *wh1;
+  long sx0, sh;  // n-tile strides (elements)
+};
+
+template <typename WT, typename BT, int NT8>
+__device__ void lstm_phase(const Ctx<WT, BT>& c, int layer, int t,
+                           const Halves<WT, BT>& w, int stationary,
+                           int n_pairs, float* xbuf) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  float* xbuf_peer = cluster.map_shared_rank(xbuf, rank ^ 1);
+  const int kx0 = c.Up / 16, kh = c.Hp / 16;
+  const int n_clusters = gridDim.x / 2;
+  for (int p = blockIdx.x / 2; p < n_pairs; p += n_clusters) {
+    // streamed: the pair's n-tiles and this rank's first k16 step
+    const long ox = stationary ? 0
+                               : (long)2 * NT8 * p * kx0 * 128 +
+                                     half_start(kx0, rank) * 128;
+    const long oh = stationary ? 0
+                               : (long)2 * NT8 * p * kh * 128 +
+                                     half_start(kh, rank) * 128;
+    if (layer == 0)
+      lstm_pair<WT, BT, NT8>(c, 0, t, p, rank, w.wx0 + ox, w.sx0,
+                             w.wh0 + oh, w.sh, xbuf, xbuf_peer);
+    else
+      lstm_pair<WT, BT, NT8>(c, 1, t, p, rank, w.wx1 + oh, w.sh,
+                             w.wh1 + oh, w.sh, xbuf, xbuf_peer);
+  }
+}
+
+// WT: weight type of the prenet, wx0_pre and feat_out (float or bf16), also
+// the activation type; BT: type of wh0, wx1, wh1 (WT, or int8 codes).
+// NT8 = UB / 2 n-tiles of gate columns a slice.
+template <typename WT, typename BT, int NT8>
+__global__ void __launch_bounds__(NTH, 1)
+    ar_decode_kernel(DecodeArgs a, int stationary) {
+  using AT = typename Act<WT>::T;
+  extern __shared__ __align__(16) unsigned char smem[];
+  Ctx<WT, BT> c;
+  c.P = a.P;
+  c.D = a.D;
+  c.H = a.H;
+  c.U = a.units;
+  c.O = a.odim;
+  c.G = 4 * a.H;
+  c.Hp = r16(a.H);
+  c.Up = r16(a.units);
+  c.Op = r16(a.odim);
+  c.Ip = r16(a.idim);
+  c.Pp = r32(a.P);
+  c.n16 = c.Pp / 16;
+  c.UB = 2 * NT8;
+  c.ragged = a.ragged;
+  c.bounds = static_cast<const int*>(a.bounds);
+  c.quantized = a.quantized;
+  c.zoneout = a.zoneout;
+  c.drop_scale = 1.0f / (1.0f - a.dropout);
+  c.drop_thr = (uint64_t)((1.0 - (double)a.dropout) * 4294967296.0);
+  c.use_drop = a.dropout > 0.0f;
+  c.seed = a.seed;
+  c.pos = static_cast<const float*>(a.pos);
+  c.pre_b1 = static_cast<const float*>(a.pre_b1);
+  c.pre_b2 = static_cast<const float*>(a.pre_b2);
+  c.wx0_pos = static_cast<const float*>(a.wx0_pos);
+  c.bh0 = static_cast<const float*>(a.bh0);
+  c.bx1 = static_cast<const float*>(a.bx1);
+  c.bh1 = static_cast<const float*>(a.bh1);
+  c.scales = static_cast<const float*>(a.scales);
+  c.w1k = static_cast<const WT*>(a.w1k);
+  c.w2k = static_cast<const WT*>(a.w2k);
+  c.wfk = static_cast<const WT*>(a.wfk);
+  c.enc_gates = static_cast<const float*>(a.enc_gates);
+  c.enc_out = static_cast<const float*>(a.enc_out);
+  c.out = static_cast<float*>(a.out);
+  const long PH = (long)c.Pp * c.Hp;
+  AT* act = static_cast<AT*>(a.scratch);
+  c.encA = act;
+  c.p2 = c.encA + (long)c.Pp * c.Ip;
+  c.hx0 = c.p2 + (long)c.Pp * c.Up;
+  c.hx1 = c.hx0 + 2 * PH;
+  float* st = reinterpret_cast<float*>(c.hx1 + 2 * PH);
+  c.h0f = st;
+  c.c0 = st + PH;
+  c.h1f = st + 2 * PH;
+  c.c1 = st + 3 * PH;
+  c.sF = reinterpret_cast<AT*>(smem);
+  c.sP1 = c.sF + 16 * c.Op;
+  c.sRed = reinterpret_cast<float*>(c.sP1 + 16 * c.Up);
+  c.T = c.D;
+  if (c.ragged) {
+    c.T = 0;
+    for (int b = 0; b < (c.P + BOUND_TILE - 1) / BOUND_TILE; ++b)
+      c.T = max(c.T, min(c.bounds[b], c.D));
+  }
+  unsigned int* bar = static_cast<unsigned int*>(a.barrier);
+  unsigned int target = 0;
+  float* xbuf = reinterpret_cast<float*>(smem);
+
+  // this block's K halves of its pair's gate columns: shared memory once
+  // a launch, or read in place from the pack each step
+  const int n_pairs = c.Hp / c.UB / 2;
+  Halves<WT, BT> w;
+  w.wx0 = static_cast<const WT*>(a.wx0k);
+  w.wh0 = static_cast<const BT*>(a.wh0k);
+  w.wx1 = static_cast<const BT*>(a.wx1k);
+  w.wh1 = static_cast<const BT*>(a.wh1k);
+  w.sx0 = (long)(c.Up / 16) * 128;
+  w.sh = (long)(c.Hp / 16) * 128;
+  if (stationary) {
+    const int rank = (int)cg::this_cluster().block_rank();
+    const int pair = blockIdx.x / 2, kx0 = c.Up / 16, kh = c.Hp / 16;
+    const long mx = (long)(kx0 - kx0 / 2) * 128;  // the larger half
+    const long mh = (long)(kh - kh / 2) * 128;
+    WT* s_wx0 = reinterpret_cast<WT*>(smem + work_smem(c.Op, c.Up,
+                                                       (int)sizeof(AT), NT8));
+    BT* s_wh0 = reinterpret_cast<BT*>(s_wx0 + 2 * NT8 * mx);
+    BT* s_wx1 = s_wh0 + 2 * NT8 * mh;
+    BT* s_wh1 = s_wx1 + 2 * NT8 * mh;
+    // n-tile n of the pair: k16 steps [half_start, + half_len) in 16-byte
+    // copies
+    auto copy = [&](auto* dst, const auto* src, int kg, long m) {
+      using E = std::remove_cv_t<std::remove_pointer_t<decltype(src)>>;
+      constexpr int V = 16 / sizeof(E);
+      const long per = (long)half_len(kg, rank) * 128 / V;
+      for (long i = threadIdx.x; i < 2 * NT8 * per; i += NTH) {
+        const long n = i / per, k = i % per;
+        const uint4* from = reinterpret_cast<const uint4*>(
+            src + ((long)(2 * NT8 * pair + n) * kg + half_start(kg, rank)) *
+                      128) + k;
+        reinterpret_cast<uint4*>(dst + n * m)[k] = *from;
+      }
+    };
+    copy(s_wx0, w.wx0, kx0, mx);
+    copy(s_wh0, w.wh0, kh, mh);
+    copy(s_wx1, w.wx1, kh, mh);
+    copy(s_wh1, w.wh1, kh, mh);
+    w.wx0 = s_wx0;
+    w.wh0 = s_wh0;
+    w.wx1 = s_wx1;
+    w.wh1 = s_wh1;
+    w.sx0 = mx;
+    w.sh = mh;
+  }
+
+  // ---- prologue: zero state and never-reached frames;
+  // the resident entry's enc operand in fragment order
+  const long gtid = (long)blockIdx.x * NTH + threadIdx.x;
+  const long gsize = (long)gridDim.x * NTH;
+  {
+    const long n_act = (long)c.Pp * c.Up + 4 * PH;  // p2, hx0 x2, hx1 x2
+    for (long i = gtid; i < n_act; i += gsize) c.p2[i] = to_act<AT>(0.0f);
+    for (long i = gtid; i < 4 * PH; i += gsize) st[i] = 0.0f;
+    for (long i = gtid; i < (long)c.P * c.D * c.O; i += gsize) {
+      const int r = (int)(i / ((long)c.D * c.O));
+      const int tt = (int)((i / c.O) % c.D);
+      if (tt >= c.bound(r)) c.out[i] = 0.0f;
+    }
+    if (a.resident) {
+      const float* enc = static_cast<const float*>(a.enc);
+      for (long i = gtid; i < (long)c.Pp * c.Ip; i += gsize) {
+        const int r = (int)(i / c.Ip), k = (int)(i % c.Ip);
+        const float v =
+            (r < c.P && k < a.idim) ? enc[(long)r * a.idim + k] : 0.0f;
+        c.encA[(long)r * c.Ip + apos<AT>(k)] = to_act<AT>(v);
+      }
+    }
+  }
+  grid_sync(bar, target);
+  if (a.resident) {
+    // enc_gates = enc @ wx0_enc + bx0, enc_out = enc @ wf_enc: (m16 tile,
+    // n-tile) jobs over every warp of the grid
+    constexpr int UNR = sizeof(AT) == 4 ? 4 : 8;
+    const WT* wx0e = static_cast<const WT*>(a.wx0ek);
+    const WT* wfe = static_cast<const WT*>(a.wfek);
+    const float* bx0 = static_cast<const float*>(a.bx0);
+    float* eg = static_cast<float*>(a.enc_gates);
+    float* eo = static_cast<float*>(a.enc_out);
+    const int ng = (c.G + 7) / 8, no = (c.O + 7) / 8, kg = c.Ip / 16;
+    const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+    const long jobs = (long)c.n16 * (ng + no);
+    for (long job = gtid >> 5; job < jobs; job += gsize >> 5) {
+      const int rt = (int)(job / (ng + no)), nt = (int)(job % (ng + no));
+      const bool is_g = nt < ng;
+      const int n0 = is_g ? nt : nt - ng;
+      float acc[1][4] = {};
+      warp_mma<AT, WT, 1, UNR, true>(
+          acc, c.encA + (long)rt * 16 * c.Ip, c.Ip,
+          (is_g ? wx0e : wfe) + (long)n0 * kg * 128, 0, kg);
+#pragma unroll
+      for (int e4 = 0; e4 < 4; ++e4) {
+        const int row = rt * 16 + gid + (e4 >> 1) * 8;
+        const int col = n0 * 8 + 2 * tig + (e4 & 1);
+        if (row >= c.P) continue;
+        if (is_g && col < c.G)
+          eg[(long)row * c.G + col] = acc[0][e4] + bx0[col];
+        else if (!is_g && col < c.O)
+          eo[(long)row * c.O + col] = acc[0][e4];
+      }
+    }
+    grid_sync(bar, target);
+  }
+
+  // ---- the step loop: [feat_out(t-1) + prenet(t)] | LSTM 0 | LSTM 1
+  unsigned long long* trace = static_cast<unsigned long long*>(a.trace);
+  for (int t = 0; t < c.T; ++t) {
+    mark(trace, t, 0);
+    row_phase(c, t);
+    mark(trace, t, 1);
+    grid_sync(bar, target);
+    mark(trace, t, 2);
+    lstm_phase<WT, BT, NT8>(c, 0, t, w, stationary, n_pairs, xbuf);
+    mark(trace, t, 3);
+    grid_sync(bar, target);
+    mark(trace, t, 4);
+    lstm_phase<WT, BT, NT8>(c, 1, t, w, stationary, n_pairs, xbuf);
+    mark(trace, t, 5);
+    grid_sync(bar, target);
+    mark(trace, t, 6);
+  }
+  row_phase(c, c.T);  // the last frame
 }
 
 __global__ void dropout_mask_kernel(uint32_t seed, float rate, int rows,
@@ -675,50 +921,124 @@ __global__ void dropout_mask_kernel(uint32_t seed, float rate, int rows,
                : 0.0f;
 }
 
-template <typename WT, typename BT>
-int launch(const DecodeArgs* a, cudaStream_t stream, int* grid_out) {
-  auto kern = ar_decode_kernel<WT, BT>;
-  int dev = 0, sms = 0, coop = 0, occ = 0;
+template <typename WT, typename BT, int NT8>
+int launch(const DecodeArgs* a, cudaStream_t stream, LaunchInfo* info) {
+  using AT = typename Act<WT>::T;
+  auto kern = ar_decode_kernel<WT, BT, NT8>;
+  int dev = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev);
   if (e != cudaSuccess) return e;
-  e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  const int Hp = r16(a->H), Up = r16(a->units), Op = r16(a->odim);
+  const int n_slices = Hp / (2 * NT8);  // even: Hp is a multiple of 16
+  const int kx0 = Up / 16, kh = Hp / 16;
+  const size_t work = work_smem(Op, Up, (int)sizeof(AT), NT8);
+  const size_t w_smem = ((size_t)(kx0 - kx0 / 2) * sizeof(WT) +
+                         (size_t)3 * (kh - kh / 2) * sizeof(BT)) *
+                        128 * 2 * NT8;
+  cudaLaunchAttribute attrs[2];
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = 2;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  attrs[1].id = cudaLaunchAttributeCooperative;
+  attrs[1].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(NTH);
+  cfg.stream = stream;
+  cfg.attrs = attrs;
+  cfg.numAttrs = 1;  // the occupancy queries take the cluster only
+  // how many 2-block clusters can be resident at once with smem bytes
+  auto resident_clusters = [&](size_t smem, int* n) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    cfg.gridDim = dim3(n_slices);
+    cfg.dynamicSmemBytes = smem;
+    return cudaOccupancyMaxActiveClusters(n, kern, &cfg);
+  };
+  // stationary when every slice gets a resident block whose shared memory
+  // holds its halves
+  int stationary = 0, nc = 0;
+  size_t smem = work;
+  if (work + w_smem <= (size_t)optin) {
+    e = resident_clusters(work + w_smem, &nc);
+    if (e != cudaSuccess) return e;
+    if (2 * nc >= n_slices) {
+      stationary = 1;
+      smem = work + w_smem;
+    }
+  }
+  if (!stationary) {
+    e = resident_clusters(smem, &nc);
+    if (e != cudaSuccess) return e;
+    if (nc < 1) return cudaErrorCooperativeLaunchTooLarge;
+  }
+  // every block is resident, the grid barrier's premise: the occupancy
+  // check above, and a cooperative launch where the driver takes one with
+  // clusters
+  const int grid = stationary ? n_slices : min(n_slices, 2 * nc);
+  info->grid = grid;
+  info->block_threads = NTH;
+  info->units_per_block = 2 * NT8;
+  info->stationary = stationary;
+  info->smem_bytes = (int)smem;
+  info->barriers_per_step = 3;
+  info->prologue_barriers = 1 + a->resident;
+  info->cluster = 2;
+  cfg.gridDim = dim3(grid);
+  cfg.dynamicSmemBytes = smem;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
   if (e != cudaSuccess) return e;
-  if (!coop) return cudaErrorNotSupported;
-  // cooperative launch needs every block co-resident: size the grid from
-  // the occupancy calculator, capped at the widest phase's tile count
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kern, NT, 0);
-  if (e != cudaSuccess) return e;
-  if (occ < 1) return cudaErrorCooperativeLaunchTooLarge;
-  const int n_rt = (a->P + TM - 1) / TM;
-  const int tiles = n_rt * ((a->H + TU - 1) / TU);
-  const int grid = max(1, min(min(occ, 4) * sms, tiles));
-  *grid_out = grid;
-  void* params[] = {const_cast<DecodeArgs*>(a)};
-  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kern),
-                                  dim3(grid), dim3(NT), params, 0, stream);
+  DecodeArgs args = *a;
+  void* params[] = {&args, &stationary};
+  cfg.numAttrs = 2;
+  info->cooperative = 1;
+  e = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kern), params);
+  if (e != cudaSuccess) {
+    cudaGetLastError();  // not sticky: retry without the cooperative flag
+    cfg.numAttrs = 1;
+    info->cooperative = 0;
+    e = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kern),
+                            params);
+  }
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+template <typename WT, typename BT>
+int launch_ub(const DecodeArgs* a, cudaStream_t s, LaunchInfo* info) {
+  switch (a->units_per_block) {
+    case 2:
+      return launch<WT, BT, 1>(a, s, info);
+    case 4:
+      return launch<WT, BT, 2>(a, s, info);
+    case 8:
+      return launch<WT, BT, 4>(a, s, info);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// wkind: 0 = fp32 weights, 1 = bf16 weights, 2 = bf16 resident + int8
-// streamed.  Returns a cudaError_t (0 on success); *grid_out gets the
-// number of blocks launched.
+// wkind: 0 = fp32 weights, 1 = bf16 weights, 2 = bf16 + int8 codes for
+// wh0, wx1, wh1.  Returns a cudaError_t (0 on success); *info describes the
+// launch.
 int ar_decode_launch(const DecodeArgs* a, int wkind, void* stream,
-                     int* grid_out) {
+                     LaunchInfo* info) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (wkind) {
     case 0:
-      return launch<float, float>(a, s, grid_out);
+      return launch_ub<float, float>(a, s, info);
     case 1:
-      return launch<__nv_bfloat16, __nv_bfloat16>(a, s, grid_out);
+      return launch_ub<bf16, bf16>(a, s, info);
     case 2:
-      return launch<__nv_bfloat16, int8_t>(a, s, grid_out);
+      return launch_ub<bf16, int8_t>(a, s, info);
     default:
       return cudaErrorInvalidValue;
   }

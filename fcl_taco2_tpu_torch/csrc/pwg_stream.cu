@@ -79,6 +79,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32.cuh"
+
 namespace cg = cooperative_groups;
 
 #define MAX_LAYERS 64
@@ -153,32 +155,6 @@ __device__ __forceinline__ void cp_commit() {
 template <int N>
 __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// x ~ hi + lo, both TF32 (the fp32 mantissa truncated to 10 bits; the
-// low 13 bits cleared, so the tensor cores see exact TF32 values): hi
-// carries x to 2^-10, x - hi is exact, lo carries it on to 2^-20.
-constexpr uint32_t TF32_MASK = 0xffffe000u;
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = __float_as_uint(x) & TF32_MASK;
-  lo = __float_as_uint(x - __uint_as_float(hi)) & TF32_MASK;
-}
-
-__device__ __forceinline__ void mma(float c[4], const uint32_t a[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a.b in 3xTF32: the two small terms first, then hi.hi
-__device__ __forceinline__ void mma3(float c[4], const uint32_t ah[4],
-                                     const uint32_t al[4], const uint32_t bh[2],
-                                     const uint32_t bl[2]) {
-  mma(c, al, bh[0], bh[1]);
-  mma(c, ah, bl[0], bl[1]);
-  mma(c, ah, bh[0], bh[1]);
 }
 
 // The A fragment of m16n8k8 (rows g, g+8; columns t, t+4) from a

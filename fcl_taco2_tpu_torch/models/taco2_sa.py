@@ -43,6 +43,7 @@ def _cast_floats(model, dtype):
            if p.is_floating_point()):
         return model
     cast = copy.deepcopy(model)
+    cast.__dict__.pop("_packs", None)  # packed for the original weights
     for p in cast.parameters():
         if p.is_floating_point():
             p.data = p.data.to(dtype)
@@ -103,6 +104,25 @@ class Tacotron2SA(nn.Module):
     def compute_model(self):
         """This model with its parameters in ``cfg.compute_dtype``."""
         return _cast_floats(self, getattr(torch, self.cfg.compute_dtype))
+
+    def packed_decoder(self, idim, weights_dtype, prequant=None):
+        """The decoder's AR-loop weights packed for the CUDA kernel
+        (``ops.decoder_cuda.pack_decoder_weights``): made once per weight
+        dtype and reused by every later call (``Synthesizer``,
+        ``TTSPipeline`` and ``StreamTTS`` each hold one model) until the
+        decoder's parameters or ``prequant`` change."""
+        key = (idim, tuple((p.data_ptr(), p._version)
+                           for p in self.decoder.parameters()),
+               None if prequant is None
+               else tuple(t.data_ptr() for t in prequant))
+        packs = self.__dict__.setdefault("_packs", {})
+        hit = packs.get(weights_dtype)
+        if hit is None or hit[0] != key:
+            hit = (key, K.pack_decoder_weights(
+                self.decoder.jax_layout(), idim, weights_dtype,
+                prequant=prequant))
+            packs[weights_dtype] = hit
+        return hit[1]
 
     # ---------------- inference ----------------
 
@@ -237,12 +257,16 @@ class Tacotron2SA(nn.Module):
 
         Policy on the card: ``auto`` takes the resident entry
         (``fused_ar_decode``, fp32 weights) for configs whose decoder
-        weights stay L2-resident (the student), the streaming entry
-        (``fused_ar_decode_hbm``, bf16 or int8) for the other
-        ``hbm_stream_compatible`` configs (the teacher), at every P, and
-        ``scan`` otherwise.  ``auto`` never picks ``hybrid`` (its measured
-        gain was the TPU's); on CPU tensors ``auto`` is ``scan``, as the
-        JAX package's ``auto`` is off the TPU.
+        weights total at most ``ops.decoder_cuda.L2_RESIDENT_BYTES`` in
+        fp32 (the student), the streaming entry (``fused_ar_decode_hbm``,
+        bf16 or int8) for the other ``hbm_stream_compatible`` configs (the
+        teacher), at every P, and ``scan`` otherwise.  Both entries run the
+        same kernel, which keeps each block's share of the recurrent
+        matrices in shared memory for the whole launch where it fits (the
+        student in fp32, the teacher in bf16 or int8); the weights are
+        packed once per weight dtype (``packed_decoder``).  ``auto`` never
+        picks ``hybrid`` (its measured gain was the TPU's); on CPU tensors
+        ``auto`` is ``scan``, as the JAX package's ``auto`` is off the TPU.
         """
         cfg = self.cfg
         dtype = getattr(torch, cfg.compute_dtype)
@@ -312,10 +336,16 @@ class Tacotron2SA(nn.Module):
             stream_wdt = torch.int8 if quantize == "int8" else torch.bfloat16
         fmask = frame_mask[..., None].to(dtype)
         if use_pallas:
+            if enc_seg.is_cuda:
+                kw["packed"] = self.packed_decoder(enc_seg.shape[1],
+                                                   kernel_wdt)
             seg_out = K.fused_ar_decode(dec_params, enc_seg, position, seed,
                                         weights_dtype=kernel_wdt,
                                         bounds=tile_bounds, **kw)
             return seg_out.to(dtype) * fmask
+        if (use_hbm or use_hybrid) and enc_seg.is_cuda:
+            kw["packed"] = self.packed_decoder(enc_seg.shape[1], stream_wdt,
+                                               prequant)
         if use_hbm:
             seg_out = K.fused_ar_decode_hbm(
                 dec_params, enc_seg, position, seed, weights_dtype=stream_wdt,

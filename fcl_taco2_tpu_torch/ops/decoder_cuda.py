@@ -8,13 +8,17 @@ Two wrappers keep the Pallas entry points' names and arguments:
   ``_kernel`` does).  Weights fp32 or bf16.
 - ``fused_ar_decode_hbm``: the streaming entry.  The enc projections are
   hoisted out as two plain GEMMs (as ``decoder_pallas.py:438-440``); the
-  recurrent matrices wh0, wx1, wh1 are bf16 or per-column int8 codes.
+  recurrent matrices wh0, wx1, wh1 are fp32, bf16 or per-column int8
+  codes.
 
 Both launch ``csrc/ar_decode.cu`` once per call (the whole step loop runs
 on the device) for CUDA tensors, and run their plain PyTorch versions,
 ``*_plain``, for CPU tensors.  There is no fallback: a CUDA tensor either
-launches the kernel or raises.  ``dec_params`` is the decoder's weights in
-the JAX layout (``models.decoder.Decoder.jax_layout``).
+launches the kernel or raises.  The kernel takes its weights packed
+(``pack_decoder_weights``: B-fragment order, gate columns grouped by the
+units each block owns); pass ``packed=`` to pack once.  ``dec_params`` is
+the decoder's weights in the JAX layout
+(``models.decoder.Decoder.jax_layout``).
 
 The prenet dropout stays on at inference.  The kernel draws it from a
 counter-based Philox keyed on (seed, row, step, layer, unit); the plain
@@ -25,6 +29,7 @@ the kernel's draws are checked by their statistics
 """
 
 import ctypes
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -32,9 +37,14 @@ from fcl_taco2_tpu_torch.models.components import prenet_dropout
 
 TILE = 128  # rows per ragged step bound; the kernel reads bounds[row // TILE]
 
-# Decoder weights up to this many bytes stay L2-resident across the AR
-# steps (half of the H100's 50 MB L2, leaving room for activations and
-# state): such configs take the resident entry with fp32 weights.
+# The entry policy's size line (models/taco2_sa.py::decode_segments):
+# configs whose decoder weights total at most this many bytes in fp32 take
+# the resident entry with fp32 weights (the student, 5.8 MB), the others
+# the streaming entry with bf16 or int8 (the teacher, 63 MB in fp32).
+# Either way the kernel holds each block's share of the recurrent matrices
+# in shared memory across the steps where the shares fit (the grid's 132
+# SMs hold ~30 MB together), and streams them from global memory where
+# they do not (teacher weights in fp32).
 L2_RESIDENT_BYTES = 25 * 1024 * 1024
 
 
@@ -60,8 +70,9 @@ def decoder_weight_bytes(cfg, weights_dtype=torch.float32):
 
 
 def fits_l2(cfg, weights_dtype=torch.float32):
-    """True when the decoder weights stay L2-resident across steps (the
-    student at 256-d in fp32; not the teacher at 1024-d, ~63 MB fp32)."""
+    """True when the decoder weights in ``weights_dtype`` are within
+    ``L2_RESIDENT_BYTES``: the entry policy's test (the student at 256-d
+    in fp32 passes, the teacher at 1024-d, ~63 MB in fp32, does not)."""
     return decoder_weight_bytes(cfg, weights_dtype) <= L2_RESIDENT_BYTES
 
 
@@ -111,7 +122,6 @@ def maybe_prequantize(cfg, dec_params, quantize):
 _RESIDENT = ("pre_w1", "pre_w2", "wx0_pre", "wx0_pos", "wf_z")
 _STREAMED = ("wh0", "wx1", "wh1")
 _MATRICES = _RESIDENT + _STREAMED + ("wx0_enc", "wf_enc")
-_BIASES = ("pre_b1", "pre_b2", "bh0", "bx1", "bh1")
 
 
 def _split(dec_params, idim):
@@ -246,13 +256,186 @@ def fused_ar_decode_hbm_plain(dec_params, enc_seg, position, seed, *,
 
 
 # --------------------------------------------------------------------------
+# the kernel's operand layout
+# --------------------------------------------------------------------------
+
+# A lane's four values of one k16 step (lane = 4 * gid + t, column gid of an
+# n8 tile): the rows of a weight fragment and the columns of an activation
+# fragment, by the type multiplied in.  bf16 (m16n8k16): 2t, 2t+1, 2t+8,
+# 2t+9; fp32 (3xTF32, two m16n8k8 steps): t, t+4, t+8, t+12.
+_KIDX = {
+    torch.bfloat16: torch.tensor([[2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9]
+                                  for t in range(4)]),
+    torch.float32: torch.tensor([[t, t + 4, t + 8, t + 12]
+                                 for t in range(4)]),
+}
+
+
+def _r16(x):
+    return -(-x // 16) * 16
+
+
+def _act_dtype(wdt):
+    """The type activations are multiplied in: fp32 for fp32 weights,
+    bf16 for bf16 weights and int8 codes."""
+    return torch.float32 if wdt == torch.float32 else torch.bfloat16
+
+
+def act_positions(K, act_dtype):
+    """Where logical column k (< K, K a multiple of 16) of an activation
+    row sits in the kernel's fragment-ordered layout (``apos`` in
+    csrc/ar_decode.cu): lane t's four values of a k16 step are adjacent."""
+    kidx = _KIDX[act_dtype].reshape(-1)  # position 4t + e -> column
+    pos = torch.empty(16, dtype=torch.int64)
+    pos[kidx] = torch.arange(16)
+    return (torch.arange(K) // 16) * 16 + pos[torch.arange(K) % 16]
+
+
+def pack_b(w, Kp, Np, dtype, act_dtype):
+    """A (K, N) weight matrix as the kernel's B operand: zero-padded to
+    (Kp, Np) (Kp a multiple of 16, Np of 8), cast to ``dtype``, in fragment
+    order (Np / 8, Kp / 16, 32, 4): [n-tile, k16 step, lane 4 gid + t,
+    value e] = w[16 step + KIDX[t, e], 8 n-tile + gid]."""
+    K, N = w.shape
+    full = torch.zeros(Kp, Np, dtype=w.dtype, device=w.device)
+    full[:K, :N] = w
+    kidx = _KIDX[act_dtype].to(w.device)
+    v = full.view(Kp // 16, 16, Np // 8, 8)[:, kidx]  # (kg, t, e, nt, gid)
+    v = v.permute(3, 0, 4, 1, 2).reshape(Np // 8, Kp // 16, 32, 4)
+    return v.to(dtype).contiguous()
+
+
+def gate_order(w, H, ub):
+    """Columns of an LSTM gate matrix (K, 4H), gates (i, f, g, o) of unit j
+    at g * H + j, in the kernel's slice order: slice b holds units
+    [b ub, (b + 1) ub) of the padded width Hp, unit-major with the four
+    gates together (column 4 ub b + 4 u + g); padded units are zero.  A
+    cluster of two blocks owns slices 2p and 2p + 1, each block one K
+    half of both."""
+    K = w.shape[0]
+    Hp = _r16(H)
+    out = torch.zeros(K, Hp, 4, dtype=w.dtype, device=w.device)
+    out[:, :H] = w.view(K, 4, H).transpose(1, 2)
+    return out.reshape(K, 4 * Hp)
+
+
+def units_per_block(H, device=None):
+    """Hidden units a block owns: the fewest (2, 4 or 8) that give one
+    block a slice on the card (``Hp / ub`` <= the SM count), 8 where none
+    does (the blocks then take several slices, streamed).  H100: 2 for the
+    student (128 slices), 8 for the teacher (128 slices)."""
+    sms = 132
+    if device is not None and torch.device(device).type == "cuda":
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for ub in (2, 4, 8):
+        if _r16(H) // ub <= sms:
+            return ub
+    return 8
+
+
+class PackedDecoder(NamedTuple):
+    """The decoder's AR-loop weights as the kernel takes them, made once by
+    ``pack_decoder_weights`` (``wdt``: prenet, wx0_pre, wf_z and the enc
+    projections; ``bdt``: wh0, wx1, wh1, int8 codes or ``wdt``).  Packed
+    matrices (``*k``) are in ``pack_b``'s fragment order with K padded to
+    16; the gate matrices' columns in ``gate_order`` for ``ub`` units a
+    block.  Vectors are fp32; ``wx0_pos`` holds the ``wdt``-rounded
+    weights.  ``wx0_enc``/``wf_enc`` are kept as given for the streaming
+    entry's hoisted fp32 GEMMs."""
+    weights_dtype: torch.dtype
+    wdt: torch.dtype
+    bdt: torch.dtype
+    idim: int
+    units: int
+    odim: int
+    H: int
+    ub: int
+    w1k: torch.Tensor
+    pre_b1: torch.Tensor
+    w2k: torch.Tensor
+    pre_b2: torch.Tensor
+    wx0k: torch.Tensor
+    wx0_pos: torch.Tensor
+    bh0: torch.Tensor
+    wh0k: torch.Tensor
+    wx1k: torch.Tensor
+    wh1k: torch.Tensor
+    bx1: torch.Tensor
+    bh1: torch.Tensor
+    wfk: torch.Tensor
+    wx0ek: torch.Tensor
+    bx0: torch.Tensor
+    wfek: torch.Tensor
+    scales: Optional[torch.Tensor]
+    wx0_enc: torch.Tensor
+    wf_enc: torch.Tensor
+
+
+def pack_decoder_weights(dec_params, idim, weights_dtype, prequant=None,
+                         ub=None):
+    """Pack the decoder's weights once for both kernel entries.
+
+    ``weights_dtype``: torch.float32 or torch.bfloat16 (every matrix in
+    it), or torch.int8 (wh0, wx1, wh1 as per-column codes, from
+    ``prequant`` when given, the rest bf16; the streaming entry only).
+    ``ub``: units a block (default ``units_per_block`` on the weights'
+    device)."""
+    if weights_dtype not in (torch.float32, torch.bfloat16, torch.int8):
+        raise ValueError(f"weights_dtype {weights_dtype} not supported")
+    w = _split(dec_params, idim)
+    quantized = weights_dtype == torch.int8
+    wdt = torch.bfloat16 if quantized else weights_dtype
+    adt = _act_dtype(wdt)
+    H, U, O = w["H"], w["units"], w["odim"]
+    Hp, Up, Op, Ip = _r16(H), _r16(U), _r16(O), _r16(idim)
+    dev = w["wh0"].device
+    ub = units_per_block(H, dev) if ub is None else ub
+    if ub not in (2, 4, 8):
+        raise ValueError(f"ub must be 2, 4 or 8, got {ub}")
+    f32 = torch.float32
+
+    def mat(m, Kp, Np, dtype=wdt, gates=False):
+        m = m.to(dtype)
+        if gates:
+            m = gate_order(m, H, ub)
+        return pack_b(m, Kp, Np, dtype, adt)
+
+    scales = None
+    if quantized:
+        if prequant is None:
+            prequant = prequantize_hbm_weights(
+                dec_params, compute_dtype=w["wh0"].dtype)
+        wbig, scales = prequant
+        big = (wbig[:H], wbig[H:2 * H], wbig[2 * H:])
+        scales = scales.to(f32).contiguous()
+        bdt = torch.int8
+    else:
+        big = (w["wh0"], w["wx1"], w["wh1"])
+        bdt = wdt
+    wh0k, wx1k, wh1k = (mat(m, Hp, 4 * Hp, bdt, gates=True) for m in big)
+    vec = {k: w[k].to(f32).contiguous()
+           for k in ("pre_b1", "pre_b2", "bh0", "bx1", "bh1", "bx0")}
+    return PackedDecoder(
+        weights_dtype=weights_dtype, wdt=wdt, bdt=bdt, idim=idim, units=U,
+        odim=O, H=H, ub=ub,
+        w1k=mat(w["pre_w1"], Op, Up), w2k=mat(w["pre_w2"], Up, Up),
+        wx0k=mat(w["wx0_pre"], Up, 4 * Hp, gates=True),
+        wx0_pos=w["wx0_pos"].to(wdt).to(f32).contiguous(),
+        wh0k=wh0k, wx1k=wx1k, wh1k=wh1k,
+        wfk=mat(w["wf_z"], Hp, Op),
+        wx0ek=mat(w["wx0_enc"], Ip, _r16(4 * H)),
+        wfek=mat(w["wf_enc"], Ip, Op), scales=scales,
+        wx0_enc=w["wx0_enc"], wf_enc=w["wf_enc"], **vec)
+
+
+# --------------------------------------------------------------------------
 # the CUDA launch
 # --------------------------------------------------------------------------
 
-_PTR_FIELDS = ("enc", "enc_gates", "enc_out", "pos", "bounds", "pre_w1",
-               "pre_b1", "pre_w2", "pre_b2", "wx0_pre", "wx0_pos", "bh0",
-               "wh0", "wx1", "wh1", "bx1", "bh1", "wf_z", "wx0_enc", "bx0",
-               "wf_enc", "scales", "out", "scratch")
+_PTR_FIELDS = ("enc", "enc_gates", "enc_out", "pos", "bounds", "w1k",
+               "pre_b1", "w2k", "pre_b2", "wx0k", "wx0_pos", "bh0",
+               "wh0k", "wx1k", "wh1k", "bx1", "bh1", "wfk", "wx0ek", "bx0",
+               "wfek", "scales", "out", "scratch", "barrier", "trace")
 
 
 class _DecodeArgs(ctypes.Structure):
@@ -260,10 +443,28 @@ class _DecodeArgs(ctypes.Structure):
     _fields_ = ([(n, ctypes.c_void_p) for n in _PTR_FIELDS]
                 + [(n, ctypes.c_int) for n in
                    ("P", "D", "idim", "odim", "units", "H", "ragged",
-                    "resident", "quantized")]
+                    "resident", "quantized", "units_per_block")]
                 + [("zoneout", ctypes.c_float), ("dropout", ctypes.c_float),
                    ("seed", ctypes.c_uint)])
 
+
+_INFO = ("grid", "block_threads", "units_per_block", "stationary",
+         "smem_bytes", "barriers_per_step", "prologue_barriers", "cluster",
+         "cooperative")
+
+
+class _LaunchInfo(ctypes.Structure):
+    """Mirror of ``struct LaunchInfo`` in csrc/ar_decode.cu."""
+    _fields_ = [(n, ctypes.c_int) for n in _INFO]
+
+
+# The newest launch, as the launcher reported it: grid (blocks),
+# block_threads, units_per_block, stationary (1: weight slices in shared
+# memory for the whole launch; 0: streamed from global memory each step),
+# smem_bytes (dynamic, a block), barriers_per_step, prologue_barriers,
+# cluster (blocks), cooperative (1: the driver took a cooperative launch
+# with clusters; 0: residency rests on the occupancy check alone).
+last_launch = {}
 
 _WKIND = {(torch.float32, torch.float32): 0,
           (torch.bfloat16, torch.bfloat16): 1,
@@ -276,7 +477,7 @@ def _lib():
     if not getattr(lib, "_typed", False):
         lib.ar_decode_launch.argtypes = [ctypes.POINTER(_DecodeArgs),
                                          ctypes.c_int, ctypes.c_void_p,
-                                         ctypes.POINTER(ctypes.c_int)]
+                                         ctypes.POINTER(_LaunchInfo)]
         lib.ar_decode_launch.restype = ctypes.c_int
         lib.dropout_mask_launch.argtypes = [
             ctypes.c_uint, ctypes.c_float, ctypes.c_int, ctypes.c_int,
@@ -299,57 +500,79 @@ def _check(t, name, shape, dtype, device):
     return t
 
 
-def _launch(*, resident, wdt, bdt, tensors, P, D, idim, odim, units, H,
-            bounds, zoneout, dropout, seed):
-    """Validate every operand, allocate the output and scratch, launch."""
+def _scratch_bytes(pk, P):
+    """The kernel's scratch (csrc/ar_decode.cu, the kernel's prologue):
+    activations in their product type (enc, p2, h0 and h1 twice each) and
+    fp32 h0, c0, h1, c1, over P rounded up to 32 rows."""
+    Pp = -(-P // 32) * 32
+    Hp = _r16(pk.H)
+    n_act = Pp * (_r16(pk.idim) + _r16(pk.units) + 4 * Hp)
+    asize = 4 if _act_dtype(pk.wdt) == torch.float32 else 2
+    return n_act * asize + 4 * Pp * Hp * 4
+
+
+def _launch(pk, *, resident, tensors, P, D, bounds, zoneout, dropout, seed,
+            trace=None):
+    """Validate the per-call operands and the pack, allocate the output and
+    scratch, launch.  ``trace``: an int64 tensor of (D + 1) x 7 x 132
+    entries (or more) gets each block's phase times (csrc/ar_decode.cu,
+    ``mark``)."""
     dev = tensors["pos"].device
-    G = 4 * H
+    H, U, O, I = pk.H, pk.units, pk.odim, pk.idim
+    G, Hp, Up, Op, Ip = 4 * H, _r16(H), _r16(U), _r16(O), _r16(I)
+    f32 = torch.float32
+
+    def frag(Kp, Np, dtype):
+        return ((Np // 8, Kp // 16, 32, 4), dtype)
+
     shapes = {
-        "pos": ((P, D), torch.float32), "enc_gates": ((P, G), torch.float32),
-        "enc_out": ((P, odim), torch.float32),
-        "pre_w1": ((odim, units), wdt), "pre_b1": ((units,), torch.float32),
-        "pre_w2": ((units, units), wdt), "pre_b2": ((units,), torch.float32),
-        "wx0_pre": ((units, G), wdt), "wx0_pos": ((G,), wdt),
-        "bh0": ((G,), torch.float32), "wh0": ((H, G), bdt),
-        "wx1": ((H, G), bdt), "wh1": ((H, G), bdt),
-        "bx1": ((G,), torch.float32), "bh1": ((G,), torch.float32),
-        "wf_z": ((H, odim), wdt),
+        "pos": ((P, D), f32), "enc_gates": ((P, G), f32),
+        "enc_out": ((P, O), f32),
+        "w1k": frag(Op, Up, pk.wdt), "pre_b1": ((U,), f32),
+        "w2k": frag(Up, Up, pk.wdt), "pre_b2": ((U,), f32),
+        "wx0k": frag(Up, 4 * Hp, pk.wdt), "wx0_pos": ((G,), f32),
+        "bh0": ((G,), f32), "wh0k": frag(Hp, 4 * Hp, pk.bdt),
+        "wx1k": frag(Hp, 4 * Hp, pk.bdt), "wh1k": frag(Hp, 4 * Hp, pk.bdt),
+        "bx1": ((G,), f32), "bh1": ((G,), f32),
+        "wfk": frag(Hp, Op, pk.wdt),
     }
     if resident:
-        shapes.update({"enc": ((P, idim), torch.float32),
-                       "wx0_enc": ((idim, G), wdt),
-                       "bx0": ((G,), torch.float32),
-                       "wf_enc": ((idim, odim), wdt)})
-    if bdt == torch.int8:
-        shapes["scales"] = ((3, G), torch.float32)
+        shapes.update({"enc": ((P, I), f32),
+                       "wx0ek": frag(Ip, _r16(G), pk.wdt),
+                       "bx0": ((G,), f32), "wfek": frag(Ip, Op, pk.wdt)})
+    if pk.bdt == torch.int8:
+        shapes["scales"] = ((3, G), f32)
     if bounds is not None:
         shapes["bounds"] = ((-(-P // TILE),), torch.int32)
-        tensors["bounds"] = bounds
+    ops = dict(pk._asdict(), **tensors, bounds=bounds)
     for name, (shape, dtype) in shapes.items():
-        _check(tensors[name], name, shape, dtype, dev)
+        _check(ops[name], name, shape, dtype, dev)
 
-    out = torch.empty(P, D, odim, dtype=torch.float32, device=dev)
-    scratch = torch.empty(2 * P * units + 6 * P * H, dtype=torch.float32,
+    out = torch.empty(P, D, O, dtype=f32, device=dev)
+    scratch = torch.empty(_scratch_bytes(pk, P), dtype=torch.uint8,
                           device=dev)
-    ptrs = {n: tensors[n].data_ptr() if n in shapes else None
+    barrier = torch.zeros(1, dtype=torch.int32, device=dev)
+    ptrs = {n: ops[n].data_ptr() if n in shapes else None
             for n in _PTR_FIELDS}
-    ptrs["enc_gates"] = tensors["enc_gates"].data_ptr()
-    ptrs["enc_out"] = tensors["enc_out"].data_ptr()
-    ptrs["out"], ptrs["scratch"] = out.data_ptr(), scratch.data_ptr()
-    args = _DecodeArgs(**ptrs, P=P, D=D, idim=idim, odim=odim, units=units,
-                       H=H, ragged=int(bounds is not None),
+    ptrs.update(out=out.data_ptr(), scratch=scratch.data_ptr(),
+                barrier=barrier.data_ptr(),
+                trace=None if trace is None else trace.data_ptr())
+    args = _DecodeArgs(**ptrs, P=P, D=D, idim=I, odim=O, units=U, H=H,
+                       ragged=int(bounds is not None),
                        resident=int(resident),
-                       quantized=int(bdt == torch.int8),
-                       zoneout=float(zoneout), dropout=float(dropout),
-                       seed=int(seed) & 0xFFFFFFFF)
-    grid = ctypes.c_int(0)
+                       quantized=int(pk.bdt == torch.int8),
+                       units_per_block=pk.ub, zoneout=float(zoneout),
+                       dropout=float(dropout), seed=int(seed) & 0xFFFFFFFF)
+    info = _LaunchInfo()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib().ar_decode_launch(ctypes.byref(args), _WKIND[(wdt, bdt)],
-                                  ctypes.c_void_p(stream),
-                                  ctypes.byref(grid))
+    err = _lib().ar_decode_launch(ctypes.byref(args),
+                                  _WKIND[(pk.wdt, pk.bdt)],
+                                  ctypes.c_void_p(stream), ctypes.byref(info))
     if err != 0:
         raise RuntimeError(f"ar_decode launch failed with CUDA error {err} "
-                           f"(P={P}, H={H}, grid={grid.value})")
+                           f"(P={P}, H={H}, grid={info.grid})")
+    last_launch.clear()
+    last_launch.update({n: getattr(info, n) for n in _INFO})
     return out
 
 
@@ -360,8 +583,18 @@ def _require_cuda_operands(*ts):
                              "operand on the card")
 
 
+def _check_pack(pk, weights_dtype, device):
+    if pk.weights_dtype != weights_dtype:
+        raise ValueError(f"packed weights are {pk.weights_dtype}, the call "
+                         f"asks for {weights_dtype}")
+    if pk.w1k.device != device:
+        raise ValueError(f"packed weights are on {pk.w1k.device}, "
+                         f"expected {device}")
+
+
 def fused_ar_decode(dec_params, enc_seg, position, seed, *, zoneout=0.1,
-                    dropout=0.5, weights_dtype=torch.float32, bounds=None):
+                    dropout=0.5, weights_dtype=torch.float32, bounds=None,
+                    packed=None):
     """Run the whole AR loop in one kernel launch (resident entry).
 
     Args:
@@ -372,6 +605,8 @@ def fused_ar_decode(dec_params, enc_seg, position, seed, *, zoneout=0.1,
         weights_dtype: torch.float32 or torch.bfloat16 for the weight
             matrices (biases, state and accumulation stay fp32).
         bounds: optional (ceil(P/TILE),) int32 per-tile step bounds.
+        packed: optional ``pack_decoder_weights(dec_params, idim,
+            weights_dtype)`` made once; packed here per call otherwise.
     Returns:
         (P, D, odim) float32 frames; frames at or past a row's tile bound
         are zero (valid frames are selected by the caller).
@@ -385,21 +620,20 @@ def fused_ar_decode(dec_params, enc_seg, position, seed, *, zoneout=0.1,
     _require_cuda_operands(position, bounds)
     P, idim = enc_seg.shape
     D = position.shape[1]
-    w = _split(dec_params, idim)
+    if packed is None:
+        packed = pack_decoder_weights(dec_params, idim, weights_dtype)
+    _check_pack(packed, weights_dtype, enc_seg.device)
     if P == 0:
-        return torch.zeros(0, D, w["odim"], device=enc_seg.device)
-    wdt = weights_dtype
+        return torch.zeros(0, D, packed.odim, device=enc_seg.device)
     f32 = torch.float32
-    t = {k: w[k].to(wdt).contiguous() for k in _MATRICES}
-    t.update({k: w[k].to(f32).contiguous() for k in _BIASES + ("bx0",)})
-    t["enc"] = enc_seg.to(f32).contiguous()
-    t["pos"] = position.to(f32).contiguous()
-    t["enc_gates"] = torch.empty(P, 4 * w["H"], dtype=f32,
-                                 device=enc_seg.device)
-    t["enc_out"] = torch.empty(P, w["odim"], dtype=f32, device=enc_seg.device)
-    out = _launch(resident=True, wdt=wdt, bdt=wdt, tensors=t, P=P, D=D,
-                  idim=idim, odim=w["odim"], units=w["units"], H=w["H"],
-                  bounds=bounds, zoneout=zoneout, dropout=dropout, seed=seed)
+    t = {"enc": enc_seg.to(f32).contiguous(),
+         "pos": position.to(f32).contiguous(),
+         "enc_gates": torch.empty(P, 4 * packed.H, dtype=f32,
+                                  device=enc_seg.device),
+         "enc_out": torch.empty(P, packed.odim, dtype=f32,
+                                device=enc_seg.device)}
+    out = _launch(packed, resident=True, tensors=t, P=P, D=D, bounds=bounds,
+                  zoneout=zoneout, dropout=dropout, seed=seed)
     fused_ar_decode.launches += 1
     return out
 
@@ -409,14 +643,15 @@ fused_ar_decode.launches = 0
 
 def fused_ar_decode_hbm(dec_params, enc_seg, position, seed, *, zoneout=0.1,
                         dropout=0.5, weights_dtype=torch.bfloat16,
-                        bounds=None, prequant=None):
-    """AR decoder loop for models whose weights do not stay L2-resident
-    (the teacher): same kernel, the enc projections hoisted outside as two
-    plain fp32 GEMMs, the recurrent matrices wh0, wx1, wh1 in
-    ``weights_dtype`` — bf16, or ``torch.int8`` per-column codes
-    (``prequant`` from ``prequantize_hbm_weights`` skips the inline
-    quantization).  Returns (P, D, odim) float32 frames, zero at or past a
-    row's tile bound."""
+                        bounds=None, prequant=None, packed=None):
+    """AR decoder loop, streaming entry (the teacher): same kernel, the enc
+    projections hoisted outside as two plain fp32 GEMMs, the recurrent
+    matrices wh0, wx1, wh1 in ``weights_dtype`` — fp32, bf16, or
+    ``torch.int8`` per-column codes (``prequant`` from
+    ``prequantize_hbm_weights`` skips the inline quantization).  ``packed``
+    (``pack_decoder_weights``, made once) skips the per-call packing.
+    Returns (P, D, odim) float32 frames, zero at or past a row's tile
+    bound."""
     if not enc_seg.is_cuda:
         return fused_ar_decode_hbm_plain(
             dec_params, enc_seg, position, seed, zoneout=zoneout,
@@ -428,24 +663,18 @@ def fused_ar_decode_hbm(dec_params, enc_seg, position, seed, *, zoneout=0.1,
                            *(prequant if prequant is not None else ()))
     P, idim = enc_seg.shape
     D = position.shape[1]
-    wd, rdt, big, scales = _hbm_weights(dec_params, idim, weights_dtype,
-                                        prequant)
+    if packed is None:
+        packed = pack_decoder_weights(dec_params, idim, weights_dtype,
+                                      prequant=prequant)
+    _check_pack(packed, weights_dtype, enc_seg.device)
     if P == 0:
-        return torch.zeros(0, D, wd["odim"], device=enc_seg.device)
-    f32 = torch.float32
-    enc_gates, enc_out = _hoisted_enc(enc_seg, wd)
-    t = {k: wd[k].contiguous() for k in _RESIDENT}
-    t.update({k: wd[k].to(f32).contiguous() for k in _BIASES})
-    t.update({k: m.contiguous() for k, m in zip(_STREAMED, big)})
-    t.update({"pos": position.to(f32).contiguous(),
-              "enc_gates": enc_gates.contiguous(),
-              "enc_out": enc_out.contiguous()})
-    if scales is not None:
-        t["scales"] = scales.to(f32).contiguous()
-    out = _launch(resident=False, wdt=rdt, bdt=big[0].dtype, tensors=t, P=P,
-                  D=D, idim=idim, odim=wd["odim"], units=wd["units"],
-                  H=wd["H"], bounds=bounds, zoneout=zoneout, dropout=dropout,
-                  seed=seed)
+        return torch.zeros(0, D, packed.odim, device=enc_seg.device)
+    enc_gates, enc_out = _hoisted_enc(enc_seg, packed._asdict())
+    t = {"pos": position.to(torch.float32).contiguous(),
+         "enc_gates": enc_gates.contiguous(),
+         "enc_out": enc_out.contiguous()}
+    out = _launch(packed, resident=False, tensors=t, P=P, D=D, bounds=bounds,
+                  zoneout=zoneout, dropout=dropout, seed=seed)
     fused_ar_decode_hbm.launches += 1
     return out
 

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
 first use into ``fcl_taco2_tpu_torch/_build/lib<name>-<hash>.so`` (the
-hash covers the source and the flags, so an edited source rebuilds).
+hash covers the source, the shared headers ``csrc/*.cuh`` and the flags,
+so an edited source or header rebuilds).
 Nothing is imported or compiled at module import time.
 """
 
@@ -39,8 +40,11 @@ def build(name):
     Returns (path, compiler log); the log holds ptxas' register and
     shared-memory report when it compiled."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:12]
     lib = BUILD_DIR / f"lib{name}-{digest}.so"
     if lib.exists():
         return lib, ""

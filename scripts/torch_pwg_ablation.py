@@ -2,7 +2,8 @@
 
     python3 scripts/torch_pwg_ablation.py
 
-Builds ablated copies of ``fcl_taco2_tpu_torch/csrc/pwg_stream.cu`` (each
+Builds ablated copies of ``fcl_taco2_tpu_torch/csrc/pwg_stream.cu`` with
+``csrc/tf32.cuh`` inlined (each
 drops one part of the work, so its output is wrong and only its time
 means anything) and times each, kernel alone, on the text -> wav path's
 shape (PWG v1, B=1, Tm=1536: 393,216 samples) and on a 4096-sample stream
@@ -37,9 +38,9 @@ from fcl_taco2_tpu_torch.vocoder import pwg_cuda as PC  # noqa: E402
 from fcl_taco2_tpu_torch.vocoder.pwg import (ParallelWaveGAN,  # noqa: E402
                                              PWGConfig, upsample_mel)
 
-MMA3 = """  mma(c, al, bh[0], bh[1]);
-  mma(c, ah, bl[0], bl[1]);
-  mma(c, ah, bh[0], bh[1]);"""
+MMA3 = """  mma_tf32(c, al, bh[0], bh[1]);
+  mma_tf32(c, ah, bl[0], bl[1]);
+  mma_tf32(c, ah, bh[0], bh[1]);"""
 SPLIT = """  hi = __float_as_uint(x) & TF32_MASK;
   lo = __float_as_uint(x - __uint_as_float(hi)) & TF32_MASK;"""
 GATHER = """      if (src != nullptr)
@@ -49,7 +50,7 @@ GATHER = """      if (src != nullptr)
 VARIANTS = {
     "base": [],
     "no_sync": [("grid.sync();", "")],
-    "one_pass": [(MMA3, "  mma(c, ah, bh[0], bh[1]);")],
+    "one_pass": [(MMA3, "  mma_tf32(c, ah, bh[0], bh[1]);")],
     "no_split": [(SPLIT, "  hi = __float_as_uint(x);\n  lo = 0u;")],
     "no_mma": [(MMA3, "")],
     "no_gather": [(GATHER, "      if (rt < 0) st4(dst + 4 * c4, zero);")],
@@ -59,7 +60,9 @@ VARIANTS = {
 
 
 def build_variant(name, edits):
-    src = (CB.CSRC / "pwg_stream.cu").read_text()
+    # the shared TF32 header inlined, so its parts can be edited too
+    src = (CB.CSRC / "pwg_stream.cu").read_text().replace(
+        '#include "tf32.cuh"', (CB.CSRC / "tf32.cuh").read_text())
     for old, new in edits:
         if old not in src:
             raise RuntimeError(f"{name}: the source no longer has {old!r}")

@@ -85,6 +85,52 @@ def test_kernels_match_plain_versions(cuda, ragged):
                 assert (got[past] == 0).all()
 
 
+@pytest.mark.parametrize("P", [16, 100])
+def test_kernels_match_plain_versions_at_small_and_odd_P(cuda, P):
+    """P = 16 (one row tile) and P = 100 (not a multiple of the 32-row
+    padding or of 64), ragged, with packed weights made once."""
+    from fcl_taco2_tpu_torch.models.decoder import Decoder
+    from fcl_taco2_tpu_torch.ops import decoder_cuda as K
+
+    cfg = tiny_config(dunits=256, dropout_rate=0.0, max_dur=9)
+    dp = Decoder(cfg, device=cuda).jax_layout()
+    enc, pos, fm, bounds = _inputs(cfg, P, cuda, seed=P)
+    with torch.no_grad():
+        for fn, plain, wdt, tol in (
+                (K.fused_ar_decode, K.fused_ar_decode_plain,
+                 torch.float32, TOL_F32),
+                (K.fused_ar_decode_hbm, K.fused_ar_decode_hbm_plain,
+                 torch.int8, TOL_BF16)):
+            pk = K.pack_decoder_weights(dp, cfg.dec_idim, wdt)
+            kw = dict(zoneout=0.1, dropout=0.0, weights_dtype=wdt,
+                      bounds=bounds)
+            got = fn(dp, enc, pos, 0, packed=pk, **kw)
+            assert K.last_launch["barriers_per_step"] <= 3
+            want = plain(dp, enc, pos, 0, **kw)
+            err = ((got - want) * fm[..., None]).abs().max().item()
+            assert err < tol, (fn.__name__, wdt, P, err)
+
+
+def test_streamed_mode_matches_plain_version(cuda):
+    """Teacher widths in fp32 (426 KB of gate slices a block): the kernel
+    reads its weights from global memory each step."""
+    from fcl_taco2_tpu_torch.models import teacher_config
+    from fcl_taco2_tpu_torch.models.decoder import Decoder
+    from fcl_taco2_tpu_torch.ops import decoder_cuda as K
+
+    cfg = teacher_config(11, odim=80, dropout_rate=0.0, max_dur=12)
+    dp = Decoder(cfg, device=cuda).jax_layout()
+    enc, pos, fm, bounds = _inputs(cfg, 96, cuda)
+    kw = dict(zoneout=0.1, dropout=0.0, weights_dtype=torch.float32,
+              bounds=bounds)
+    with torch.no_grad():
+        got = K.fused_ar_decode_hbm(dp, enc, pos, 0, **kw)
+        assert K.last_launch["stationary"] == 0
+        want = K.fused_ar_decode_hbm_plain(dp, enc, pos, 0, **kw)
+    err = ((got - want) * fm[..., None]).abs().max().item()
+    assert err < TOL_F32, err
+
+
 def test_kernel_dropout_statistics(cuda):
     from fcl_taco2_tpu_torch.ops import decoder_cuda as K
     for rate in (0.1, 0.5, 0.9):
