@@ -38,7 +38,21 @@ prints no result):
    synthesize + the one-shot kernel at dropout 0, fp32.  Launch counters
    are zeroed just before each case's main-path call and must be non-zero
    after it.
-7. One JSON line of the kernels, the nvidia-smi line, and last the
+7. Training (``[train]``), after the serving paths; no decoder or PWG
+   kernel may launch in it (the JAX package has no Pallas kernel on the
+   training path): the hand-built decoder backward against autograd
+   through the plain loop at FCL-taco2-T width (fp32, TF32 off, dropouts
+   and zoneout 0, one 96-phoneme utterance, classed and single-class
+   plans; loss within 1e-6, every gradient leaf within 1e-4); the teacher
+   train step at the bench protocol (bench.py:342-447: B=16, 96
+   phonemes, bf16, Adam lr 1e-3, clip 1.0; classes 8,16,32,50 and none):
+   step ms by CUDA events (median of 10 after 3 warm-up), the
+   synchronized forward / backward / optimizer split, frames/s, device
+   busy time from a ``torch.profiler`` trace, peak memory, first and last
+   loss; and ``fcl_train.main`` at FCL-taco2-S width on a learnable
+   synthetic corpus, 2 epochs then a resume for a third (the loss falls,
+   the resume starts at the saved step, the files restore).
+8. One JSON line of the kernels, the nvidia-smi line, and last the
    result line ``{"ok": true, "device": {...}}``.
 """
 
@@ -780,6 +794,298 @@ def phase_stream(models, pwg, kind):
     return counts
 
 
+TRAIN_DEVICE = "cuda"  # the [train] phase's device
+TRAIN_B = 16                      # bench.py:335, the teacher's batch
+DURATION_CLASSES = (8, 16, 32, 50)  # bench.py:339, the CLI default
+TOL_LOSS_VJP = 1e-6
+TOL_GRAD_VJP = 1e-4
+TOL_VJP_WHY = ("the same forward math op for op (loss); each weight "
+               "gradient one GEMM over all S*P step rows instead of "
+               "autograd's per-step sums (gradients, max|a-b|/max|a| a "
+               "leaf)")
+# FCL-taco2-S (models/config.py::student_config) through fcl_train's flags
+STUDENT_ARGS = ["--embed-dim", "256", "--eunits", "256", "--econv-chans",
+                "256", "--dunits", "256", "--prenet-units", "256",
+                "--postnet-chans", "128"]
+NO_DROPOUT = dict(dropout_rate=0.0, zoneout_rate=0.0,
+                  duration_predictor_dropout_rate=0.0,
+                  pitch_predictor_dropout_rate=0.0,
+                  pitch_embed_dropout_rate=0.0,
+                  energy_predictor_dropout_rate=0.0,
+                  energy_embed_dropout_rate=0.0)
+
+
+class no_tf32:
+    """TF32 off for matmuls and cuDNN convs inside the block (fp32
+    comparisons), the previous switches restored after it."""
+
+    def __enter__(self):
+        self.prev = (torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = self.prev
+
+
+def train_batch(B, duration_classes, device, seed=0):
+    """``bench.py::_train_batch`` without JAX: B utterances of 96 phonemes,
+    Poisson(8) durations clipped to [1, 50], random mel / f0 / energy,
+    seed 0; the classed plan when ``duration_classes`` is given (caps
+    bucketed by 64), else the single-class plan with B*96 segments.
+    Returns (Batch on ``device``, olens)."""
+    from fcl_taco2_tpu_torch.data.loader import BatchUploader
+    from fcl_taco2_tpu_torch.models.taco2_sa import Batch, SegClass
+    from fcl_taco2_tpu_torch.ops.regroup import (build_classed_plan,
+                                                 build_plan,
+                                                 duration_class_caps)
+    rng = np.random.default_rng(seed)
+    Tmax = N_PHONES
+    dur = np.clip(rng.poisson(MEAN_DUR, (B, Tmax)), 1,
+                  MAX_DUR).astype(np.int32)
+    olens = dur.sum(1).astype(np.int32)
+    Lmax = int(np.ceil(olens.max() / 64) * 64)
+    common = dict(
+        tokens=rng.integers(1, IDIM, (B, Tmax)).astype(np.int32),
+        ilens=np.full(B, Tmax, np.int32),
+        mel=rng.normal(size=(B, Lmax, ODIM)).astype(np.float32),
+        olens=olens, durations=dur,
+        f0=rng.normal(size=(B, Tmax, 1)).astype(np.float32),
+        energy=rng.normal(size=(B, Tmax, 1)).astype(np.float32))
+    if duration_classes:
+        caps = duration_class_caps(list(dur), duration_classes, B,
+                                   cap_bucket=64)
+        plan = build_classed_plan(dur, olens, duration_classes, caps, Lmax)
+        batch = Batch(
+            seg_utt=None, seg_tok=None, seg_start=None, frame_mask=None,
+            position=None, utt_gather=plan.utt_gather,
+            utt_mask=plan.utt_mask,
+            seg_classes=tuple(SegClass(c.seg_utt, c.seg_tok, c.seg_start,
+                                       c.frame_mask, c.position)
+                              for c in plan.classes), **common)
+    else:
+        plan = build_plan(dur, olens, MAX_DUR, B * Tmax, Lmax)
+        batch = Batch(seg_utt=plan.seg_utt, seg_tok=plan.seg_tok,
+                      seg_start=plan.seg_start, frame_mask=plan.frame_mask,
+                      position=plan.position, utt_gather=plan.utt_gather,
+                      utt_mask=plan.utt_mask, **common)
+    return BatchUploader(device)(batch), olens
+
+
+def train_vjp_check(smi):
+    """The hand-built decoder backward against autograd through the plain
+    loop, FCL-taco2-T at full width, fp32, TF32 off, every dropout and
+    zoneout 0, one 96-phoneme utterance, classed and single-class plans."""
+    from fcl_taco2_tpu_torch.models import Tacotron2SA, teacher_config
+    cfg = teacher_config(IDIM, odim=ODIM, compute_dtype="float32",
+                         **NO_DROPOUT)
+    model = Tacotron2SA(cfg, device=TRAIN_DEVICE, seed=0)
+    params = list(model.parameters())
+    for classes in (DURATION_CLASSES, ()):
+        batch, _ = train_batch(1, classes, TRAIN_DEVICE)
+        out = {}
+        with no_tf32():
+            for custom in (True, False):
+                model.cfg = cfg.replace(decoder_custom_vjp=custom,
+                                        duration_classes=classes)
+                gen = torch.Generator(device=TRAIN_DEVICE).manual_seed(0)
+                loss, _ = model.loss_fn(batch, gen)
+                out[custom] = (float(loss), torch.autograd.grad(loss, params))
+        model.cfg = cfg
+        (l1, g1), (l0, g0) = out[True], out[False]
+        loss_err = abs(l1 - l0) / abs(l0)
+        grad_err, worst = max(
+            (float((a - b).abs().max() / (a.abs().max() + 1e-30)), n)
+            for (n, _), a, b in zip(model.named_parameters(), g0, g1))
+        tag = "classed" if classes else "single-class"
+        log(f"[train] vjp teacher {tag} fp32 TF32 off: loss {l1:.6f} vs "
+            f"autograd {l0:.6f} rel err {loss_err:.2e} (tol "
+            f"{TOL_LOSS_VJP:g}); worst gradient leaf {worst} "
+            f"{grad_err:.2e} (tol {TOL_GRAD_VJP:g}: {TOL_VJP_WHY}) | {smi}")
+        if not loss_err <= TOL_LOSS_VJP:
+            raise RuntimeError(f"train vjp {tag}: loss {l1} vs {l0}")
+        if not grad_err <= TOL_GRAD_VJP:
+            raise RuntimeError(f"train vjp {tag}: gradient {worst} "
+                               f"{grad_err}")
+
+
+def train_step_timing(smi, kind, classes, warmup=3, reps=10):
+    """The teacher train step at the bench protocol (bench.py:383-447):
+    B=16, bf16 compute, Adam lr 1e-3, clip 1.0; CUDA events around whole
+    steps, then synchronized forward / backward / optimizer splits."""
+    from fcl_taco2_tpu_torch.models import Tacotron2SA, teacher_config
+    from fcl_taco2_tpu_torch.train.loop import step_generator
+    from fcl_taco2_tpu_torch.train.optim import build_optimizer
+    from fcl_taco2_tpu_torch.train.state import TrainState
+    from fcl_taco2_tpu_torch.train.step import apply_update, make_train_step
+    cfg = teacher_config(IDIM, odim=ODIM, duration_classes=classes)
+    model = Tacotron2SA(cfg, device=TRAIN_DEVICE, seed=0)
+    tx = build_optimizer(name="adam", lr=1e-3, grad_clip=1.0)
+    ts = TrainState(model, tx.init(list(model.parameters())), 0)
+    step = make_train_step(tx)
+    batch, olens = train_batch(TRAIN_B, cfg.effective_duration_classes,
+                               TRAIN_DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for i in range(warmup + reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        ts, report = step(ts, batch, step_generator(0, ts.step, TRAIN_DEVICE))
+        end.record()
+        end.synchronize()
+        losses.append(float(report["loss"]))
+        if i >= warmup:
+            times.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    split = []
+    params = list(model.parameters())
+    for _ in range(3):
+        gen = step_generator(0, ts.step, TRAIN_DEVICE)
+        (loss, (_, new_state, _)), fwd = _timed(
+            lambda: model.loss_fn(batch, gen))
+        grads, bwd = _timed(lambda: torch.autograd.grad(loss, params))
+        _, opt = _timed(lambda: apply_update(ts, tx, list(grads), new_state))
+        split.append((fwd, bwd, opt))
+    fwd, bwd, opt = np.median(np.array(split), axis=0)
+    ms = float(np.median(times))
+    busy = device_busy_ms(lambda: step(ts, batch, step_generator(
+        0, ts.step, TRAIN_DEVICE)))
+    frames = int(olens.sum())
+    tag = "classed " + ",".join(map(str, classes)) if classes \
+        else "single-class"
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"train step {tag}: non-finite loss {losses}")
+    log(f"[train] teacher B={TRAIN_B} bf16 {tag} on {kind}: step "
+        f"{ms:.2f} ms median of {reps} after {warmup} warm-up (min "
+        f"{min(times):.2f}, max {max(times):.2f}; CUDA events around the "
+        f"whole step); split forward {fwd:.2f} + backward {bwd:.2f} + "
+        f"optimizer {opt:.2f} ms (host clock, synchronized, median of 3); "
+        f"{frames / ms * 1e3:.0f} frames/s ({frames} frames); device busy "
+        f"{_busy_text(busy, ms)}; peak memory {peak:.2f} GiB; loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} | {smi}")
+    return {"classes": list(classes), "step_ms": ms,
+            "step_ms_min": min(times), "step_ms_max": max(times),
+            "forward_ms": fwd, "backward_ms": bwd, "optimizer_ms": opt,
+            "frames_per_s": frames / ms * 1e3, "peak_gib": peak,
+            "device_busy_ms": busy,
+            "device_idle_share": None if busy is None else 1 - busy / ms,
+            "loss_first": losses[0], "loss_last": losses[-1]}
+
+
+def device_busy_ms(fn):
+    """Device busy time of one ``fn()`` call: the union of the device
+    events' intervals (kernels, copies) in a ``torch.profiler`` trace;
+    None where the trace holds no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy / 1e3 if busy > 0 else None
+
+
+def _busy_text(busy, ms):
+    if busy is None:
+        return "not measured (the profiler trace held no device time)"
+    return (f"{busy:.2f} ms of the {ms:.2f} ms step (union of the device "
+            f"events of one profiled step over the median step; idle share "
+            f"{1 - busy / ms:.2f})")
+
+
+def train_cli_check(smi):
+    """``fcl_train.main`` at FCL-taco2-S full width on a learnable corpus:
+    2 epochs, then a resume from the snapshot for a third."""
+    import tempfile
+    from fcl_taco2_tpu_torch.cli.fcl_train import main as fcl_train
+    from fcl_taco2_tpu_torch.data.synthetic import write_learnable_corpus
+    from fcl_taco2_tpu_torch.models import Tacotron2SA
+    from fcl_taco2_tpu_torch.train import checkpoint as ckpt
+    torch.cuda.reset_peak_memory_stats()  # the trainer logs its own peak
+    with tempfile.TemporaryDirectory() as root:
+        train_json, valid_json = write_learnable_corpus(
+            root, 49, 7, vocab=IDIM, odim=ODIM, length=(24, 49),
+            max_dur=MAX_DUR, mean_dur=MEAN_DUR)
+        exp = os.path.join(root, "exp")
+        args = ["--train-json", train_json, "--valid-json", valid_json,
+                "--outdir", exp, "--batch-size", "8", "--minibatches", "6",
+                "--seed", "0", "--device", TRAIN_DEVICE, *STUDENT_ARGS]
+        t0 = time.perf_counter()
+        ts2 = fcl_train(args + ["--epochs", "2"])
+        t_two = time.perf_counter() - t0
+        with open(os.path.join(exp, "log.jsonl")) as f:
+            log_rows = [json.loads(line) for line in f]
+        l1, l2 = (r["main/loss"] for r in log_rows[:2])
+        snap = os.path.join(exp, "snapshot.ep.2")
+        saved_step = ckpt.read_checkpoint(snap)["step"]
+        ts3 = fcl_train(args + ["--epochs", "3", "--resume", snap])
+        with open(os.path.join(exp, "log.jsonl")) as f:
+            third = [json.loads(line) for line in f][2]
+        cfg, _ = ckpt.load_model_json(exp)
+        if cfg != ts3.model.cfg:
+            raise RuntimeError("train cli: model.json != the trained config")
+        for name in ("snapshot.ep.1", "snapshot.ep.2", "model.loss.best",
+                     "snapshot.ep.3"):
+            m = ckpt.load_params_only(
+                os.path.join(exp, name),
+                Tacotron2SA(cfg, device=TRAIN_DEVICE, seed=1))
+            if not all(torch.isfinite(p).all() for p in m.parameters()):
+                raise RuntimeError(f"train cli: {name} restores non-finite")
+        # the last snapshot holds the run's final state exactly
+        for a, b in zip(ts3.model.state_dict().values(),
+                        m.state_dict().values()):
+            if not torch.equal(a, b):
+                raise RuntimeError("train cli: snapshot.ep.3 != the run")
+    log(f"[train] fcl_train student full width, batch 8, 6 steps an epoch: "
+        f"mean loss epoch 1 {l1:.4f}, epoch 2 {l2:.4f}; resumed from "
+        f"snapshot.ep.2 (step {saved_step}) for epoch {third['epoch']}, "
+        f"ended at step {ts3.step} (epoch 3 loss "
+        f"{third['main/loss']:.4f}); model.json, snapshot.ep.1-3 and "
+        f"model.loss.best restore; 2 epochs in {t_two:.1f} s wall, peak "
+        f"memory {log_rows[1].get('max_memory_allocated_gib')} GiB | {smi}")
+    if not l2 < l1:
+        raise RuntimeError(f"train cli: loss did not fall ({l1} -> {l2})")
+    if ts2.step != saved_step or third["epoch"] != 3 \
+            or ts3.step != saved_step + 6 or third["step"] != ts3.step:
+        raise RuntimeError(f"train cli: saved step {saved_step}, resumed "
+                           f"run ended at {ts3.step} ({third})")
+
+
+def phase_train(smi, kind):
+    """Training on the card: the hand-built backward held to autograd, the
+    teacher step at the bench protocol (classed and single-class), and the
+    trainer end to end with a resume.  No decoder or PWG kernel runs."""
+    zero_counts()
+    t0 = time.perf_counter()
+    train_vjp_check(smi)
+    rows = [train_step_timing(smi, kind, classes)
+            for classes in (DURATION_CLASSES, ())]
+    train_cli_check(smi)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"[train] kernel launches during the phase {counts} (the training "
+        f"path runs none); phase {time.perf_counter() - t0:.1f} s")
+    if any(counts.values()):
+        raise RuntimeError(f"the training path launched a kernel: {counts}")
+    log("[train] " + json.dumps({"train_steps": rows, "device": smi}))
+
+
 def _padded(toks, durs, B, bucket):
     Tmax = -(-max(len(t) for t in toks) // bucket) * bucket
     tokens = torch.zeros(B, Tmax, dtype=torch.int64)
@@ -816,6 +1122,8 @@ def main():
                    phase_stream(models, pwg, kind)):
         for k, v in counts.items():
             launches[k] += v
+    del models
+    phase_train(smi, kind)
 
     kernels = []
     for name, replaces, main_P in (

@@ -2,16 +2,22 @@
 
 Parameters live in ``nn.Module``s in PyTorch's layouts; the ``*_apply``
 functions keep the JAX names and take the module where JAX took a param
-pytree.  Inference only: BatchNorm runs on its running statistics and no
-dropout is drawn except the prenet's, which stays on at inference
-(reference ``decoder_sa.py:109-112``).
+pytree.  At inference (``train=False``, the default) BatchNorm runs on its
+running statistics and no dropout is drawn except the prenet's, which
+stays on (reference ``decoder_sa.py:109-112``).  In train mode each
+dropout draws from the step's ``torch.Generator`` and BatchNorm uses
+batch statistics; a stack appends each BatchNorm's new running
+statistics ``(mean, var)`` to the caller's ``bn_out`` list instead of
+writing its buffers.
 """
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from fcl_taco2_tpu_torch.ops.conv import batch_norm, conv1d, layer_norm
+from fcl_taco2_tpu_torch.ops.conv import (batch_norm, batch_norm_train,
+                                          conv1d, layer_norm)
+from fcl_taco2_tpu_torch.ops.masking import weighted_masked_sum
 
 
 class BatchNorm(nn.Module):
@@ -47,12 +53,19 @@ class Prenet(nn.Module):
 def prenet_dropout(x, rate, generator):
     """Inverted dropout drawn from ``generator`` (torch ``F.dropout``
     parity: keep with probability 1-rate, scale kept values by
-    1/(1-rate)); the plain versions' prenet dropout."""
+    1/(1-rate)); the plain versions' prenet dropout and every train-mode
+    dropout."""
     if rate <= 0.0:
         return x
     keep = torch.rand(x.shape, generator=generator, device=x.device) \
         < (1.0 - rate)
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def maybe_dropout(x, rate, generator, train):
+    """Train-mode dropout (``components.py:32-40``); identity otherwise."""
+    return prenet_dropout(x, rate, generator) if (train and rate > 0.0) \
+        else x
 
 
 def prenet_apply(prenet, x, generator, dropout_rate):
@@ -87,29 +100,46 @@ class ConvBNStack(nn.Module):
             else nn.ModuleList()
 
 
-def encoder_convs_apply(stack, x, use_residual=False):
-    """conv -> BN -> ReLU stack, eval mode (``components.py:111-130``)."""
+def _bn(bn, x, train, mask, bn_out):
+    if not train:
+        return bn(x)
+    y, new = batch_norm_train(x, bn.weight, bn.bias, bn.running_mean,
+                              bn.running_var, mask=mask)
+    bn_out.append(new)
+    return y
+
+
+def encoder_convs_apply(stack, x, use_residual=False, *, generator=None,
+                        dropout_rate=0.0, train=False, seq_mask=None,
+                        bn_out=None):
+    """conv -> BN -> ReLU -> dropout stack (``components.py:111-130``);
+    in train mode ``seq_mask`` (B, T) keeps the BN statistics on valid
+    positions."""
     for i, conv in enumerate(stack.convs):
         h = conv1d(x, conv.weight)
         if len(stack.bns):
-            h = stack.bns[i](h)
+            h = _bn(stack.bns[i], h, train, seq_mask, bn_out)
         h = F.relu(h)
+        h = maybe_dropout(h, dropout_rate, generator, train)
         x = (x + h) if use_residual else h
     return x
 
 
-def postnet_apply(stack, x, seq_mask=None):
-    """conv -> BN -> tanh x(n-1), final conv -> BN, eval mode
+def postnet_apply(stack, x, seq_mask=None, *, generator=None,
+                  dropout_rate=0.0, train=False, bn_out=None):
+    """conv -> BN -> tanh -> dropout x(n-1), final conv -> BN -> dropout
     (``components.py:133-160``).  Returns the residual correction.
     ``seq_mask`` (B, T) zeroes activations past each utterance's length
-    between layers."""
+    between layers (and, in train mode, keeps the BN statistics on valid
+    positions)."""
     n = len(stack.convs)
     for i, conv in enumerate(stack.convs):
         x = conv1d(x, conv.weight)
         if len(stack.bns):
-            x = stack.bns[i](x)
+            x = _bn(stack.bns[i], x, train, seq_mask, bn_out)
         if i < n - 1:
             x = torch.tanh(x)
+        x = maybe_dropout(x, dropout_rate, generator, train)
         if seq_mask is not None:
             x = x * seq_mask[..., None].to(x.dtype)
     return x
@@ -133,16 +163,41 @@ class VariancePredictor(nn.Module):
         self.linear = nn.Linear(n_chans, output_dim, device=device)
 
 
-def variance_predictor_apply(vp, x, pad_mask):
+def variance_predictor_apply(vp, x, pad_mask, generator=None,
+                             dropout_rate=0.0, train=False):
     """(B, T, idim) -> (B, T, output_dim); padded positions zeroed
-    (``components.py:186-198``, eval mode)."""
+    (``components.py:186-198``)."""
     for conv, ln in zip(vp.convs, vp.lns):
         x = F.relu(conv1d(x, conv.weight, conv.bias))
         x = layer_norm(x, ln.weight, ln.bias)
+        x = maybe_dropout(x, dropout_rate, generator, train)
     x = vp.linear(x)
     if pad_mask is not None:
         x = x.masked_fill(pad_mask[..., None], 0.0)
     return x
+
+
+def duration_predictor_apply(vp, x, pad_mask, generator=None,
+                             dropout_rate=0.0, train=False):
+    """Log-domain durations (B, T), 0 at pads (``components.py:201-208``)."""
+    out = variance_predictor_apply(vp, x, None, generator, dropout_rate,
+                                   train)[..., 0]
+    if pad_mask is not None:
+        out = out.masked_fill(pad_mask, 0.0)
+    return out
+
+
+def duration_loss(logd_pred, targets_dur, mask, offset=1.0,
+                  weighted_n_valid=None):
+    """espnet DurationPredictorLoss: MSE in the log domain with offset,
+    masked mean; ``weighted_n_valid`` switches to the use_weighted_masking
+    reduction (``components.py:221-237``)."""
+    target = torch.log(targets_dur.to(logd_pred.dtype) + offset)
+    diff = (logd_pred - target) ** 2
+    if weighted_n_valid is not None:
+        return weighted_masked_sum(diff, mask, weighted_n_valid)
+    mask_f = mask.to(logd_pred.dtype)
+    return torch.sum(diff * mask_f) / torch.clamp(torch.sum(mask_f), min=1.0)
 
 
 def duration_predictor_inference(vp, x, pad_mask, offset=1.0):
@@ -156,7 +211,9 @@ def duration_predictor_inference(vp, x, pad_mask, offset=1.0):
     return d
 
 
-def scalar_embed_apply(conv, x):
+def scalar_embed_apply(conv, x, generator=None, dropout_rate=0.0,
+                       train=False):
     """(B, T, 1) scalar track -> (B, T, out_dim) (``components.py:252-255``;
     ``conv`` is an ``nn.Conv1d(1, out_dim, k)``)."""
-    return conv1d(x, conv.weight, conv.bias)
+    return maybe_dropout(conv1d(x, conv.weight, conv.bias), dropout_rate,
+                         generator, train)

@@ -1,5 +1,5 @@
-"""Semi-autoregressive decoder over the flattened phoneme batch, inference
-path (port of ``fcl_taco2_tpu/models/decoder.py:389-474``).
+"""Semi-autoregressive decoder over the flattened phoneme batch (port of
+``fcl_taco2_tpu/models/decoder.py``).
 
 Per step (reference ``decoder_sa.py:591-617``):
 
@@ -9,14 +9,21 @@ Per step (reference ``decoder_sa.py:591-617``):
 
 ``decoder_inference`` is the ``"scan"`` backend: a Python step loop of
 PyTorch ops.  The fused kernels of ``ops/decoder_cuda.py`` run the same
-loop in one launch.
+loop in one launch.  Training runs the teacher-forced pass
+(``decoder_teacher_forced``): the prenet over all steps as one GEMM chain,
+then the LSTM stack through ``ops/rnn_vjp.py``'s hand-built backward.
 """
 
+import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from fcl_taco2_tpu_torch.models import components as C
-from fcl_taco2_tpu_torch.ops.rnn import lstm_cell, zoneout
+from fcl_taco2_tpu_torch.ops.regroup import (scatter_frames,
+                                             scatter_frames_classed)
+from fcl_taco2_tpu_torch.ops.rnn import lstm_cell, step_seed, zoneout
+from fcl_taco2_tpu_torch.ops.rnn_vjp import (ScanSpec, scan_plain,
+                                             zoneout_lstm_scan)
 
 
 class Decoder(nn.Module):
@@ -148,3 +155,113 @@ def apply_postnet_inference(decoder, cfg, before, seq_mask=None):
         return before
     return before + C.postnet_apply(decoder.postnet, before,
                                     seq_mask=seq_mask)
+
+
+# --------------------------------------------------------------------------
+# Teacher-forced training pass
+# --------------------------------------------------------------------------
+
+def decoder_teacher_forced(decoder, cfg, enc_seg, seg_targets, position,
+                           utt_gather, utt_mask, generator, train,
+                           zo_seed=0, bn_out=None):
+    """Teacher-forced pass over the phoneme batch (``decoder.py:169-209``).
+
+    Args:
+        enc_seg: (P, idim) per-segment encoder vectors (prosody added).
+        seg_targets: (P, D, odim) per-segment target frames (zero padded).
+        position: (P, D) position ramps.
+        utt_gather/utt_mask: the regroup plan back to utterance-major.
+        generator: the step's ``torch.Generator`` (prenet and postnet
+            dropout).
+        zo_seed: base of the per-step zoneout seeds.
+        bn_out: list receiving the postnet BatchNorms' new running
+            statistics in train mode.
+    Returns (after_outs, before_outs), each (B, Lmax, odim).
+    """
+    seg_out = _teacher_forced_core(decoder, cfg, enc_seg, seg_targets,
+                                   position, generator, train, zo_seed)
+    before = scatter_frames(seg_out, utt_gather, utt_mask)
+    after = _apply_train_postnet(decoder, cfg, before, generator, train,
+                                 utt_mask, bn_out)
+    return after, before
+
+
+def decoder_teacher_forced_classed(decoder, cfg, class_inputs, utt_gather,
+                                   utt_mask, generator, train, zo_seed=0,
+                                   bn_out=None):
+    """Duration-classed teacher-forced pass (``decoder.py:212-255``): one
+    scan per duration class, D_c steps each, then one gather back to
+    utterance-major through the concatenated class flats.  Each segment's
+    recurrence is independent and frames past its duration are never
+    read, so the losses equal the single-class path's.
+
+    ``class_inputs``: tuple of (enc_seg, seg_targets, position) per class,
+    shapes (P_c, idim) / (P_c, D_c, odim) / (P_c, D_c).
+    """
+    outs = [_teacher_forced_core(decoder, cfg, enc_c, tgt_c, pos_c,
+                                 generator, train, step_seed(zo_seed, c))
+            for c, (enc_c, tgt_c, pos_c) in enumerate(class_inputs)]
+    before = scatter_frames_classed(outs, utt_gather, utt_mask)
+    after = _apply_train_postnet(decoder, cfg, before, generator, train,
+                                 utt_mask, bn_out)
+    return after, before
+
+
+def _apply_train_postnet(decoder, cfg, before, generator, train, utt_mask,
+                         bn_out):
+    """Postnet on the utterance-major canvas, training path
+    (``decoder.py:267-278``); the mask only applies in train mode."""
+    if decoder.postnet is None:  # decoder_sa.py:393: the postnet is optional
+        return before
+    return before + C.postnet_apply(
+        decoder.postnet, before, seq_mask=utt_mask if train else None,
+        generator=generator, dropout_rate=cfg.dropout_rate, train=train,
+        bn_out=bn_out)
+
+
+def _teacher_forced_core(decoder, cfg, enc_seg, seg_targets, position,
+                         generator, train, zo_seed):
+    """The teacher-forced scan over one phoneme batch, before regrouping
+    (``decoder.py:281-386``): returns seg_out (P, D, odim)."""
+    if cfg.remat_decoder:
+        raise NotImplementedError(
+            "remat_decoder is not ported yet (ROADMAP A14)")
+    P, D, odim = seg_targets.shape
+    r = cfg.reduction_factor
+    S = D // r  # decoder steps
+    # teacher-forcing input at step t is target frame t*r-1 (zeros at
+    # t=0); r>1 thins the targets to every r-th frame (decoder_sa.py:488)
+    thinned = seg_targets if r == 1 else seg_targets[:, r - 1::r]
+    prev = torch.cat([seg_targets.new_zeros(P, 1, odim), thinned[:, :-1]],
+                     dim=1)
+    # hoisted prenet over all steps: one (P*S, odim) GEMM chain
+    flat = prev.reshape(P * S, odim)
+    prenet_all = flat if decoder.prenet is None else C.prenet_apply(
+        decoder.prenet, flat, generator, cfg.dropout_rate)
+    prenet_steps = prenet_all.reshape(P, S, -1).transpose(0, 1).contiguous()
+    pos_steps = position[:, :S].t().contiguous() if cfg.append_position \
+        else None
+
+    # hoisted step-invariant GEMMs: enc's layer-0 gate term and enc's
+    # feat_out term (decoder.py:310-329)
+    w_enc, w_pre, w_pos = _split_lstm0_wx(decoder, cfg, enc_seg.shape[-1])
+    enc_gates = F.linear(enc_seg, w_enc, decoder.lstm[0].bias_ih)
+    wf_z, wf_enc = _split_feat_out(decoder, cfg)
+    enc_out = F.linear(enc_seg, wf_enc) if wf_enc is not None else None
+
+    spec = ScanSpec(dlayers=cfg.dlayers, dunits=cfg.dunits,
+                    zoneout_rate=float(cfg.zoneout_rate), train=bool(train),
+                    append_position=bool(cfg.append_position),
+                    use_enc_out=enc_out is not None)
+    seeds = None
+    if train and cfg.zoneout_rate > 0.0:
+        seeds = [step_seed(zo_seed, s) for s in range(S)]
+    layers = [(decoder.lstm[0].weight_hh, decoder.lstm[0].bias_hh)]
+    for cell in decoder.lstm[1:]:
+        layers.append((cell.weight_ih, cell.weight_hh, cell.bias_ih,
+                       cell.bias_hh))
+    weights = (w_pre, w_pos, wf_z, tuple(layers))
+    scan = zoneout_lstm_scan if cfg.decoder_custom_vjp else scan_plain
+    outs = scan(spec, weights, enc_gates, enc_out, prenet_steps, pos_steps,
+                seeds)
+    return _unfold_r(outs, P, S, odim, r)  # (P, D, odim)

@@ -1,9 +1,10 @@
 """Tacotron2-SA encoder: embedding -> N x(conv[-BN]-ReLU) -> BiLSTM
-(port of ``fcl_taco2_tpu/models/encoder.py``, inference only)."""
+(port of ``fcl_taco2_tpu/models/encoder.py``)."""
 
 import torch.nn as nn
 
 from fcl_taco2_tpu_torch.models import components as C
+from fcl_taco2_tpu_torch.ops.masking import lengths_to_non_pad_mask
 from fcl_taco2_tpu_torch.ops.rnn import bilstm_stack
 
 
@@ -28,13 +29,20 @@ class Encoder(nn.Module):
                 for d in ("fwd", "bwd")}))
 
 
-def encoder_apply(encoder, cfg, tokens, ilens):
+def encoder_apply(encoder, cfg, tokens, ilens, generator=None, train=False,
+                  bn_out=None):
     """tokens (B, Tmax) int -> hs (B, Tmax, cfg.enc_odim)
-    (``encoder.py:63-88``, eval mode)."""
+    (``encoder.py:63-88``).  Train mode draws the conv dropout from
+    ``generator``, takes BatchNorm statistics over the valid positions
+    and appends the new running statistics to ``bn_out``."""
     x = encoder.embed.weight[tokens]  # PAD row is zeros
     if encoder.convs is not None:
-        x = C.encoder_convs_apply(encoder.convs, x,
-                                  use_residual=cfg.use_residual)
+        seq_mask = lengths_to_non_pad_mask(ilens, tokens.shape[1]) \
+            if train else None
+        x = C.encoder_convs_apply(
+            encoder.convs, x, use_residual=cfg.use_residual,
+            generator=generator, dropout_rate=cfg.dropout_rate, train=train,
+            seq_mask=seq_mask, bn_out=bn_out)
     if len(encoder.blstm):
         x = bilstm_stack([(lay["fwd"], lay["bwd"]) for lay in encoder.blstm],
                          x, ilens)

@@ -1,7 +1,9 @@
-"""FCL-taco2 model assembly, inference half (port of
-``fcl_taco2_tpu/models/taco2_sa.py:321-669``).
+"""FCL-taco2 model assembly: encoder + variance adaptor + SA decoder +
+losses (port of ``fcl_taco2_tpu/models/taco2_sa.py``).
 
 ``Tacotron2SA`` holds the parameters as ``nn.Module``s on one device.
+``loss_fn`` is the training forward (five loss terms, fp32 losses, the
+bf16 policy as a differentiable cast of the fp32 masters).
 ``synthesize`` keeps the JAX package's device-side plan: durations become
 the segment plan with cumsums and gathers, segments are sorted by
 duration for the ragged decode, and frames are scattered back into
@@ -9,19 +11,24 @@ per-utterance timelines; nothing loops over phonemes on the host.
 """
 
 import copy
+from typing import Any, NamedTuple
 
 import torch
 import torch.nn as nn
 
 from fcl_taco2_tpu_torch.models import components as C
-from fcl_taco2_tpu_torch.models.decoder import (Decoder,
-                                                apply_postnet_inference,
-                                                decoder_inference)
+from fcl_taco2_tpu_torch.models.decoder import (
+    Decoder, apply_postnet_inference, decoder_inference,
+    decoder_teacher_forced, decoder_teacher_forced_classed)
 from fcl_taco2_tpu_torch.models.encoder import Encoder, encoder_apply
 from fcl_taco2_tpu_torch.ops import decoder_cuda as K
 from fcl_taco2_tpu_torch.ops.masking import (lengths_to_non_pad_mask,
-                                             lengths_to_pad_mask)
-from fcl_taco2_tpu_torch.ops.regroup import gather_token_vectors
+                                             lengths_to_pad_mask, masked_l1,
+                                             masked_mse, weighted_l1,
+                                             weighted_mse)
+from fcl_taco2_tpu_torch.ops.regroup import (gather_segments,
+                                             gather_token_vectors)
+from fcl_taco2_tpu_torch.ops.rnn import step_seed
 from fcl_taco2_tpu_torch.utils.device import resolve_device
 from fcl_taco2_tpu_torch.utils.initializers import init_tacotron2sa_
 
@@ -48,6 +55,54 @@ def _cast_floats(model, dtype):
         if p.is_floating_point():
             p.data = p.data.to(dtype)
     return cast
+
+
+class SegClass(NamedTuple):
+    """One duration class's segment plan (``taco2_sa.py:56-65``)."""
+
+    seg_utt: Any       # (P_c,)
+    seg_tok: Any       # (P_c,)
+    seg_start: Any     # (P_c,)
+    frame_mask: Any    # (P_c, D_c) bool
+    position: Any      # (P_c, D_c) float32
+
+
+class Batch(NamedTuple):
+    """One training batch with static-bucketed shapes (``taco2_sa.py:68-90``;
+    ``data/converter.py`` makes it in numpy, ``data/loader.py`` moves it to
+    the device).  With duration classes the flat seg_* / frame_mask /
+    position fields are None and ``seg_classes`` carries the per-class
+    plans."""
+
+    tokens: Any        # (B, Tmax) int32, PAD=0
+    ilens: Any         # (B,)
+    mel: Any           # (B, Lmax, odim)
+    olens: Any         # (B,)
+    durations: Any     # (B, Tmax) int32 frames per token
+    f0: Any            # (B, Tmax, 1)
+    energy: Any        # (B, Tmax, 1)
+    seg_utt: Any       # (P,)
+    seg_tok: Any       # (P,)
+    seg_start: Any     # (P,)
+    frame_mask: Any    # (P, D) bool
+    position: Any      # (P, D) float32
+    utt_gather: Any    # (B, Lmax) int32
+    utt_mask: Any      # (B, Lmax) bool
+    spembs: Any = None  # optional (B, spk_embed_dim)
+    seg_classes: Any = None  # optional tuple of SegClass
+
+
+def _cast_batch(batch, dtype):
+    """The batch's float inputs in the compute dtype
+    (``taco2_sa.py:183-195``)."""
+    def cast(x):
+        return None if x is None else x.to(dtype)
+    return batch._replace(
+        mel=cast(batch.mel), f0=cast(batch.f0), energy=cast(batch.energy),
+        position=cast(batch.position), spembs=cast(batch.spembs),
+        seg_classes=None if batch.seg_classes is None else tuple(
+            sc._replace(position=cast(sc.position))
+            for sc in batch.seg_classes))
 
 
 def _generator(rng, device):
@@ -123,6 +178,157 @@ class Tacotron2SA(nn.Module):
                 prequant=prequant))
             packs[weights_dtype] = hit
         return hit[1]
+
+    # ---------------- training forward ----------------
+
+    def loss_fn(self, batch, generator, train=True):
+        """The training loss (``taco2_sa.py:171-317``).
+
+        Args:
+            batch: a ``Batch`` of tensors on the model's device.
+            generator: the step's ``torch.Generator`` on that device; every
+                dropout draws from it and the zoneout seeds derive from its
+                initial seed.
+            train: dropout, zoneout masks and BatchNorm batch statistics.
+        Returns ``(loss, (report, new_state, None))``: ``report`` maps
+        l1/mse/dur[/pitch/energy]_loss and loss to detached fp32 scalars;
+        ``new_state`` maps BatchNorm buffer names to their new running
+        statistics (train mode), which the caller writes back.
+
+        With ``compute_dtype="bfloat16"`` the fp32 parameters are cast to
+        bf16 inside the forward by a differentiable ``.to()``, so the
+        gradients land in fp32 on them; losses stay fp32.
+        """
+        dtype = getattr(torch, self.cfg.compute_dtype)
+        if dtype == torch.float32:
+            return self(batch, generator, train)
+        params = {n: p.to(dtype) if p.is_floating_point() else p
+                  for n, p in self.named_parameters()}
+        return torch.func.functional_call(self, params,
+                                          (batch, generator, train))
+
+    def forward(self, batch, generator, train=True):
+        """``loss_fn`` in the parameters' own dtype."""
+        cfg = self.cfg
+        dtype = getattr(torch, cfg.compute_dtype)
+        if dtype != torch.float32:
+            batch = _cast_batch(batch, dtype)
+        bn_enc, bn_dec = [], []
+        (hs, pad_mask, d_outs, p_outs, e_outs, p_embs,
+         e_embs) = self._encode_and_predict(batch, generator, train, bn_enc)
+        hs_cond = hs + p_embs + e_embs if cfg.use_fe_condition else hs
+        zo_seed = step_seed(generator.initial_seed(), 1)
+        if batch.seg_classes is not None:
+            class_inputs = tuple(
+                (gather_token_vectors(hs_cond, sc.seg_utt, sc.seg_tok),
+                 gather_segments(batch.mel, sc.seg_utt, sc.seg_start,
+                                 sc.frame_mask),
+                 sc.position)
+                for sc in batch.seg_classes)
+            after, before = decoder_teacher_forced_classed(
+                self.decoder, cfg, class_inputs, batch.utt_gather,
+                batch.utt_mask, generator, train, zo_seed, bn_dec)
+        else:
+            enc_seg = gather_token_vectors(hs_cond, batch.seg_utt,
+                                           batch.seg_tok)
+            seg_targets = gather_segments(batch.mel, batch.seg_utt,
+                                          batch.seg_start, batch.frame_mask)
+            after, before = decoder_teacher_forced(
+                self.decoder, cfg, enc_seg, seg_targets, batch.position,
+                batch.utt_gather, batch.utt_mask, generator, train, zo_seed,
+                bn_dec)
+        loss, report = self._losses(batch, after, before, d_outs, p_outs,
+                                    e_outs, pad_mask)
+        new_state = {}
+        for prefix, stats in (("encoder.convs.bns", bn_enc),
+                              ("decoder.postnet.bns", bn_dec)):
+            for i, (mean, var) in enumerate(stats):
+                new_state[f"{prefix}.{i}.running_mean"] = mean
+                new_state[f"{prefix}.{i}.running_var"] = var
+        return loss, (report, new_state, None)
+
+    def _encode_and_predict(self, batch, generator, train, bn_out):
+        """Encoder + duration/pitch/energy predictors + prosody embeds
+        (``taco2_sa.py:130-167``); the embeds take the ground-truth f0 and
+        energy (e2e_tts_tacotron2_sa.py:582-583)."""
+        cfg = self.cfg
+        Tmax = batch.tokens.shape[1]
+        hs = encoder_apply(self.encoder, cfg, batch.tokens, batch.ilens,
+                           generator, train, bn_out)
+        if cfg.spk_embed_dim:
+            hs = _concat_spemb(hs, batch.spembs)
+        pad_mask = lengths_to_pad_mask(batch.ilens, Tmax)
+        d_outs = C.duration_predictor_apply(
+            self.duration_predictor, hs, pad_mask, generator,
+            cfg.duration_predictor_dropout_rate, train)
+        p_outs = e_outs = p_embs = e_embs = None
+        if cfg.use_fe_condition:
+            p_outs = C.variance_predictor_apply(
+                self.pitch_predictor, hs, pad_mask, generator,
+                cfg.pitch_predictor_dropout_rate, train)
+            e_outs = C.variance_predictor_apply(
+                self.energy_predictor, hs, pad_mask, generator,
+                cfg.energy_predictor_dropout_rate, train)
+            p_embs = C.scalar_embed_apply(
+                self.pitch_embed, batch.f0, generator,
+                cfg.pitch_embed_dropout_rate, train)
+            e_embs = C.scalar_embed_apply(
+                self.energy_embed, batch.energy, generator,
+                cfg.energy_embed_dropout_rate, train)
+        return hs, pad_mask, d_outs, p_outs, e_outs, p_embs, e_embs
+
+    def _losses(self, batch, after, before, d_outs, p_outs, e_outs,
+                pad_mask):
+        """The five loss terms in fp32 (``taco2_sa.py:230-300``)."""
+        cfg = self.cfg
+        mel32 = batch.mel.float()
+        after, before = after.float(), before.float()
+        if cfg.use_masking or cfg.use_weighted_masking:
+            out_mask = batch.utt_mask[..., None]
+            if cfg.reduction_factor > 1:
+                # the reference drops the mod-r tail of the targets
+                # (e2e_tts_tacotron2_sa.py:595-599), for both reductions
+                olens_r = batch.olens - batch.olens % cfg.reduction_factor
+                out_mask = out_mask & lengths_to_non_pad_mask(
+                    olens_r, batch.mel.shape[1])[..., None]
+        else:
+            out_mask = None  # plain means over the padded buffers
+        in_mask = ~pad_mask
+        if cfg.use_weighted_masking:
+            n_valid = torch.sum(batch.olens > 0).float()
+            l1 = weighted_l1(after, mel32, out_mask, n_valid) + \
+                weighted_l1(before, mel32, out_mask, n_valid)
+            mse = weighted_mse(after, mel32, out_mask, n_valid) + \
+                weighted_mse(before, mel32, out_mask, n_valid)
+            dur = C.duration_loss(d_outs.float(), batch.durations, in_mask,
+                                  offset=cfg.duration_predictor_offset,
+                                  weighted_n_valid=n_valid)
+        else:
+            l1 = masked_l1(after, mel32, out_mask) + \
+                masked_l1(before, mel32, out_mask)
+            mse = masked_mse(after, mel32, out_mask) + \
+                masked_mse(before, mel32, out_mask)
+            # the duration loss is always masked (:560-565)
+            dur = C.duration_loss(d_outs.float(), batch.durations, in_mask,
+                                  offset=cfg.duration_predictor_offset)
+        loss = l1 + mse + dur
+        report = {"l1_loss": l1, "mse_loss": mse, "dur_loss": dur}
+        if cfg.use_fe_condition:
+            f0, en = batch.f0.float(), batch.energy.float()
+            if cfg.use_weighted_masking:
+                pitch = weighted_mse(p_outs.float(), f0, in_mask[..., None],
+                                     n_valid)
+                energy = weighted_mse(e_outs.float(), en, in_mask[..., None],
+                                      n_valid)
+            else:
+                fe_mask = in_mask[..., None] if cfg.use_masking else None
+                pitch = masked_mse(p_outs.float(), f0, fe_mask)
+                energy = masked_mse(e_outs.float(), en, fe_mask)
+            loss = loss + pitch + energy
+            report["pitch_loss"] = pitch
+            report["energy_loss"] = energy
+        report["loss"] = loss
+        return loss, {k: v.detach() for k, v in report.items()}
 
     # ---------------- inference ----------------
 

@@ -25,11 +25,41 @@ def lstm_cell(params, x, h, c, *, precomputed_xproj=None):
     return h_new, c_new
 
 
-def zoneout(old, new, rate):
-    """Eval-mode zoneout: the expectation blend ``rate*old + (1-rate)*new``
-    (``ops/rnn.py:85-100``)."""
+_MASK64 = (1 << 64) - 1
+
+
+def step_seed(base, *path):
+    """A 63-bit seed for one step of a scan, mixed from ``base`` and the
+    integers in ``path`` (splitmix64 finalizer): the zoneout masks of a
+    step are a function of this seed alone, so the hand-built backward
+    draws them again instead of saving them (``ops/rnn_vjp.py:28-29``)."""
+    z = base & _MASK64
+    for p in path:
+        z = (z + 0x9E3779B97F4A7C15 * (int(p) + 1)) & _MASK64
+        z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+        z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+        z ^= z >> 31
+    return z >> 1
+
+
+def zoneout_keep_masks(gen, seed, n, P, H, rate):
+    """``n`` keep-old Bernoulli(``rate``) masks (n, P, H) of one decoder
+    step in one draw (``ops/rnn.py:62-82``).  ``gen`` is a
+    ``torch.Generator`` on the masks' device, re-seeded with ``seed``, so
+    the masks depend on ``seed`` only.  Torch's Philox stream cannot match
+    JAX's RBG or threefry bits; the keep rate is what matches."""
+    gen.manual_seed(seed)
+    return torch.rand((n, P, H), generator=gen, device=gen.device) < rate
+
+
+def zoneout(old, new, rate, keep=None):
+    """Zoneout state blend (``ops/rnn.py:85-100``): with a boolean ``keep``
+    mask (train) the old state where it is True; without one (eval) the
+    expectation blend ``rate*old + (1-rate)*new``."""
     if rate <= 0.0:
         return new
+    if keep is not None:
+        return torch.where(keep, old, new)
     return rate * old + (1.0 - rate) * new
 
 

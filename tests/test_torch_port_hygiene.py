@@ -8,7 +8,8 @@ import pytest
 import torch
 
 REPO = Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "jaxlib", "flax", "fcl_taco2_tpu"}
+# the GPU host has no JAX, flax, optax or msgpack
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "fcl_taco2_tpu"}
 
 
 def _imported_roots(path):
@@ -43,6 +44,28 @@ def test_entry_points_default_to_the_card(monkeypatch):
     model = Tacotron2SA(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         Synthesizer(model)
+
+
+def test_training_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    from fcl_taco2_tpu_torch.cli.fcl_train import main
+    from fcl_taco2_tpu_torch.data.manifest import load_manifest
+    from fcl_taco2_tpu_torch.data.synthetic import write_learnable_corpus
+    from fcl_taco2_tpu_torch.models import Tacotron2SA
+    from fcl_taco2_tpu_torch.train.loop import TrainConfig, Trainer
+    from helpers import tiny_config
+    from torch_port_helpers import port_config
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    train, valid = write_learnable_corpus(str(tmp_path), 4, 2)
+    utts = load_manifest(train)
+    model = Tacotron2SA(port_config(tiny_config()), device="cpu")
+    tcfg = TrainConfig(exp_dir=str(tmp_path / "exp"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(model, tcfg, utts, utts)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--train-json", train, "--valid-json", valid,
+              "--outdir", str(tmp_path / "cli")])
+    assert next(model.parameters()).device.type == "cpu"
 
 
 def test_cpu_decode_runs_the_plain_version(monkeypatch):

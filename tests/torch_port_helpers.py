@@ -57,3 +57,75 @@ def port_pwg(jcfg, params):
     model = ParallelWaveGAN(cfg, device="cpu")
     model.load_state_dict(pwg_params_from_jax(np_tree(params)))
     return model, cfg
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+NO_DROPOUT = dict(dropout_rate=0.0, zoneout_rate=0.0,
+                  duration_predictor_dropout_rate=0.0,
+                  pitch_predictor_dropout_rate=0.0,
+                  pitch_embed_dropout_rate=0.0,
+                  energy_predictor_dropout_rate=0.0,
+                  energy_embed_dropout_rate=0.0)
+
+
+def port_batch(batch):
+    """A JAX ``Batch`` of arrays -> the port's ``Batch`` of CPU tensors."""
+    import torch
+    from fcl_taco2_tpu_torch.models.taco2_sa import Batch, SegClass
+
+    def t(x):
+        return None if x is None else torch.from_numpy(np.array(x))
+
+    d = {k: t(v) for k, v in batch._asdict().items() if k != "seg_classes"}
+    if batch.seg_classes is not None:
+        d["seg_classes"] = tuple(SegClass(*[t(x) for x in c])
+                                 for c in batch.seg_classes)
+    return Batch(**d)
+
+
+def port_grads_as_jax(model, grads=None):
+    """Gradients of a port model's parameters (``.grad`` unless ``grads``,
+    a list in ``model.parameters()`` order, is given) as the JAX params
+    tree of numpy arrays."""
+    import torch
+    from fcl_taco2_tpu_torch.utils.params import params_to_numpy
+
+    names = [n for n, _ in model.named_parameters()]
+    if grads is None:
+        grads = [p.grad for p in model.parameters()]
+    sd = {n: torch.zeros_like(p) if g is None else g
+          for (n, p), g in zip(model.named_parameters(), grads)}
+    assert list(sd) == names
+    return params_to_numpy(sd)[0]
+
+
+def max_rel_err(tree_a, tree_b):
+    """max over leaves of max|a-b| / max|a| (``test_decoder_vjp.py:24``),
+    the trees compared leaf by leaf with matching structure."""
+    la = jax.tree_util.tree_leaves(np_tree(tree_a))
+    lb = jax.tree_util.tree_leaves(np_tree(tree_b))
+    assert len(la) == len(lb)
+    return max(float(np.max(np.abs(a - b)) / (1e-8 + np.max(np.abs(a))))
+               for a, b in zip(la, lb))
+
+
+def max_abs_err(tree_a, tree_b):
+    la = jax.tree_util.tree_leaves(np_tree(tree_a))
+    lb = jax.tree_util.tree_leaves(np_tree(tree_b))
+    assert len(la) == len(lb)
+    return max(float(np.max(np.abs(np.asarray(a, np.float64)
+                                   - np.asarray(b, np.float64))))
+               for a, b in zip(la, lb))
+
+
+def port_state_as_jax(model, new_state=None):
+    """A port model's BatchNorm running statistics (its buffers, with
+    ``new_state`` entries in their place) as the JAX state tree."""
+    from fcl_taco2_tpu_torch.utils.params import params_to_numpy
+
+    sd = dict(model.named_buffers())
+    sd.update(new_state or {})
+    return params_to_numpy(sd)[1]
