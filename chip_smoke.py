@@ -52,14 +52,42 @@ prints no result):
    loss; and ``fcl_train.main`` at FCL-taco2-S width on a learnable
    synthetic corpus, 2 epochs then a resume for a third (the loss falls,
    the resume starts at the saved step, the files restore).
-8. One JSON line of the kernels, the nvidia-smi line, and last the
-   result line ``{"ok": true, "device": {...}}``.
+8. Knowledge distillation (``[kd]``), no decoder or PWG kernel may
+   launch: the KD loss with its captures through the hand-built backward
+   and through checkpointed steps (remat) against autograd through the
+   plain loop (FCL-taco2-S from FCL-taco2-T at full width, fp32, TF32 off,
+   dropouts 0, one 96-phoneme utterance, classed and single-class; loss
+   within 1e-6, gradient leaves within 1e-4); the KD step at
+   scripts/bench_kd.py's protocol (B=16, 96 phonemes, Poisson(8)
+   durations, seed 0, bf16, classes 8,16,32,50) with remat on and off,
+   timed as the train step is; ``fcl_train`` trains a full-width teacher
+   for one epoch on the learnable corpus and ``fcl_train --perform-KD
+   True`` distils the full-width student from it for 2 epochs (the loss
+   falls, log.jsonl has the KD terms).
+9. The CLIs (``[cli]``) on those two checkpoints, the launch counters
+   zeroed before each call and the call's kernels required to launch;
+   each timed call decodes the 49-utterance train manifest after a
+   warm-up call on the 7-utterance validation manifest: ``fcl_synth``
+   with corpus durations on the teacher (``fused_ar_decode_hbm``), the
+   student (``fused_ar_decode``, twice with one seed: byte-equal arks)
+   and the teacher with ``--quantize int8`` (7 batches of 8, one in
+   flight; decode.txt's frames/s and batch walls); ``fcl_vocode`` on the
+   student's feats.scp (``pwg_generate_streaming``); ``fcl_tts`` batch
+   (``pwg_generate_streaming``) and ``--stream`` (``pwg_stream_step``) on
+   a copy of the student whose duration predictor gives about 8 frames a
+   phoneme; ``fcl_eval`` (finite MCD).  Frames/s, RTF and time to first
+   audio as the CLIs print them.
+10. One JSON line of the kernels (launches: every main path above, the
+   CLIs included), the nvidia-smi line, and last the result line
+   ``{"ok": true, "device": {...}}``.  Each phase's seconds are logged
+   (``[phase]``).
 """
 
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -911,20 +939,41 @@ def train_vjp_check(smi):
                                f"{grad_err}")
 
 
-def train_step_timing(smi, kind, classes, warmup=3, reps=10):
+def train_step_timing(smi, kind, classes, warmup=3, reps=10,
+                      kd_remat=None):
     """The teacher train step at the bench protocol (bench.py:383-447):
     B=16, bf16 compute, Adam lr 1e-3, clip 1.0; CUDA events around whole
-    steps, then synchronized forward / backward / optimizer splits."""
-    from fcl_taco2_tpu_torch.models import Tacotron2SA, teacher_config
+    steps, then synchronized forward / backward / optimizer splits.  With
+    ``kd_remat`` True or False, the KD step instead (scripts/bench_kd.py:
+    the full-width student distilled from the full-width teacher, the
+    same batch), with ``remat_decoder`` on or off."""
+    from fcl_taco2_tpu_torch.models import (Tacotron2SA, student_config,
+                                            teacher_config)
+    from fcl_taco2_tpu_torch.models.kd import KDStudent
     from fcl_taco2_tpu_torch.train.loop import step_generator
     from fcl_taco2_tpu_torch.train.optim import build_optimizer
     from fcl_taco2_tpu_torch.train.state import TrainState
     from fcl_taco2_tpu_torch.train.step import apply_update, make_train_step
-    cfg = teacher_config(IDIM, odim=ODIM, duration_classes=classes)
-    model = Tacotron2SA(cfg, device=TRAIN_DEVICE, seed=0)
+    tag = "classed " + ",".join(map(str, classes)) if classes \
+        else "single-class"
+    if kd_remat is None:
+        model = Tacotron2SA(teacher_config(IDIM, odim=ODIM,
+                                           duration_classes=classes),
+                            device=TRAIN_DEVICE, seed=0)
+        loss_fn = model.loss_fn
+        head = f"[train] teacher B={TRAIN_B} bf16 {tag}"
+    else:
+        kw = dict(odim=ODIM, duration_classes=classes,
+                  remat_decoder=kd_remat)
+        kd = KDStudent(student_config(IDIM, **kw), teacher_config(IDIM, **kw),
+                       device=TRAIN_DEVICE, seed=0)
+        model, loss_fn = kd.student, kd.loss_fn
+        head = (f"[kd] KD step (student from teacher) B={TRAIN_B} bf16 "
+                f"{tag} remat {'on' if kd_remat else 'off'}")
+    cfg = model.cfg
     tx = build_optimizer(name="adam", lr=1e-3, grad_clip=1.0)
     ts = TrainState(model, tx.init(list(model.parameters())), 0)
-    step = make_train_step(tx)
+    step = make_train_step(tx, loss_fn)
     batch, olens = train_batch(TRAIN_B, cfg.effective_duration_classes,
                                TRAIN_DEVICE)
     torch.cuda.synchronize()
@@ -946,7 +995,7 @@ def train_step_timing(smi, kind, classes, warmup=3, reps=10):
     for _ in range(3):
         gen = step_generator(0, ts.step, TRAIN_DEVICE)
         (loss, (_, new_state, _)), fwd = _timed(
-            lambda: model.loss_fn(batch, gen))
+            lambda: loss_fn(batch, gen))
         grads, bwd = _timed(lambda: torch.autograd.grad(loss, params))
         _, opt = _timed(lambda: apply_update(ts, tx, list(grads), new_state))
         split.append((fwd, bwd, opt))
@@ -955,11 +1004,9 @@ def train_step_timing(smi, kind, classes, warmup=3, reps=10):
     busy = device_busy_ms(lambda: step(ts, batch, step_generator(
         0, ts.step, TRAIN_DEVICE)))
     frames = int(olens.sum())
-    tag = "classed " + ",".join(map(str, classes)) if classes \
-        else "single-class"
     if not all(np.isfinite(losses)):
-        raise RuntimeError(f"train step {tag}: non-finite loss {losses}")
-    log(f"[train] teacher B={TRAIN_B} bf16 {tag} on {kind}: step "
+        raise RuntimeError(f"{head}: non-finite loss {losses}")
+    log(f"{head} on {kind}: step "
         f"{ms:.2f} ms median of {reps} after {warmup} warm-up (min "
         f"{min(times):.2f}, max {max(times):.2f}; CUDA events around the "
         f"whole step); split forward {fwd:.2f} + backward {bwd:.2f} + "
@@ -967,13 +1014,16 @@ def train_step_timing(smi, kind, classes, warmup=3, reps=10):
         f"{frames / ms * 1e3:.0f} frames/s ({frames} frames); device busy "
         f"{_busy_text(busy, ms)}; peak memory {peak:.2f} GiB; loss "
         f"{losses[0]:.4f} -> {losses[-1]:.4f} | {smi}")
-    return {"classes": list(classes), "step_ms": ms,
-            "step_ms_min": min(times), "step_ms_max": max(times),
-            "forward_ms": fwd, "backward_ms": bwd, "optimizer_ms": opt,
-            "frames_per_s": frames / ms * 1e3, "peak_gib": peak,
-            "device_busy_ms": busy,
-            "device_idle_share": None if busy is None else 1 - busy / ms,
-            "loss_first": losses[0], "loss_last": losses[-1]}
+    row = {"classes": list(classes), "step_ms": ms,
+           "step_ms_min": min(times), "step_ms_max": max(times),
+           "forward_ms": fwd, "backward_ms": bwd, "optimizer_ms": opt,
+           "frames_per_s": frames / ms * 1e3, "peak_gib": peak,
+           "device_busy_ms": busy,
+           "device_idle_share": None if busy is None else 1 - busy / ms,
+           "loss_first": losses[0], "loss_last": losses[-1]}
+    if kd_remat is not None:
+        row["kd_remat"] = kd_remat
+    return row
 
 
 def device_busy_ms(fn):
@@ -1012,7 +1062,6 @@ def _busy_text(busy, ms):
 def train_cli_check(smi):
     """``fcl_train.main`` at FCL-taco2-S full width on a learnable corpus:
     2 epochs, then a resume from the snapshot for a third."""
-    import tempfile
     from fcl_taco2_tpu_torch.cli.fcl_train import main as fcl_train
     from fcl_taco2_tpu_torch.data.synthetic import write_learnable_corpus
     from fcl_taco2_tpu_torch.models import Tacotron2SA
@@ -1086,6 +1135,315 @@ def phase_train(smi, kind):
     log("[train] " + json.dumps({"train_steps": rows, "device": smi}))
 
 
+# FCL-taco2-T's widths for fcl_train's --teacher-config, in JSON (also
+# valid yaml; the GPU host has no PyYAML)
+TEACHER_CONF = {"embed-dim": 512, "eunits": 512, "econv-chans": 512,
+                "dunits": 1024, "prenet-units": 256, "postnet-chans": 512}
+KD_KEYS = ("main/encoder_loss", "main/decoder_loss", "main/prosody_loss",
+           "main/output_l1_loss")
+
+
+def kd_vjp_check(smi):
+    """The KD loss (captures on) through the hand-built backward and
+    through checkpointed steps (remat) against autograd through the plain
+    loop: FCL-taco2-S distilled from FCL-taco2-T at full width, fp32, TF32
+    off, every dropout and zoneout 0, one 96-phoneme utterance, classed
+    and single-class plans."""
+    from fcl_taco2_tpu_torch.models import student_config, teacher_config
+    from fcl_taco2_tpu_torch.models.kd import KDStudent
+    kw = dict(odim=ODIM, compute_dtype="float32", **NO_DROPOUT)
+    kd = KDStudent(student_config(IDIM, **kw), teacher_config(IDIM, **kw),
+                   device=TRAIN_DEVICE, seed=0)
+    cfg = kd.student.cfg
+    params = list(kd.student.parameters())
+    names = [n for n, _ in kd.student.named_parameters()]
+    for classes in (DURATION_CLASSES, ()):
+        batch, _ = train_batch(1, classes, TRAIN_DEVICE)
+        out = {}
+        with no_tf32():
+            for path, over in (("autograd", dict(decoder_custom_vjp=False)),
+                               ("hand-built", {}),
+                               ("remat", dict(remat_decoder=True))):
+                kd.student.cfg = cfg.replace(duration_classes=classes,
+                                             **over)
+                gen = torch.Generator(device=TRAIN_DEVICE).manual_seed(0)
+                loss, _ = kd.loss_fn(batch, gen)
+                out[path] = (float(loss.detach()),
+                             torch.autograd.grad(loss, params))
+        kd.student.cfg = cfg
+        l0, g0 = out["autograd"]
+        tag = "classed" if classes else "single-class"
+        for path in ("hand-built", "remat"):
+            l1, g1 = out[path]
+            loss_err = abs(l1 - l0) / abs(l0)
+            grad_err, worst = max(
+                (float((a - b).abs().max() / (a.abs().max() + 1e-30)), n)
+                for n, a, b in zip(names, g0, g1))
+            log(f"[kd] {path} vs autograd, KD loss with captures, {tag}, "
+                f"fp32 TF32 off: loss {l1:.6f} vs {l0:.6f} rel err "
+                f"{loss_err:.2e} (tol {TOL_LOSS_VJP:g}); worst gradient leaf "
+                f"{worst} {grad_err:.2e} (tol {TOL_GRAD_VJP:g}: "
+                f"{TOL_VJP_WHY}) | {smi}")
+            if not loss_err <= TOL_LOSS_VJP:
+                raise RuntimeError(f"kd {path} {tag}: loss {l1} vs {l0}")
+            if not grad_err <= TOL_GRAD_VJP:
+                raise RuntimeError(f"kd {path} {tag}: gradient {worst} "
+                                   f"{grad_err}")
+
+
+def kd_trainers(smi, root):
+    """``fcl_train`` trains FCL-taco2-T at full width for one epoch on a
+    learnable corpus; ``fcl_train --perform-KD True`` distils FCL-taco2-S
+    from its checkpoint for 2 epochs (remat on, the KD default).  Returns
+    (teacher checkpoint, student checkpoint, train manifest, validation
+    manifest)."""
+    from fcl_taco2_tpu_torch.cli.fcl_train import main as fcl_train
+    from fcl_taco2_tpu_torch.data.synthetic import write_learnable_corpus
+    from fcl_taco2_tpu_torch.train import checkpoint as ckpt
+    train_json, valid_json = write_learnable_corpus(
+        root, 49, 7, vocab=IDIM, odim=ODIM, length=(24, 49),
+        max_dur=MAX_DUR, mean_dur=MEAN_DUR)
+    common = ["--train-json", train_json, "--valid-json", valid_json,
+              "--batch-size", "8", "--minibatches", "6", "--seed", "0",
+              "--device", TRAIN_DEVICE]
+    teacher, student = os.path.join(root, "teacher"), os.path.join(root,
+                                                                   "student")
+    t0 = time.perf_counter()
+    fcl_train(common + ["--outdir", teacher, "--epochs", "1"] + [
+        a for k, v in TEACHER_CONF.items() for a in (f"--{k}", str(v))])
+    t_teacher = time.perf_counter() - t0
+    tckpt = os.path.join(teacher, "model.loss.best")
+    tconf = os.path.join(root, "teacher.json")
+    with open(tconf, "w") as f:
+        json.dump(TEACHER_CONF, f)
+    torch.cuda.reset_peak_memory_stats()  # the KD trainer logs its own
+    t0 = time.perf_counter()
+    ts = fcl_train(common + [
+        "--outdir", student, "--epochs", "2", "--perform-KD", "True",
+        "--teacher-config", tconf, "--teacher-checkpoint", tckpt,
+        *STUDENT_ARGS])
+    t_kd = time.perf_counter() - t0
+    with open(os.path.join(student, "log.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    l1, l2 = (r["main/loss"] for r in rows[:2])
+    cfg, extra = ckpt.load_model_json(student)
+    sckpt = os.path.join(student, "model.loss.best")
+    log(f"[kd] fcl_train teacher full width, batch 8, 6 steps: 1 epoch in "
+        f"{t_teacher:.1f} s; fcl_train --perform-KD True student full "
+        f"width (remat {cfg.remat_decoder}): mean loss epoch 1 {l1:.4f}, "
+        f"epoch 2 {l2:.4f} (KD terms epoch 2: "
+        + ", ".join(f"{k[5:]} {rows[1][k]:.4f}" for k in KD_KEYS)
+        + f"); 2 epochs ({ts.step} steps) in {t_kd:.1f} s wall, peak "
+        f"memory {rows[1].get('max_memory_allocated_gib')} GiB | {smi}")
+    missing = [k for k in KD_KEYS if k not in rows[0]]
+    if missing:
+        raise RuntimeError(f"kd cli: log.jsonl lacks {missing}")
+    if not l2 < l1:
+        raise RuntimeError(f"kd cli: loss did not fall ({l1} -> {l2})")
+    if not cfg.remat_decoder or extra["teacher_checkpoint"] != tckpt \
+            or "kd_proj" not in ckpt.read_checkpoint(sckpt)["params"]:
+        raise RuntimeError("kd cli: model.json or the snapshot is wrong")
+    return tckpt, sckpt, train_json, valid_json
+
+
+def phase_kd(smi, kind, root):
+    """KD on the card: the hand-built backward with captures held to
+    autograd, the KD step at scripts/bench_kd.py's protocol with remat on
+    and off, and the two trainers end to end.  No decoder or PWG kernel
+    runs."""
+    zero_counts()
+    kd_vjp_check(smi)
+    rows = [train_step_timing(smi, kind, DURATION_CLASSES, kd_remat=remat)
+            for remat in (True, False)]
+    ckpts = kd_trainers(smi, root)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"[kd] kernel launches during the phase {counts} (the KD path runs "
+        f"none)")
+    if any(counts.values()):
+        raise RuntimeError(f"the KD path launched a kernel: {counts}")
+    log("[kd] " + json.dumps({"kd_steps": rows, "device": smi}))
+    return ckpts
+
+
+def speaking_student(student, root):
+    """A copy of the student checkpoint whose duration predictor gives
+    about MEAN_DUR frames a phoneme (its linear head's weights scaled by
+    0.1, its bias log(MEAN_DUR + 1)), for ``fcl_tts``, which decodes
+    predicted durations only: a checkpoint a few steps old predicts near
+    zero.  Every other weight is the distilled student's."""
+    from fcl_taco2_tpu_torch.cli.fcl_synth import load_acoustic_model
+    from fcl_taco2_tpu_torch.train import checkpoint as ckpt
+    from fcl_taco2_tpu_torch.train.optim import build_optimizer
+    from fcl_taco2_tpu_torch.train.state import TrainState
+    model = load_acoustic_model(student, device=TRAIN_DEVICE)
+    with torch.no_grad():
+        lin = model.duration_predictor.linear
+        lin.weight.mul_(0.1)
+        lin.bias.fill_(float(np.log(MEAN_DUR + 1.0)))
+    exp = os.path.join(root, "student_tts")
+    ckpt.save_model_json(exp, model.cfg)
+    path = os.path.join(exp, "model.loss.best")
+    ckpt.save_checkpoint(path, TrainState(model, build_optimizer().init(
+        list(model.parameters())), 1), 1)
+    return path
+
+
+def _decode_txt(out):
+    """``fcl_synth``'s decode.txt -> (per-utterance (frames, batch wall),
+    the summary lines)."""
+    utts, summary = [], {}
+    with open(os.path.join(out, "decode.txt")) as f:
+        for line in f.read().splitlines():
+            w = line.split()
+            if len(w) == 2:
+                summary[w[0]] = float(w[1])
+            else:
+                utts.append((int(w[2]), float(w[4])))
+    return utts, summary
+
+
+def phase_cli(smi, kind, root, ckpts):
+    """The serving and scoring CLIs on the [kd] phase's checkpoints, each
+    call run with the launch counters zeroed just before it.  Every timed
+    call decodes the 49-utterance train manifest (7 batches of 8 for
+    ``fcl_synth``, so the 1-deep overlap runs) after a warm-up call of the
+    same CLI and checkpoint on the 7-utterance validation manifest.
+    ``fcl_synth`` feeds the corpus durations; ``fcl_tts`` runs
+    ``speaking_student``.  Returns the launches."""
+    from fcl_taco2_tpu_torch.cli import fcl_eval, fcl_synth, fcl_tts
+    from fcl_taco2_tpu_torch.cli import fcl_vocode
+    from fcl_taco2_tpu_torch.data.manifest import (load_durations,
+                                                   load_manifest)
+    from fcl_taco2_tpu_torch.infer import synth as synth_mod
+    from fcl_taco2_tpu_torch.infer.ark import read_ark_matrix
+    teacher, student, manifest, warm_manifest = ckpts
+    speaker = speaking_student(student, root)
+    n_utts = len(load_manifest(manifest))
+    out = {k: os.path.join(root, k) for k in (
+        "synth_teacher", "synth_student", "synth_student_again",
+        "synth_int8", "wav", "tts", "stream")}
+    synth = ["--use-gt-durations", "--seed", "1", "--device", TRAIN_DEVICE]
+    tts = ["--model", speaker, "--device", TRAIN_DEVICE]
+    # (tag, CLI, its flags but the manifest and output, output flag,
+    #  output key, kernels, warm up first)
+    cases = (
+        ("fcl_synth teacher", fcl_synth.main, ["--model", teacher, *synth],
+         "--out", "synth_teacher", ("fused_ar_decode_hbm",), True),
+        ("fcl_synth student", fcl_synth.main, ["--model", student, *synth],
+         "--out", "synth_student", ("fused_ar_decode",), True),
+        ("fcl_synth student, same seed", fcl_synth.main, [
+            "--model", student, *synth], "--out", "synth_student_again",
+         ("fused_ar_decode",), False),
+        ("fcl_synth teacher --quantize int8", fcl_synth.main, [
+            "--model", teacher, "--quantize", "int8", *synth], "--out",
+         "synth_int8", ("fused_ar_decode_hbm",), True),
+        ("fcl_tts student", fcl_tts.main, tts, "--outdir", "tts",
+         ("fused_ar_decode", "pwg_generate_streaming"), True),
+        ("fcl_tts student --stream", fcl_tts.main, tts + ["--stream"],
+         "--outdir", "stream", ("fused_ar_decode", "pwg_stream_step"), True),
+    )
+    # whether each batch's readback was still in flight when the next
+    # batch had been dispatched (the overlap did work), per fcl_synth call
+    inflight = []
+    consume = synth_mod.Synthesizer._consume
+
+    def watched_consume(self, pend):
+        event = pend["host"][2]
+        inflight.append(event is not None and not event.query())
+        return consume(self, pend)
+
+    def run(tag, main, argv, kernels):
+        zero_counts()
+        t0 = time.perf_counter()
+        result = main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        for k in kernels:
+            if counts[k] == 0:
+                raise RuntimeError(f"{tag}: the CLI did not launch {k}")
+        for k, v in counts.items():
+            launches[k] += v
+        return result, wall, counts
+
+    launches = dict.fromkeys(_counters(), 0)
+    synth_mod.Synthesizer._consume = watched_consume
+    try:
+        for tag, main, argv, flag, key, kernels, warm in cases:
+            if warm:
+                _, wall, counts = run(tag, main, argv + [
+                    "--json", warm_manifest, flag, out[key] + "_warm"],
+                    kernels)
+                log(f"[cli] {tag} warm-up on the validation manifest: "
+                    f"{wall:.2f} s wall with model loading; launches "
+                    f"{counts}")
+            inflight.clear()
+            result, wall, counts = run(tag, main, argv + [
+                "--json", manifest, flag, out[key]], kernels)
+            if isinstance(result, dict):
+                what = ", ".join(f"median {k} {v:.1f}"
+                                 for k, v in result.items())
+            else:
+                utts, summary = _decode_txt(out[key])
+                walls = sorted({w for _, w in utts})
+                what = (f"{len(inflight)} batches, frames/s mean "
+                        f"{summary['mean_frames_per_sec']:.1f} total "
+                        f"{summary['total_frames_per_sec']:.1f} p50 "
+                        f"{summary['p50_frames_per_sec']:.1f} p95 "
+                        f"{summary['p95_frames_per_sec']:.1f}, batch walls "
+                        f"{walls[0] * 1e3:.1f}-{walls[-1] * 1e3:.1f} ms, "
+                        f"readback still in flight at the next dispatch "
+                        f"for {sum(inflight[:-1])} of {len(inflight) - 1} "
+                        f"batches")
+                if len(utts) != n_utts or len(inflight) != 7 \
+                        or not 0 < walls[0] <= walls[-1] < wall:
+                    raise RuntimeError(f"{tag}: decode.txt {utts}")
+            log(f"[cli] {tag} on {kind}, {n_utts} utterances: {what} (as "
+                f"the CLI writes it); {wall:.2f} s wall with model "
+                f"loading; launches {counts}")
+    finally:
+        synth_mod.Synthesizer._consume = consume
+    _, wall, counts = run("fcl_vocode student", fcl_vocode.main, [
+        "--feats-scp", os.path.join(out["synth_student"], "feats.scp"),
+        "--outdir", out["wav"], "--device", TRAIN_DEVICE],
+        ("pwg_generate_streaming",))
+    log(f"[cli] fcl_vocode on the student's {n_utts} mels: {wall:.2f} s "
+        f"wall with model loading; launches {counts}")
+    # each decode: every utterance, its corpus frames, finite values
+    want = {u.uttid: int(load_durations(u).sum())
+            for u in load_manifest(manifest)}
+    for k in ("synth_teacher", "synth_student", "synth_int8"):
+        with open(os.path.join(out[k], "feats.scp")) as f:
+            mats = {u: read_ark_matrix(ptr) for u, ptr in
+                    (line.split() for line in f.read().splitlines())}
+        if {u: m.shape for u, m in mats.items()} \
+                != {u: (n, ODIM) for u, n in want.items()} \
+                or not all(np.isfinite(m).all() for m in mats.values()):
+            raise RuntimeError(f"{k}: wrong frames or non-finite mels")
+    arks = []
+    for k in ("synth_student", "synth_student_again"):
+        with open(os.path.join(out[k], "feats.ark"), "rb") as f:
+            arks.append(f.read())
+    if arks[0] != arks[1]:
+        raise RuntimeError("fcl_synth: two runs with one seed wrote "
+                           "different arks")
+    summary = fcl_eval.main(["--feats-scp", os.path.join(
+        out["synth_student"], "feats.scp"), "--json", manifest])
+    log(f"[cli] the three decodes hold {sum(want.values())} frames of "
+        f"{len(want)} utterances, finite; fcl_synth student twice with seed "
+        f"1: feats.ark byte-equal ({len(arks[0])} bytes); fcl_eval on the "
+        f"student's feats.scp: {json.dumps(summary)}")
+    if not np.isfinite(summary["mcd"]) or summary["n_utts"] != n_utts:
+        raise RuntimeError(f"fcl_eval: {summary}")
+    for k in ("wav", "tts", "stream"):
+        sizes = [os.path.getsize(os.path.join(out[k], n))
+                 for n in os.listdir(out[k])]
+        if len(sizes) != n_utts or min(sizes) <= 44:  # 44: the wav header
+            raise RuntimeError(f"{k}: {len(sizes)} wavs, sizes {sizes}")
+    return launches
+
+
 def _padded(toks, durs, B, bucket):
     Tmax = -(-max(len(t) for t in toks) // bucket) * bucket
     tokens = torch.zeros(B, Tmax, dtype=torch.int64)
@@ -1098,13 +1456,22 @@ def _padded(toks, durs, B, bucket):
     return tokens.cuda(), ilens.cuda(), dd.cuda()
 
 
+def timed_phase(name, fn, *args):
+    """``fn(*args)``, its wall seconds logged."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main():
+    t_start = time.perf_counter()
     smi = phase_device()
     kind = torch.cuda.get_device_name(0)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from fcl_taco2_tpu_torch.models import (Tacotron2SA, student_config,
                                             teacher_config)
-    phase_build()
+    timed_phase("build", phase_build)
     t0 = time.perf_counter()
     models = {
         "teacher": Tacotron2SA(teacher_config(IDIM, odim=ODIM), seed=0),
@@ -1114,16 +1481,21 @@ def main():
         f"{time.perf_counter() - t0:.1f} s")
     # phases 3-5 run at dropout 0 where they compare (the configs keep
     # the published 0.5 for the main paths)
-    rows = phase_kernels(models)
-    phase_dropout(models)
-    pwg, pwg_rows = phase_pwg_kernels()
-    launches = phase_main_path(models, kind)
-    for counts in (phase_tts(models, pwg, kind),
-                   phase_stream(models, pwg, kind)):
-        for k, v in counts.items():
+    rows = timed_phase("kernels", phase_kernels, models)
+    timed_phase("dropout", phase_dropout, models)
+    pwg, pwg_rows = timed_phase("pwg", phase_pwg_kernels)
+    launches = timed_phase("main", phase_main_path, models, kind)
+    for name, phase in (("tts", phase_tts), ("stream", phase_stream)):
+        for k, v in timed_phase(name, phase, models, pwg, kind).items():
             launches[k] += v
     del models
-    phase_train(smi, kind)
+    timed_phase("train", phase_train, smi, kind)
+    with tempfile.TemporaryDirectory() as root:
+        ckpts = timed_phase("kd", phase_kd, smi, kind, root)
+        for k, v in timed_phase("cli", phase_cli, smi, kind, root,
+                                ckpts).items():
+            launches[k] += v
+    log(f"[phase] all: {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
     for name, replaces, main_P in (

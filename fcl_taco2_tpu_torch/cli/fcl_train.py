@@ -8,10 +8,11 @@
 
 CLI mirror of the reference's tts_train.py (same flag names and yaml
 config chain).  Training runs on the card unless ``--device cpu`` is given;
-it raises when no card is present.  Not ported yet, and refused with an
-error: --perform-KD True, --freeze-mods, --enc-init/--dec-init,
---preprocess-conf, --profile-dir, --remat-decoder True, more than one
-device, --steps-per-dispatch > 1 and --device-cache on.  --zoneout-rng is
+it raises when no card is present.  ``--perform-KD True`` distils a
+student from ``--teacher-checkpoint`` (``cli/fcl_distill.py``).  Not
+ported yet, and refused with an error: --freeze-mods,
+--enc-init/--dec-init, --preprocess-conf, --profile-dir, more than one
+device, --steps-per-dispatch > 1 (outside KD) and --device-cache on.  --zoneout-rng is
 accepted and has no effect: the port draws its masks from torch's Philox
 generator.
 """
@@ -292,8 +293,8 @@ def main(argv=None):
     tcfg = train_config_from_args(args)
 
     if args.perform_kd:
-        raise NotImplementedError(
-            "--perform-KD is not ported yet (ROADMAP A11)")
+        from fcl_taco2_tpu_torch.cli.fcl_distill import run_kd_training
+        return run_kd_training(args, tcfg, idim, odim, train_utts, val_utts)
     model = Tacotron2SA(model_config_from_args(args, idim, odim),
                         device=args.device, seed=args.seed)
     trainer = Trainer(model, tcfg, train_utts, val_utts, device=args.device)

@@ -1,21 +1,26 @@
 """Batched multi-utterance synthesis with speed metrics (port of
-``fcl_taco2_tpu/infer/synth.py:30-267``).
+``fcl_taco2_tpu/infer/synth.py``).
 
 Kept: bucketed ``(B, Tmax, budget)`` shapes, the exact re-dispatch when
-predicted durations overrun the frame budget, the frames/s stats and
-``quantize="int8"`` with the codes prepared once at init.  The port runs
-eagerly, so there is no compile cache; one device serves (no mesh).
-Manifest decoding and the CLIs come with the checkpoint reader.
+predicted durations overrun the frame budget, the frames/s stats,
+``quantize="int8"`` with the codes prepared once at init, and manifest
+decoding (``synth_manifest``: feats.ark/feats.scp, per-utterance speed
+lines and a summary) with one batch's work in flight while the previous
+batch is read back.  The port runs eagerly, so there is no compile cache;
+one device serves (no mesh).
 """
 
 import math
+import os
 import time
 from typing import List, Optional
 
 import numpy as np
 import torch
 
+from fcl_taco2_tpu_torch.infer.ark import ArkScpWriter
 from fcl_taco2_tpu_torch.ops.decoder_cuda import maybe_prequantize
+from fcl_taco2_tpu_torch.ops.rnn import step_seed
 from fcl_taco2_tpu_torch.utils.device import resolve_device
 
 
@@ -55,15 +60,12 @@ class Synthesizer:
             ragged_decode=self.ragged_decode, quantize=self.quantize,
             decoder_backend=self.decoder_backend, prequant=self.prequant)
 
-    def synth_batch(self, token_lists: List[np.ndarray], rng,
-                    durations: Optional[List[np.ndarray]] = None,
-                    d_factor: float = 1.0):
-        """Synthesize a batch of token sequences; returns (mels, stats).
-
-        ``rng``: int seed or ``torch.Generator`` (on the model's device)
-        for the prenet dropout.  mels: list of (L_i, odim) float32 numpy;
-        stats: frames/s over the whole batch call (wall clock includes the
-        copy back to the host)."""
+    def _dispatch(self, token_lists, rng, durations=None, d_factor=1.0):
+        """Launch one padded batch and start copying its result to the
+        host; returns the pending batch for ``_consume``.  On the card the
+        mel and olens go to pinned memory by non-blocking copies followed
+        by an event, so the host is free to dispatch the next batch before
+        this one is read back."""
         n = len(token_lists)
         B = self.batch_size
         if n > B:
@@ -104,25 +106,33 @@ class Synthesizer:
 
         t0 = time.perf_counter()
         out = self._run(*args, gen_state, gen, budget, d_factor)
-        mel = out["mel"].cpu().numpy()  # waits for the device
-        olens = out["olens"].cpu().numpy()
-        wall = time.perf_counter() - t0
+        return {"out": out, "host": _start_readback(out), "t0": t0, "n": n,
+                "budget": budget, "args": args, "gen": gen,
+                "gen_state": gen_state, "d_factor": d_factor,
+                "predicted": durations is None}
+
+    def _consume(self, pend):
+        """Wait for a pending batch's copy; returns (mels, stats).  The
+        wall clock runs from its dispatch to the end of its readback."""
+        n, budget = pend["n"], pend["budget"]
+        mel, olens = _finish_readback(pend["host"])
+        wall = time.perf_counter() - pend["t0"]
 
         # never return truncated mels: when predicted durations overrun
         # the heuristic budget, the exact need is known from d_outs, so
         # re-dispatch once at the exact bucket
         redispatched = 0
-        while durations is None and int((olens[:n] >= budget).sum()):
-            need = int(out["d_outs"][:n].sum(dim=1).max())
+        while pend["predicted"] and int((olens[:n] >= budget).sum()):
+            need = int(pend["out"]["d_outs"][:n].sum(dim=1).max())
             new_budget = _round_up(need, self.frame_bucket)
             if new_budget <= budget:
                 break  # budget boundary hit exactly; nothing was dropped
             budget = new_budget
             redispatched += 1
             t0 = time.perf_counter()
-            out = self._run(*args, gen_state, gen, budget, d_factor)
-            mel = out["mel"].cpu().numpy()
-            olens = out["olens"].cpu().numpy()
+            out = self._run(*pend["args"], pend["gen_state"], pend["gen"],
+                            budget, pend["d_factor"])
+            mel, olens = _finish_readback(_start_readback(out))
             wall = time.perf_counter() - t0
 
         mels = [mel[i, :olens[i]] for i in range(n)]
@@ -131,3 +141,115 @@ class Synthesizer:
         return mels, {"frames_per_sec": fps, "wall_sec": wall,
                       "total_frames": total_frames, "truncated": 0,
                       "redispatched": redispatched, "budget": budget}
+
+    def synth_batch(self, token_lists: List[np.ndarray], rng,
+                    durations: Optional[List[np.ndarray]] = None,
+                    d_factor: float = 1.0):
+        """Synthesize a batch of token sequences; returns (mels, stats).
+
+        ``rng``: int seed or ``torch.Generator`` (on the model's device)
+        for the prenet dropout.  mels: list of (L_i, odim) float32 numpy;
+        stats: frames/s over the whole batch call (wall clock includes the
+        copy back to the host)."""
+        return self._consume(self._dispatch(token_lists, rng,
+                                            durations=durations,
+                                            d_factor=d_factor))
+
+    def synth_manifest(self, utts, out_dir, write_ark=True, rng=0,
+                       label="decode", use_gt_durations=False, d_factor=1.0):
+        """Decode a manifest shard; returns mean frames/s
+        (``synth.py:269-344``).
+
+        Writes feats.ark/feats.scp (PWG-compatible) and ``<label>.txt``:
+        one speed line an utterance (its frames over its batch's wall),
+        then mean, total, p50 and p95 frames/s.  ``rng``: int seed; batch
+        k draws from a generator seeded by ``(rng, k)``, so two runs with
+        one seed write the same arks.  ``use_gt_durations`` feeds the
+        corpus durations instead of the predictor (the reference's dur=
+        knob, e2e_tts_tacotron2_sa.py:642-646)."""
+        from fcl_taco2_tpu_torch.data.manifest import load_durations
+
+        os.makedirs(out_dir, exist_ok=True)
+        writer = ArkScpWriter(os.path.join(out_dir, "feats.ark"),
+                              os.path.join(out_dir, "feats.scp")) \
+            if write_ark else None
+        speeds = []
+        utt_lines = []
+        total_frames = 0
+        t_start = time.perf_counter()
+
+        def finish(chunk, pend):
+            mels, stats = self._consume(pend)
+            speeds.append(stats["frames_per_sec"])
+            for u, m in zip(chunk, mels):
+                fps_u = (m.shape[0] / stats["wall_sec"]
+                         if stats["wall_sec"] > 0 else float("inf"))
+                utt_lines.append(
+                    f"{u.uttid} frames {m.shape[0]} "
+                    f"batch_wall_sec {stats['wall_sec']:.4f} "
+                    f"frames_per_sec {fps_u:.1f}\n")
+            if writer:
+                for u, m in zip(chunk, mels):
+                    writer.write(u.uttid, m)
+            return stats["total_frames"]
+
+        # 1-deep pipeline: batch k+1 is dispatched before batch k is read
+        # back, so the device's work overlaps the host's readback and IO;
+        # each batch's wall still runs from its dispatch to its readback
+        pending = None
+        try:
+            for k, i in enumerate(range(0, len(utts), self.batch_size)):
+                chunk = utts[i:i + self.batch_size]
+                gen = torch.Generator(device=self.device)
+                gen.manual_seed(step_seed(int(rng), k))
+                durs = None
+                if use_gt_durations:
+                    durs = [load_durations(u) for u in chunk]
+                disp = self._dispatch([u.tokenids for u in chunk], gen,
+                                      durations=durs, d_factor=d_factor)
+                if pending is not None:
+                    total_frames += finish(*pending)
+                pending = (chunk, disp)
+            if pending is not None:
+                total_frames += finish(*pending)
+        finally:
+            if writer:
+                writer.close()
+        total_wall = time.perf_counter() - t_start
+        mean_fps = float(np.mean(speeds)) if speeds else 0.0
+        total_fps = total_frames / total_wall if total_wall > 0 else 0.0
+        with open(os.path.join(out_dir, f"{label}.txt"), "w") as f:
+            f.writelines(utt_lines)
+            f.write(f"mean_frames_per_sec {mean_fps:.1f}\n")
+            f.write(f"total_frames_per_sec {total_fps:.1f}\n")
+            if speeds:  # batch-throughput distribution (p50/p95)
+                f.write("p50_frames_per_sec "
+                        f"{float(np.percentile(speeds, 50)):.1f}\n")
+                f.write("p95_frames_per_sec "
+                        f"{float(np.percentile(speeds, 95)):.1f}\n")
+        return mean_fps
+
+
+def _start_readback(out):
+    """Start copying a batch's mel and olens to the host: pinned buffers,
+    non-blocking copies and an event on the card; the tensors themselves
+    on the CPU."""
+    mel, olens = out["mel"], out["olens"]
+    if not mel.is_cuda:
+        return mel, olens, None
+    host = []
+    for t in (mel, olens):
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h.copy_(t, non_blocking=True)
+        host.append(h)
+    event = torch.cuda.Event()
+    event.record()
+    return host[0], host[1], event
+
+
+def _finish_readback(host):
+    """Wait for ``_start_readback``'s copies; returns numpy (mel, olens)."""
+    mel, olens, event = host
+    if event is not None:
+        event.synchronize()
+    return mel.numpy(), olens.numpy()

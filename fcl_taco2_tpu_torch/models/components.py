@@ -111,10 +111,11 @@ def _bn(bn, x, train, mask, bn_out):
 
 def encoder_convs_apply(stack, x, use_residual=False, *, generator=None,
                         dropout_rate=0.0, train=False, seq_mask=None,
-                        bn_out=None):
+                        bn_out=None, capture=None):
     """conv -> BN -> ReLU -> dropout stack (``components.py:111-130``);
     in train mode ``seq_mask`` (B, T) keeps the BN statistics on valid
-    positions."""
+    positions.  ``capture`` (a list) receives each layer's output for
+    KD."""
     for i, conv in enumerate(stack.convs):
         h = conv1d(x, conv.weight)
         if len(stack.bns):
@@ -122,16 +123,19 @@ def encoder_convs_apply(stack, x, use_residual=False, *, generator=None,
         h = F.relu(h)
         h = maybe_dropout(h, dropout_rate, generator, train)
         x = (x + h) if use_residual else h
+        if capture is not None:
+            capture.append(x)
     return x
 
 
 def postnet_apply(stack, x, seq_mask=None, *, generator=None,
-                  dropout_rate=0.0, train=False, bn_out=None):
+                  dropout_rate=0.0, train=False, bn_out=None, capture=None):
     """conv -> BN -> tanh -> dropout x(n-1), final conv -> BN -> dropout
     (``components.py:133-160``).  Returns the residual correction.
     ``seq_mask`` (B, T) zeroes activations past each utterance's length
     between layers (and, in train mode, keeps the BN statistics on valid
-    positions)."""
+    positions).  ``capture`` (a list) receives each layer's output for
+    KD."""
     n = len(stack.convs)
     for i, conv in enumerate(stack.convs):
         x = conv1d(x, conv.weight)
@@ -142,6 +146,8 @@ def postnet_apply(stack, x, seq_mask=None, *, generator=None,
         x = maybe_dropout(x, dropout_rate, generator, train)
         if seq_mask is not None:
             x = x * seq_mask[..., None].to(x.dtype)
+        if capture is not None:
+            capture.append(x)
     return x
 
 

@@ -163,7 +163,7 @@ def apply_postnet_inference(decoder, cfg, before, seq_mask=None):
 
 def decoder_teacher_forced(decoder, cfg, enc_seg, seg_targets, position,
                            utt_gather, utt_mask, generator, train,
-                           zo_seed=0, bn_out=None):
+                           zo_seed=0, bn_out=None, capture_kd=False):
     """Teacher-forced pass over the phoneme batch (``decoder.py:169-209``).
 
     Args:
@@ -176,19 +176,33 @@ def decoder_teacher_forced(decoder, cfg, enc_seg, seg_targets, position,
         zo_seed: base of the per-step zoneout seeds.
         bn_out: list receiving the postnet BatchNorms' new running
             statistics in train mode.
-    Returns (after_outs, before_outs), each (B, Lmax, odim).
+        capture_kd: also return the KD items.
+    Returns (after_outs, before_outs), each (B, Lmax, odim), and with
+    ``capture_kd`` a third item: the KD items utterance-major
+    (``decoder_sa_kd.py:627-702``), ``[prenet, lstm0, lstm1,
+    postnet layer 0 .. n-1]``.
     """
-    seg_out = _teacher_forced_core(decoder, cfg, enc_seg, seg_targets,
-                                   position, generator, train, zo_seed)
+    if capture_kd:
+        _check_kd_topology(cfg)
+    core = _teacher_forced_core(decoder, cfg, enc_seg, seg_targets,
+                                position, generator, train, zo_seed,
+                                capture_kd)
+    seg_out, items = (core[0], core[1:]) if capture_kd else (core, ())
     before = scatter_frames(seg_out, utt_gather, utt_mask)
+    post = [] if capture_kd else None
     after = _apply_train_postnet(decoder, cfg, before, generator, train,
-                                 utt_mask, bn_out)
-    return after, before
+                                 utt_mask, bn_out, post)
+    if not capture_kd:
+        return after, before
+    # the captures are regrouped utterance-major like the outputs; the
+    # postnet's already are
+    kd = [scatter_frames(x, utt_gather, utt_mask) for x in items]
+    return after, before, kd + post
 
 
 def decoder_teacher_forced_classed(decoder, cfg, class_inputs, utt_gather,
                                    utt_mask, generator, train, zo_seed=0,
-                                   bn_out=None):
+                                   bn_out=None, capture_kd=False):
     """Duration-classed teacher-forced pass (``decoder.py:212-255``): one
     scan per duration class, D_c steps each, then one gather back to
     utterance-major through the concatenated class flats.  Each segment's
@@ -196,36 +210,62 @@ def decoder_teacher_forced_classed(decoder, cfg, class_inputs, utt_gather,
     read, so the losses equal the single-class path's.
 
     ``class_inputs``: tuple of (enc_seg, seg_targets, position) per class,
-    shapes (P_c, idim) / (P_c, D_c, odim) / (P_c, D_c).
+    shapes (P_c, idim) / (P_c, D_c, odim) / (P_c, D_c).  Returns as
+    ``decoder_teacher_forced``.
     """
-    outs = [_teacher_forced_core(decoder, cfg, enc_c, tgt_c, pos_c,
-                                 generator, train, step_seed(zo_seed, c))
-            for c, (enc_c, tgt_c, pos_c) in enumerate(class_inputs)]
+    if capture_kd:
+        _check_kd_topology(cfg)
+    cores = [_teacher_forced_core(decoder, cfg, enc_c, tgt_c, pos_c,
+                                  generator, train, step_seed(zo_seed, c),
+                                  capture_kd)
+             for c, (enc_c, tgt_c, pos_c) in enumerate(class_inputs)]
+    outs = [c[0] for c in cores] if capture_kd else cores
     before = scatter_frames_classed(outs, utt_gather, utt_mask)
+    post = [] if capture_kd else None
     after = _apply_train_postnet(decoder, cfg, before, generator, train,
-                                 utt_mask, bn_out)
-    return after, before
+                                 utt_mask, bn_out, post)
+    if not capture_kd:
+        return after, before
+    kd = [scatter_frames_classed([c[j] for c in cores], utt_gather, utt_mask)
+          for j in (1, 2, 3)]
+    return after, before, kd + post
+
+
+def _check_kd_topology(cfg):
+    """``decoder.py:258-265``."""
+    if (cfg.dlayers != 2 or cfg.reduction_factor != 1
+            or cfg.prenet_layers == 0 or cfg.postnet_layers == 0):
+        raise ValueError(
+            "capture_kd requires the reference KD topology: dlayers=2, "
+            "reduction_factor=1, prenet and postnet present "
+            "(decoder_sa_kd.py:627-702)")
 
 
 def _apply_train_postnet(decoder, cfg, before, generator, train, utt_mask,
-                         bn_out):
+                         bn_out, capture=None):
     """Postnet on the utterance-major canvas, training path
-    (``decoder.py:267-278``); the mask only applies in train mode."""
+    (``decoder.py:267-278``); the mask only applies in train mode.
+    ``capture`` receives each postnet layer's output."""
     if decoder.postnet is None:  # decoder_sa.py:393: the postnet is optional
         return before
     return before + C.postnet_apply(
         decoder.postnet, before, seq_mask=utt_mask if train else None,
         generator=generator, dropout_rate=cfg.dropout_rate, train=train,
-        bn_out=bn_out)
+        bn_out=bn_out, capture=capture)
 
 
 def _teacher_forced_core(decoder, cfg, enc_seg, seg_targets, position,
-                         generator, train, zo_seed):
+                         generator, train, zo_seed, capture_kd=False):
     """The teacher-forced scan over one phoneme batch, before regrouping
-    (``decoder.py:281-386``): returns seg_out (P, D, odim)."""
-    if cfg.remat_decoder:
-        raise NotImplementedError(
-            "remat_decoder is not ported yet (ROADMAP A14)")
+    (``decoder.py:281-386``): returns seg_out (P, D, odim), and with
+    ``capture_kd`` (seg_out, prenet output (P, S, units), h of LSTM 0 and
+    of LSTM 1 (P, S, H) each).
+
+    The scan is the hand-built backward (``zoneout_lstm_scan``) unless
+    ``remat_decoder`` asks for the autodiff scan with checkpointed steps
+    (remat wins, ``decoder.py:337``) or ``decoder_custom_vjp`` is off; with
+    no gradient to take (``torch.no_grad``), the plain loop, which saves
+    nothing."""
     P, D, odim = seg_targets.shape
     r = cfg.reduction_factor
     S = D // r  # decoder steps
@@ -252,7 +292,8 @@ def _teacher_forced_core(decoder, cfg, enc_seg, seg_targets, position,
     spec = ScanSpec(dlayers=cfg.dlayers, dunits=cfg.dunits,
                     zoneout_rate=float(cfg.zoneout_rate), train=bool(train),
                     append_position=bool(cfg.append_position),
-                    use_enc_out=enc_out is not None)
+                    use_enc_out=enc_out is not None,
+                    capture_kd=bool(capture_kd))
     seeds = None
     if train and cfg.zoneout_rate > 0.0:
         seeds = [step_seed(zo_seed, s) for s in range(S)]
@@ -261,7 +302,15 @@ def _teacher_forced_core(decoder, cfg, enc_seg, seg_targets, position,
         layers.append((cell.weight_ih, cell.weight_hh, cell.bias_ih,
                        cell.bias_hh))
     weights = (w_pre, w_pos, wf_z, tuple(layers))
-    scan = zoneout_lstm_scan if cfg.decoder_custom_vjp else scan_plain
-    outs = scan(spec, weights, enc_gates, enc_out, prenet_steps, pos_steps,
-                seeds)
-    return _unfold_r(outs, P, S, odim, r)  # (P, D, odim)
+    args = (spec, weights, enc_gates, enc_out, prenet_steps, pos_steps,
+            seeds)
+    if cfg.decoder_custom_vjp and not cfg.remat_decoder \
+            and torch.is_grad_enabled():
+        res = zoneout_lstm_scan(*args)
+    else:
+        res = scan_plain(*args, remat=cfg.remat_decoder)
+    if not capture_kd:
+        return _unfold_r(res, P, S, odim, r)  # (P, D, odim)
+    outs, z0s, z1s = res
+    return (_unfold_r(outs, P, S, odim, r), prenet_all.reshape(P, S, -1),
+            z0s.transpose(0, 1), z1s.transpose(0, 1))

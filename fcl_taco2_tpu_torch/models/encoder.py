@@ -30,20 +30,25 @@ class Encoder(nn.Module):
 
 
 def encoder_apply(encoder, cfg, tokens, ilens, generator=None, train=False,
-                  bn_out=None):
+                  bn_out=None, capture_kd=False):
     """tokens (B, Tmax) int -> hs (B, Tmax, cfg.enc_odim)
     (``encoder.py:63-88``).  Train mode draws the conv dropout from
     ``generator``, takes BatchNorm statistics over the valid positions
-    and appends the new running statistics to ``bn_out``."""
+    and appends the new running statistics to ``bn_out``.  With
+    ``capture_kd`` returns ``(hs, [embed, conv0..convN-1, blstm])``, the
+    KD items of ``encoder_sa_kd.py:196``."""
     x = encoder.embed.weight[tokens]  # PAD row is zeros
+    capture = [x] if capture_kd else None
     if encoder.convs is not None:
         seq_mask = lengths_to_non_pad_mask(ilens, tokens.shape[1]) \
             if train else None
         x = C.encoder_convs_apply(
             encoder.convs, x, use_residual=cfg.use_residual,
             generator=generator, dropout_rate=cfg.dropout_rate, train=train,
-            seq_mask=seq_mask, bn_out=bn_out)
+            seq_mask=seq_mask, bn_out=bn_out, capture=capture)
     if len(encoder.blstm):
         x = bilstm_stack([(lay["fwd"], lay["bwd"]) for lay in encoder.blstm],
                          x, ilens)
-    return x
+        if capture_kd:
+            capture.append(x)
+    return (x, capture) if capture_kd else x

@@ -181,7 +181,7 @@ class Tacotron2SA(nn.Module):
 
     # ---------------- training forward ----------------
 
-    def loss_fn(self, batch, generator, train=True):
+    def loss_fn(self, batch, generator, train=True, capture_kd=False):
         """The training loss (``taco2_sa.py:171-317``).
 
         Args:
@@ -190,32 +190,44 @@ class Tacotron2SA(nn.Module):
                 dropout draws from it and the zoneout seeds derive from its
                 initial seed.
             train: dropout, zoneout masks and BatchNorm batch statistics.
-        Returns ``(loss, (report, new_state, None))``: ``report`` maps
+            capture_kd: also return the knowledge KD compares
+                (``taco2_sa.py:303-318``).
+        Returns ``(loss, (report, new_state, knowledge))``: ``report`` maps
         l1/mse/dur[/pitch/energy]_loss and loss to detached fp32 scalars;
         ``new_state`` maps BatchNorm buffer names to their new running
-        statistics (train mode), which the caller writes back.
+        statistics (train mode), which the caller writes back;
+        ``knowledge`` is None, or with ``capture_kd`` a dict of
+        ``after_outs``, ``before_outs``, ``encoder`` ([embed, conv0..,
+        blstm]), ``decoder`` ([prenet, lstm0, lstm1, postnet layers..])
+        and ``prosody`` ([d_outs[..., None], p_outs, e_outs, p_embs,
+        e_embs]), in the compute dtype.
 
         With ``compute_dtype="bfloat16"`` the fp32 parameters are cast to
         bf16 inside the forward by a differentiable ``.to()``, so the
         gradients land in fp32 on them; losses stay fp32.
         """
+        if capture_kd and self.cfg.elayers < 1:
+            raise ValueError("capture_kd requires elayers >= 1 (the KD "
+                             "encoder captures the BiLSTM output, "
+                             "encoder_sa_kd.py:196)")
         dtype = getattr(torch, self.cfg.compute_dtype)
         if dtype == torch.float32:
-            return self(batch, generator, train)
+            return self(batch, generator, train, capture_kd)
         params = {n: p.to(dtype) if p.is_floating_point() else p
                   for n, p in self.named_parameters()}
-        return torch.func.functional_call(self, params,
-                                          (batch, generator, train))
+        return torch.func.functional_call(
+            self, params, (batch, generator, train, capture_kd))
 
-    def forward(self, batch, generator, train=True):
+    def forward(self, batch, generator, train=True, capture_kd=False):
         """``loss_fn`` in the parameters' own dtype."""
         cfg = self.cfg
         dtype = getattr(torch, cfg.compute_dtype)
         if dtype != torch.float32:
             batch = _cast_batch(batch, dtype)
         bn_enc, bn_dec = [], []
-        (hs, pad_mask, d_outs, p_outs, e_outs, p_embs,
-         e_embs) = self._encode_and_predict(batch, generator, train, bn_enc)
+        (hs, pad_mask, d_outs, p_outs, e_outs, p_embs, e_embs,
+         enc_kd) = self._encode_and_predict(batch, generator, train, bn_enc,
+                                            capture_kd)
         hs_cond = hs + p_embs + e_embs if cfg.use_fe_condition else hs
         zo_seed = step_seed(generator.initial_seed(), 1)
         if batch.seg_classes is not None:
@@ -225,18 +237,20 @@ class Tacotron2SA(nn.Module):
                                  sc.frame_mask),
                  sc.position)
                 for sc in batch.seg_classes)
-            after, before = decoder_teacher_forced_classed(
+            dec = decoder_teacher_forced_classed(
                 self.decoder, cfg, class_inputs, batch.utt_gather,
-                batch.utt_mask, generator, train, zo_seed, bn_dec)
+                batch.utt_mask, generator, train, zo_seed, bn_dec,
+                capture_kd)
         else:
             enc_seg = gather_token_vectors(hs_cond, batch.seg_utt,
                                            batch.seg_tok)
             seg_targets = gather_segments(batch.mel, batch.seg_utt,
                                           batch.seg_start, batch.frame_mask)
-            after, before = decoder_teacher_forced(
+            dec = decoder_teacher_forced(
                 self.decoder, cfg, enc_seg, seg_targets, batch.position,
                 batch.utt_gather, batch.utt_mask, generator, train, zo_seed,
-                bn_dec)
+                bn_dec, capture_kd)
+        after, before = dec[:2]
         loss, report = self._losses(batch, after, before, d_outs, p_outs,
                                     e_outs, pad_mask)
         new_state = {}
@@ -245,16 +259,26 @@ class Tacotron2SA(nn.Module):
             for i, (mean, var) in enumerate(stats):
                 new_state[f"{prefix}.{i}.running_mean"] = mean
                 new_state[f"{prefix}.{i}.running_var"] = var
-        return loss, (report, new_state, None)
+        knowledge = None
+        if capture_kd:
+            knowledge = {"after_outs": after, "before_outs": before,
+                         "encoder": enc_kd, "decoder": dec[2],
+                         "prosody": [d_outs[..., None], p_outs, e_outs,
+                                     p_embs, e_embs]}
+        return loss, (report, new_state, knowledge)
 
-    def _encode_and_predict(self, batch, generator, train, bn_out):
+    def _encode_and_predict(self, batch, generator, train, bn_out,
+                            capture_kd=False):
         """Encoder + duration/pitch/energy predictors + prosody embeds
         (``taco2_sa.py:130-167``); the embeds take the ground-truth f0 and
         energy (e2e_tts_tacotron2_sa.py:582-583)."""
         cfg = self.cfg
         Tmax = batch.tokens.shape[1]
         hs = encoder_apply(self.encoder, cfg, batch.tokens, batch.ilens,
-                           generator, train, bn_out)
+                           generator, train, bn_out, capture_kd)
+        enc_kd = None
+        if capture_kd:
+            hs, enc_kd = hs
         if cfg.spk_embed_dim:
             hs = _concat_spemb(hs, batch.spembs)
         pad_mask = lengths_to_pad_mask(batch.ilens, Tmax)
@@ -275,7 +299,7 @@ class Tacotron2SA(nn.Module):
             e_embs = C.scalar_embed_apply(
                 self.energy_embed, batch.energy, generator,
                 cfg.energy_embed_dropout_rate, train)
-        return hs, pad_mask, d_outs, p_outs, e_outs, p_embs, e_embs
+        return hs, pad_mask, d_outs, p_outs, e_outs, p_embs, e_embs, enc_kd
 
     def _losses(self, batch, after, before, d_outs, p_outs, e_outs,
                 pad_mask):

@@ -14,7 +14,12 @@ hot path (port of ``fcl_taco2_tpu/ops/rnn_vjp.py``, "strategy B").
 Zoneout keep masks are drawn again in the backward from the same per-step
 seeds (``ops/rnn.zoneout_keep_masks`` depends on the seed alone) instead of
 being saved.  ``decoder_custom_vjp=False`` runs ``scan_plain``: the same
-step function under autograd, the oracle of this backward.
+step function under autograd, the oracle of this backward; with
+``remat=True`` each of its steps is checkpointed (``remat_decoder``).
+
+With ``ScanSpec.capture_kd`` both scans also return the per-step
+zoneout-blended ``h`` of LSTM layers 0 and 1 (KD knowledge), and the
+backward adds their cotangents into each step's ``dh``.
 
 Weights are in PyTorch's layout (``(out, in)``, ``F.linear``); gates are
 packed i, f, g, o.  The weights tuple is ``(w_pre (4H, u), w_pos (4H,) or
@@ -27,6 +32,7 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from fcl_taco2_tpu_torch.ops.rnn import zoneout_keep_masks
 
@@ -40,6 +46,7 @@ class ScanSpec(NamedTuple):
     train: bool
     append_position: bool
     use_enc_out: bool  # enc_out operand present (cfg.use_concate)
+    capture_kd: bool = False  # also return h of layers 0 and 1, (S, P, H)
 
 
 def _use_train_zoneout(spec, seeds):
@@ -106,23 +113,48 @@ def _mask_gen(spec, seeds, device):
 
 
 def scan_plain(spec, weights, enc_gates, enc_out, prenet_steps, pos_steps,
-               seeds):
+               seeds, remat=False):
     """The scan as plain PyTorch ops, differentiated by autograd: the
     oracle of ``zoneout_lstm_scan``'s hand-built backward, and the same
-    forward math op for op (``models/decoder.py:360-380``)."""
+    forward math op for op (``models/decoder.py:360-380``).
+
+    ``remat``: each step runs under ``torch.utils.checkpoint`` (the JAX
+    package's ``jax.checkpoint`` on the autodiff scan step,
+    ``decoder.py:373-377``), so the backward recomputes a step's
+    activations from its carry instead of keeping them.  The step draws
+    its zoneout masks inside the checkpointed function from a generator
+    re-seeded with the step's own seed, so the recomputation redraws the
+    same masks.  Returns outs (S, P, W), and with ``spec.capture_kd`` also
+    the h of layers 0 and 1, (S, P, H) each."""
     L, H = spec.dlayers, spec.dunits
     S, P = prenet_steps.shape[0], enc_gates.shape[0]
     gen = _mask_gen(spec, seeds, enc_gates.device)
-    hs = [enc_gates.new_zeros(P, H) for _ in range(L)]
-    cs = [enc_gates.new_zeros(P, H) for _ in range(L)]
-    h_last = []
+
+    def step(s, prenet_t, pos_t, *carry):
+        hs, cs, _ = step_forward(spec, weights, enc_gates, carry[:L],
+                                 carry[L:], prenet_t, pos_t,
+                                 _keep(spec, seeds, gen, s, P))
+        return (*hs, *cs)
+
+    if remat and torch.is_grad_enabled():
+        plain_step = step
+
+        def step(s, *args):
+            return torch.utils.checkpoint.checkpoint(
+                plain_step, s, *args, use_reentrant=False,
+                preserve_rng_state=False)
+
+    carry = [enc_gates.new_zeros(P, H) for _ in range(2 * L)]
+    h_steps = [[] for _ in range(L)]
     for s in range(S):
-        hs, cs, _ = step_forward(
-            spec, weights, enc_gates, hs, cs, prenet_steps[s],
-            None if pos_steps is None else pos_steps[s],
-            _keep(spec, seeds, gen, s, P))
-        h_last.append(hs[L - 1])
-    return _feat_out(spec, torch.stack(h_last), weights[2], enc_out)
+        carry = step(s, prenet_steps[s],
+                     None if pos_steps is None else pos_steps[s], *carry)
+        for i in range(L):
+            h_steps[i].append(carry[i])
+    outs = _feat_out(spec, torch.stack(h_steps[L - 1]), weights[2], enc_out)
+    if spec.capture_kd:
+        return outs, torch.stack(h_steps[0]), torch.stack(h_steps[1])
+    return outs
 
 
 class _ZoneoutLSTMScan(torch.autograd.Function):
@@ -160,10 +192,12 @@ class _ZoneoutLSTMScan(torch.autograd.Function):
             prenet_steps, pos_steps if ctx.has_pos else None, w_pre,
             w_pos if ctx.has_pos else None, wf_z, *layer_flat,
             *gates_all, *h_all, *c_all)
+        if spec.capture_kd:
+            return outs, h_all[0], h_all[1]
         return outs
 
     @staticmethod
-    def backward(ctx, douts):
+    def backward(ctx, douts, *dcapture):
         spec, seeds = ctx.spec, ctx.seeds
         L, H = spec.dlayers, spec.dunits
         saved = ctx.saved_tensors
@@ -175,6 +209,8 @@ class _ZoneoutLSTMScan(torch.autograd.Function):
         S, P = prenet_steps.shape[0], gates_all[0].shape[1]
         dtype = gates_all[0].dtype
         douts = douts.to(dtype)
+        # cotangents of the captured h of layers 0 and 1 (capture_kd)
+        dz = [d.to(dtype) for d in dcapture]
 
         # hoisted cotangents of the post-loop feat_out GEMM
         h_last = h_all[L - 1]
@@ -197,6 +233,8 @@ class _ZoneoutLSTMScan(torch.autograd.Function):
                     dh_new = dh_new + dh_direct[s]
                 if dx is not None:
                     dh_new = dh_new + dx
+                if i < len(dz):
+                    dh_new = dh_new + dz[i][s]
                 dc_new = dcs[i]
                 if keep is not None:
                     kh, kc = keep[2 * i], keep[2 * i + 1]
@@ -284,7 +322,9 @@ def zoneout_lstm_scan(spec, weights, enc_gates, enc_out, prenet_steps,
         pos_steps: (S, P) position scalars, or None.
         seeds: S per-step zoneout seeds (used in train mode with
             zoneout_rate > 0), or None.
-    Returns outs (S, P, W).
+    Returns outs (S, P, W), and with ``spec.capture_kd`` also the
+    zoneout-blended h of layers 0 and 1, (S, P, H) each
+    (``rnn_vjp.py:178``).
     """
     w_pre, w_pos, wf_z, layers = weights
     flat = [t for layer in layers for t in layer]

@@ -3,8 +3,8 @@
 
 One msgpack file carries ``params``, ``model_state``, ``opt_state``,
 ``step``, ``epoch`` and ``best_val``, with the resolved model config in a
-``model.json`` sidecar.  ``params`` and ``model_state`` are the JAX
-package's trees (``utils/params.py::params_to_numpy``; lists stored as
+``model.json`` sidecar.  ``params`` (with a KD student's ``kd_proj``) and
+``model_state`` are the JAX package's trees (``utils/params.py::params_to_numpy``; lists stored as
 flax's ``{"0": ..., "1": ...}`` maps), so a JAX-written checkpoint's
 weights load into the port and a port-written one's load in JAX with
 ``load_params_only``.  ``opt_state`` is the port's own tree
@@ -296,7 +296,12 @@ def read_checkpoint(path):
 
 
 def _load_weights(model, payload):
+    """Strict, except that a KD snapshot's ``kd_proj`` is ignored by a
+    model without projections, as flax's ``from_state_dict`` ignores it
+    for a plain student template."""
     sd = params_from_jax(payload["params"], payload["model_state"])
+    if not hasattr(model, "kd_proj"):
+        sd = {k: v for k, v in sd.items() if not k.startswith("kd_proj.")}
     dev = next(model.parameters()).device
     model.load_state_dict({k: v.to(dev) for k, v in sd.items()})
 

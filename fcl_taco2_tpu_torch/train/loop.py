@@ -11,9 +11,10 @@ Each step's ``torch.Generator`` is derived from ``(seed, step)``
 (``step_generator``), so a resumed run draws the same dropout and zoneout
 masks as an uninterrupted one.  Not ported yet (ROADMAP): the
 device-resident dataset cache and chained dispatch
-(``device_cache``/``steps_per_dispatch``), multi-device meshes, the
-``--preprocess-conf`` transform, the profiler trace, and fine-tuning's
-partial init and freezing.
+(``device_cache``/``steps_per_dispatch``, A3), multi-device meshes (A5),
+the ``--preprocess-conf`` transform and the profiler trace (A3), and
+fine-tuning's partial init and freezing (A2).  KD runs through
+``train/distill.py::KDTrainer``.
 """
 
 import dataclasses
@@ -90,11 +91,9 @@ class TrainConfig:
     checkpoint_on_signal: bool = False
 
 
-def _not_ported(tcfg, cfg):
+def _not_ported(tcfg):
     """The knobs whose features wait for later slices, as errors."""
     later = []
-    if cfg.remat_decoder:
-        later.append("remat_decoder")
     if (tcfg.n_devices or 1) > 1 or tcfg.n_slices > 1:
         later.append("multi-device training (n_devices/n_slices)")
     if tcfg.steps_per_dispatch > 1:
@@ -106,7 +105,8 @@ def _not_ported(tcfg, cfg):
     if tcfg.profile_dir:
         later.append("the profiler trace (profile_dir)")
     if tcfg.enc_init or tcfg.dec_init:
-        later.append("partial init from checkpoints (enc_init/dec_init)")
+        later.append("partial init from checkpoints (enc_init/dec_init, "
+                     "ROADMAP A2)")
     if later:
         raise NotImplementedError(
             "not ported yet (ROADMAP): " + "; ".join(later))
@@ -127,7 +127,7 @@ class Trainer:
     def __init__(self, model, tcfg: TrainConfig, train_utts, val_utts,
                  device="cuda"):
         self.device = resolve_device(device)
-        _not_ported(tcfg, model.cfg)
+        _not_ported(tcfg)
         self.model = model.to(self.device)
         self.tcfg = tcfg
         self.train_utts = train_utts

@@ -157,6 +157,6 @@ def build_optimizer(name="adam", lr=1e-3, eps=1e-6, weight_decay=0.0,
     if freeze_mods:
         raise NotImplementedError(
             "freeze_mods is not ported yet: it comes with the fine-tuning "
-            "slice (ROADMAP A11)")
+            "slice (ROADMAP A2)")
     return Optimizer(name, lr, eps, weight_decay, grad_clip, accum_grad,
                      noam_model_size, noam_warmup, nan_guard)

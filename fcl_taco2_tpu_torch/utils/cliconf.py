@@ -1,6 +1,7 @@
 """Yaml-config + CLI override resolution (the port's copy of
 ``fcl_taco2_tpu/utils/cliconf.py``; yaml is imported only when a config
-file is given).
+file is given, and without PyYAML a JSON config file, which is also
+valid yaml, still parses).
 
 The reference uses configargparse with a --config/--config2/--config3
 override chain (tts_train.py:24-43).  Same contract here:
@@ -23,9 +24,7 @@ def parse_with_configs(parser: argparse.ArgumentParser, argv):
     merged = {}
     for path in (cfg_args.config, cfg_args.config2, cfg_args.config3):
         if path:
-            import yaml
-            with open(path) as f:
-                data = yaml.safe_load(f) or {}
+            data = _load_config(path)
             merged.update({k.replace("-", "_"): v for k, v in data.items()})
 
     known = {a.dest for a in parser._actions}
@@ -38,6 +37,22 @@ def parse_with_configs(parser: argparse.ArgumentParser, argv):
                    for a in parser._actions):
             parser.add_argument(flag, default=None)
     return parser.parse_args(argv)
+
+
+def _load_config(path):
+    try:
+        import yaml
+    except ImportError:  # JSON is a subset of yaml
+        import json
+        with open(path) as f:
+            try:
+                return json.load(f)
+            except json.JSONDecodeError as e:
+                raise ImportError(
+                    f"{path}: PyYAML is not installed, so a config file "
+                    f"must be JSON ({e})") from e
+    with open(path) as f:
+        return yaml.safe_load(f) or {}
 
 
 def strtobool(v):

@@ -103,3 +103,12 @@ def init_tacotron2sa_(model, generator):
         elif name.endswith("_embed"):
             _torch_conv_(mod, gen)
     return model
+
+
+def init_linears_(module, generator):
+    """Fill every ``nn.Linear`` inside ``module`` in place with torch's
+    default init (``linear_weight``/``linear_bias``)."""
+    for mod in module.modules():
+        if isinstance(mod, torch.nn.Linear):
+            _linear_(mod, generator)
+    return module

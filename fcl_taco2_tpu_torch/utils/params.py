@@ -74,6 +74,9 @@ def _jax_path(key):
     """state_dict key -> (JAX tree path, layout change, is a state leaf)."""
     parts = key.split(".")
     mods, leaf = parts[:-1], parts[-1]
+    if mods[0] == "kd_proj":  # KD projections: bias-free {"w": (in, out)}
+        return (tuple(int(m) if m.isdigit() else m for m in mods)
+                + ("w",)), "T", False
     out, i = [], 0
     while i < len(mods):
         m = mods[i]
@@ -137,15 +140,23 @@ def _lists(node):
 
 def params_to_numpy(state_dict):
     """Inverse of ``params_from_jax``: a port ``state_dict`` -> JAX
-    (params, state) trees of numpy arrays."""
+    (params, state) trees of numpy arrays.  Subtrees that hold no tensor
+    but that JAX always carries are restored: the state's ``encoder`` and
+    ``decoder``, and without BatchNorm (``use_batch_norm=False``) each
+    conv stack's empty ``bns`` list, in params and state alike."""
     params, state = {}, {}
     for key, t in state_dict.items():
         path, kind, is_state = _jax_path(key)
         arr = _relayout(t.detach().cpu().float().numpy(), kind)
         _insert(state if is_state else params, path, arr)
+    params, state = _lists(params), _lists(state)
     for part in ("encoder", "decoder"):  # JAX always carries both
         state.setdefault(part, {})
-    return _lists(params), _lists(state)
+    for part, stack in (("encoder", "convs"), ("decoder", "postnet")):
+        if stack in params.get(part, {}):
+            params[part][stack].setdefault("bns", [])
+            state[part].setdefault(stack, {}).setdefault("bns", [])
+    return params, state
 
 
 # --------------------------------------------------------------------------

@@ -163,3 +163,78 @@ def test_cpu_vocoder_runs_the_plain_version(monkeypatch):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert (PC.pwg_generate_streaming.launches,
             PC.pwg_stream_step.launches) == before
+
+
+def test_serving_clis_and_kd_default_to_the_card(monkeypatch, tmp_path):
+    """Without a card, ``fcl_synth``, ``fcl_vocode``, ``fcl_tts`` (batch
+    and ``--stream``), ``fcl_train --perform-KD True``, ``KDStudent`` and
+    ``KDTrainer`` raise unless the CPU is asked for; with ``--device cpu``
+    each CLI runs (``fcl_vocode`` with PWG v1, the published vocoder)."""
+    import json
+    import os
+
+    import numpy as np
+    from fcl_taco2_tpu_torch.cli import fcl_synth, fcl_train, fcl_tts
+    from fcl_taco2_tpu_torch.cli import fcl_vocode
+    from fcl_taco2_tpu_torch.data.manifest import load_manifest
+    from fcl_taco2_tpu_torch.data.synthetic import write_learnable_corpus
+    from fcl_taco2_tpu_torch.infer.ark import ArkScpWriter
+    from fcl_taco2_tpu_torch.models import Tacotron2SA
+    from fcl_taco2_tpu_torch.models.kd import KDStudent
+    from fcl_taco2_tpu_torch.train import checkpoint as ckpt
+    from fcl_taco2_tpu_torch.train.distill import KDTrainer
+    from fcl_taco2_tpu_torch.train.loop import TrainConfig
+    from fcl_taco2_tpu_torch.train.optim import build_optimizer
+    from fcl_taco2_tpu_torch.train.state import TrainState
+    from helpers import tiny_config
+    from torch_port_helpers import port_config
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    train, valid = write_learnable_corpus(str(tmp_path), 2, 2)
+    cfg = port_config(tiny_config())
+    model = Tacotron2SA(cfg, device="cpu")
+    exp = str(tmp_path / "exp")
+    ckpt.save_model_json(exp, cfg)
+    path = os.path.join(exp, "model.loss.best")
+    ckpt.save_checkpoint(path, TrainState(model, build_optimizer().init(
+        list(model.parameters())), 0), 1)
+    scp = str(tmp_path / "feats.scp")
+    with ArkScpWriter(str(tmp_path / "feats.ark"), scp) as w:
+        w.write("utt", np.random.default_rng(0).normal(
+            size=(9, 80)).astype(np.float32))
+    pwg_conf = str(tmp_path / "pwg.json")
+    with open(pwg_conf, "w") as f:
+        json.dump({"layers": 2, "stacks": 1, "residual_channels": 4,
+                   "gate_channels": 8, "skip_channels": 4,
+                   "upsample_scales": [2]}, f)
+    runs = {
+        "synth": (fcl_synth.main, ["--model", path, "--json", valid,
+                                   "--out", str(tmp_path / "dec")]),
+        "vocode": (fcl_vocode.main, ["--feats-scp", scp,
+                                     "--outdir", str(tmp_path / "wav")]),
+        "tts": (fcl_tts.main, ["--model", path, "--json", valid,
+                               "--outdir", str(tmp_path / "tts"),
+                               "--pwg-config", pwg_conf]),
+        "stream": (fcl_tts.main, ["--model", path, "--json", valid,
+                                  "--outdir", str(tmp_path / "stream"),
+                                  "--pwg-config", pwg_conf, "--stream"]),
+    }
+    for name, (fn, argv) in runs.items():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn(argv)
+        fn(argv + ["--device", "cpu"])
+    assert os.path.exists(str(tmp_path / "dec" / "feats.ark"))
+    assert os.listdir(str(tmp_path / "wav")) == ["utt.wav"]
+    assert len(os.listdir(str(tmp_path / "stream"))) == 2
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fcl_train.main(["--train-json", train, "--valid-json", valid,
+                        "--outdir", str(tmp_path / "kd"), "--perform-KD",
+                        "True", "--teacher-checkpoint", path])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        KDStudent(cfg, cfg)
+    kd = KDStudent(cfg, cfg, device="cpu")
+    utts = load_manifest(train)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        KDTrainer(kd, TrainConfig(exp_dir=str(tmp_path / "kd2")), utts,
+                  utts, teacher_checkpoint=path)
+    assert next(kd.student.parameters()).device.type == "cpu"
