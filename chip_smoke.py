@@ -7,7 +7,8 @@ prints no result):
 
 1. Device: name and power limit (nvidia-smi), TF32 switches off.
 2. Build: ``csrc/ar_decode.cu`` and ``csrc/pwg_stream.cu`` with nvcc for
-   sm_90a, from the checkout, both compilers started together.
+   sm_90a, and ``csrc/fclrt.cpp`` (the plan builder) with g++, from the
+   checkout, the three compilers started together.
 3. Decoder kernels vs plain versions on the card, full width, dropout 0:
    ``fused_ar_decode`` (student weights; fp32, bf16) and
    ``fused_ar_decode_hbm`` (teacher weights; bf16, int8), P = 96 and
@@ -77,7 +78,33 @@ prints no result):
    a copy of the student whose duration predictor gives about 8 frames a
    phoneme; ``fcl_eval`` (finite MCD).  Frames/s, RTF and time to first
    audio as the CLIs print them.
-10. One JSON line of the kernels (launches: every main path above, the
+10. The device cache and the chained train step (``[graph]``, after
+   ``[train]``), FCL-taco2-T at full width, the bench batch protocol
+   (B=16 utterances of 96 phonemes, Poisson(8) durations) through
+   ``DeviceBatchCache``, classed (8,16,32,50) and single-class; no
+   decoder or PWG kernel may launch: 8 steps as 2 chains of 4 replays of
+   one CUDA graph against 8 eager steps from the same state and seed
+   (fp32, TF32 off, dropout and zoneout at their published rates,
+   deterministic algorithms on: each loss within 1e-6 relative, every
+   parameter and BatchNorm buffer within 1e-5 of max|a|, bit-equality
+   printed), two consecutive single replays drawing different zoneout
+   masks (read from the graph's own buffers through
+   ``Decoder.mask_taps``) at the zoneout rate; the
+   bf16 step eager against graphed (ms a step over 10 chains of 4 after
+   one, min and max, device busy share of one profiled chain, capture
+   seconds, graph pool, peak memory); and ``fcl_train`` with no runtime
+   flags (the cache is built and 4 steps run a dispatch) against
+   ``--device-cache off --steps-per-dispatch 1``, epoch walls.  The
+   native plan builder must be the converter's.
+11. Fine-tuning (``[finetune]``, after ``[cli]``), no kernel may launch:
+   ``fcl_train`` FCL-taco2-T with ``--enc-init``/``--dec-init`` from the
+   ``[kd]`` teacher, ``--freeze-mods enc.`` and ``--preprocess-conf``
+   (utterance CMVN + a frequency mask), 2 epochs: the selected tensors
+   equal the checkpoint's bit for bit after ``init_state``, the frozen
+   parameters are bit-unchanged after the epochs and the others moved;
+   then the student with ``--profile-dir``: the Chrome trace exists and
+   holds CUDA kernel events.
+12. One JSON line of the kernels (launches: every main path above, the
    CLIs included), the nvidia-smi line, and last the result line
    ``{"ok": true, "device": {...}}``.  Each phase's seconds are logged
    (``[phase]``).
@@ -214,14 +241,18 @@ def phase_device():
 
 
 def phase_build():
-    """Both CUDA sources at once, one nvcc each."""
+    """Both CUDA sources and the native plan builder at once, one
+    compiler each."""
+    from fcl_taco2_tpu_torch.data import native
     from fcl_taco2_tpu_torch.utils.cuda_build import build
     t0 = time.perf_counter()
     names = ("ar_decode", "pwg_stream")
-    with ThreadPoolExecutor(len(names)) as pool:
+    with ThreadPoolExecutor(len(names) + 1) as pool:
+        plan_lib = pool.submit(native.build)
         built = list(pool.map(build, names))
-    log(f"[build] {', '.join(p.name for p, _ in built)} in "
-        f"{time.perf_counter() - t0:.1f} s")
+        plan_lib = plan_lib.result()
+    log(f"[build] {', '.join(p.name for p, _ in built)} and "
+        f"{plan_lib.name} in {time.perf_counter() - t0:.1f} s")
     for _, compiler_log in built:
         for line in compiler_log.splitlines():
             if "registers" in line or "spill" in line:
@@ -1026,10 +1057,11 @@ def train_step_timing(smi, kind, classes, warmup=3, reps=10,
     return row
 
 
-def device_busy_ms(fn):
-    """Device busy time of one ``fn()`` call: the union of the device
-    events' intervals (kernels, copies) in a ``torch.profiler`` trace;
-    None where the trace holds no device event."""
+def device_events(fn):
+    """(name, start ns, end ns) of every device event (kernels, copies)
+    in a ``torch.profiler`` trace of one ``fn()`` call.  The trace's raw
+    events are read directly: building the profiler's event tree for the
+    CPU ops of a few eager steps takes tens of seconds."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1037,18 +1069,66 @@ def device_busy_ms(fn):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    busy, end = 0.0, None
-    for a, b in spans:
+    return [(e.name(), e.start_ns(), e.end_ns())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
+
+
+def busy_ms(events):
+    """The union of the events' intervals in ms; None without events."""
+    busy, end = 0, None
+    for _, a, b in sorted(events, key=lambda e: e[1]):
         if end is None or a > end:
             busy += b - a
             end = b
         elif b > end:
             busy += b - end
             end = b
-    return busy / 1e3 if busy > 0 else None
+    return busy / 1e6 if busy > 0 else None
+
+
+def kernel_label(name):
+    """A short label of a CUDA kernel's name: the kernel and the last op
+    named in its template arguments (``elementwise_kernel:MulFunctor``,
+    ``vectorized_elementwise_kernel:CUDAFunctor_add``); a name without
+    such parts cut to 60 characters."""
+    import re
+    parts = [t for t in re.findall(r"\w*(?:Functor|_kernel|Kernel|gemm)\w*",
+                                   name)
+             if not t.startswith("gpu_kernel_impl")]
+    if not parts:
+        return name[:60]
+    label = parts[0] if len(parts) == 1 else f"{parts[0]}:{parts[-1]}"
+    return label[:60]
+
+
+def kernel_class(label):
+    """elementwise, gemm or other."""
+    if "elementwise" in label or "Functor" in label:
+        return "elementwise"
+    if any(k in label for k in ("gemm", "nvjet", "cutlass", "Kernel2")):
+        return "gemm"
+    return "other"
+
+
+def top_kernels(events, n=10):
+    """The ``n`` kernel labels with the most device time: (label, ms,
+    count), and the device ms and count of each kernel class."""
+    by, classes = {}, {}
+    for name, a, b in events:
+        label = kernel_label(name)
+        for table, key in ((by, label), (classes, kernel_class(label))):
+            ms, k = table.get(key, (0.0, 0))
+            table[key] = (ms + (b - a) / 1e6, k + 1)
+    top = [(label, ms, k) for label, (ms, k) in
+           sorted(by.items(), key=lambda kv: -kv[1][0])[:n]]
+    return top, classes
+
+
+def device_busy_ms(fn):
+    """Device busy time of one ``fn()`` call: the union of the device
+    events' intervals; None where the trace holds no device event."""
+    return busy_ms(device_events(fn))
 
 
 def _busy_text(busy, ms):
@@ -1266,6 +1346,437 @@ def phase_kd(smi, kind, root):
     return ckpts
 
 
+# ---------------------------------------------------------------------------
+# [graph]: the device cache and the chained step as CUDA graph replays
+# ---------------------------------------------------------------------------
+
+TOL_GRAPH_LOSS = 1e-6
+TOL_GRAPH_STATE = 1e-5
+TOL_GRAPH_WHY = ("the same kernels in the same order with the same draws, "
+                 "deterministic algorithms on: any difference is a fault "
+                 "of the capture; without them the gathers' atomic "
+                 "backward sums differ at 1e-7 and Adam amplifies that "
+                 "to 1e-4 in a few steps")
+GRAPH_CHAIN = 4  # fcl_train's auto chain with the device cache
+
+
+class deterministic:
+    """``torch.use_deterministic_algorithms`` (warn only) and cuDNN's
+    deterministic choice inside the block, the previous switches restored
+    after it; yields a set that receives the ops the warnings name."""
+
+    def __enter__(self):
+        import warnings
+        self.prev = (torch.are_deterministic_algorithms_enabled(),
+                     torch.is_deterministic_algorithms_warn_only_enabled(),
+                     torch.backends.cudnn.deterministic)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.backends.cudnn.deterministic = True
+        self.caught = warnings.catch_warnings(record=True)
+        self.records = self.caught.__enter__()
+        warnings.simplefilter("always")
+        self.ops = set()
+        return self.ops
+
+    def __exit__(self, *exc):
+        self.caught.__exit__(*exc)
+        for w in self.records:
+            if "deterministic" in str(w.message):
+                self.ops.add(str(w.message).split(" does not")[0][:80])
+        torch.use_deterministic_algorithms(self.prev[0],
+                                           warn_only=self.prev[1])
+        torch.backends.cudnn.deterministic = self.prev[2]
+
+
+def graph_corpus(root, n):
+    """``n`` utterances of the bench protocol (96 phonemes, Poisson(8)
+    durations clipped to [1, 50], idim 70, odim 80) written as a
+    manifest; returns (utterances, converter fitted to them)."""
+    from fcl_taco2_tpu_torch.data.converter import BatchConverter
+    from fcl_taco2_tpu_torch.data.manifest import load_manifest
+    from fcl_taco2_tpu_torch.data.synthetic import write_learnable_corpus
+    train_json, _ = write_learnable_corpus(
+        root, n, 1, vocab=IDIM, odim=ODIM, length=(N_PHONES, N_PHONES + 1),
+        max_dur=MAX_DUR, mean_dur=MEAN_DUR)
+    return load_manifest(train_json)
+
+
+def graph_models():
+    """Two FCL-taco2-T models on the card (eager, graphed) and their
+    seeded initial weights, shared by the [graph] cases."""
+    from fcl_taco2_tpu_torch.models import Tacotron2SA, teacher_config
+    models = [Tacotron2SA(teacher_config(IDIM, odim=ODIM),
+                          device=TRAIN_DEVICE, seed=0) for _ in range(2)]
+    init = {k: v.clone() for k, v in models[0].state_dict().items()}
+    return models, init
+
+
+def graph_setup(cfg, utts, n_steps, models, seed=0):
+    """The two models reset to their initial weights under ``cfg`` with
+    fresh optimizers (eager, graphed), the device cache over ``utts`` and
+    ``n_steps`` plan packs of B=16 batches."""
+    from fcl_taco2_tpu_torch.data.converter import BatchConverter
+    from fcl_taco2_tpu_torch.data.device_cache import DeviceBatchCache
+    from fcl_taco2_tpu_torch.train.optim import build_optimizer
+    from fcl_taco2_tpu_torch.train.state import TrainState
+    conv = BatchConverter(max_dur=cfg.max_dur, batch_size=TRAIN_B,
+                          seg_bucket=64, odim=ODIM, cache={},
+                          duration_classes=cfg.effective_duration_classes)
+    conv.fit_corpus(utts)
+    dc = DeviceBatchCache(conv, utts, TRAIN_DEVICE)
+    rng = np.random.default_rng(seed)
+    packs = torch.from_numpy(np.stack([
+        dc.plan([utts[i] for i in rng.permutation(len(utts))[:TRAIN_B]])
+        for _ in range(n_steps)])).to(TRAIN_DEVICE)
+    states = []
+    for model in models[0]:
+        model.cfg = cfg
+        model.load_state_dict(models[1])
+        tx = build_optimizer(name="adam", lr=1e-3, grad_clip=1.0)
+        names, params = zip(*model.named_parameters())
+        states.append((TrainState(model, tx.init(params, names), 0), tx))
+    return dc, packs, states
+
+
+def graph_agreement(smi, utts, classes, models):
+    """fp32, TF32 off, dropout and zoneout at the published rates: 8
+    graphed steps (2 chains of 4) against 8 eager single steps from the
+    same state and seed; then two single replays draw different zoneout
+    masks."""
+    from fcl_taco2_tpu_torch.models import teacher_config
+    from fcl_taco2_tpu_torch.train.step import (make_chained_train_step,
+                                                make_train_step,
+                                                step_generator)
+    cfg = teacher_config(IDIM, odim=ODIM, compute_dtype="float32",
+                         duration_classes=classes)
+    dc, packs, [(ts_e, tx_e), (ts_g, tx_g)] = graph_setup(cfg, utts, 8,
+                                                          models)
+    tag = "classed" if classes else "single-class"
+    with no_tf32(), deterministic() as nondet:
+        step = make_train_step(tx_e)
+        eager = []
+        for j in range(8):
+            ts_e, rep = step(ts_e, dc.assemble(packs[j]),
+                             step_generator(0, ts_e.step, TRAIN_DEVICE))
+            eager.append(float(rep["loss"]))
+        chain = make_chained_train_step(tx_g, assemble=dc.assemble)
+        graphed = []
+        for c in range(2):
+            ts_g, reps = chain(ts_g, packs[4 * c:4 * c + 4], 0)
+            graphed += reps[:, chain.report_keys.index("loss")].tolist()
+        state_err, worst, bit = 0.0, None, graphed == eager
+        for (name, a), b in zip(ts_e.model.state_dict().items(),
+                                ts_g.model.state_dict().values()):
+            bit &= torch.equal(a, b)
+            if torch.is_floating_point(a):
+                err = float((a - b).abs().max() / (a.abs().max() + 1e-30))
+                if err >= state_err:
+                    state_err, worst = err, name
+        # two single replays more: the zoneout masks the graph draws
+        ts_g.model.decoder.mask_taps = taps = []
+        probe = make_chained_train_step(tx_g, assemble=dc.assemble)
+        probe.prepare(ts_g, packs[0], 0)
+        n = len(cfg.effective_duration_classes) if classes else 1
+        drawn = []
+        for j in range(2):
+            ts_g, _ = probe(ts_g, packs[j:j + 1], 0)
+            drawn.append([t.clone() for t in taps[-n:]])
+        ts_g.model.decoder.mask_taps = None
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(graphed, eager))
+    same_masks = all(torch.equal(a, b) for a, b in zip(*drawn))
+    keep = float(torch.cat([t.flatten() for t in drawn[0]]).float().mean())
+    log(f"[graph] deterministic algorithms on for the comparison (the "
+        f"gathers' backward accumulates by sort, cuDNN picks deterministic "
+        f"convs); ops without a deterministic version: "
+        f"{sorted(nondet) or 'none'}")
+    log(f"[graph] teacher B={TRAIN_B} fp32 TF32 off {tag}, dropout "
+        f"{cfg.dropout_rate} zoneout {cfg.zoneout_rate}: 8 graphed steps "
+        f"(2 chains of {GRAPH_CHAIN}) vs 8 eager steps from the same state "
+        f"and seed: worst loss rel err {loss_err:.2e} (tol "
+        f"{TOL_GRAPH_LOSS:g}), worst parameter/buffer {worst} "
+        f"{state_err:.2e} of max|a| (tol {TOL_GRAPH_STATE:g}: "
+        f"{TOL_GRAPH_WHY}); bit-equal: {bit}; losses {eager[0]:.4f} -> "
+        f"{eager[-1]:.4f}; replays 1 and 2 drew "
+        f"{'the SAME' if same_masks else 'different'} zoneout masks (keep "
+        f"share {keep:.4f}, rate {cfg.zoneout_rate}); capture "
+        f"{chain.capture_s:.2f} s | {smi}")
+    if not loss_err <= TOL_GRAPH_LOSS:
+        raise RuntimeError(f"graph {tag}: losses {graphed} vs {eager}")
+    if not state_err <= TOL_GRAPH_STATE:
+        raise RuntimeError(f"graph {tag}: {worst} off by {state_err}")
+    if same_masks or not drawn[0]:
+        raise RuntimeError(f"graph {tag}: two replays drew the same masks")
+    if abs(keep - cfg.zoneout_rate) > 5e-3:
+        raise RuntimeError(f"graph {tag}: zoneout keep share {keep}")
+    return {"classes": list(classes), "loss_rel_err": loss_err,
+            "state_rel_err": state_err, "bit_equal": bit,
+            "replay_masks_differ": not same_masks}
+
+
+def graph_timing(smi, kind, utts, classes, models, chains=10, warmup=1):
+    """bf16 at the bench protocol: ms a step over ``chains`` chains of 4
+    after ``warmup`` chains, eager (assemble + step, 4 a chain) against
+    graphed (4 replays a chain), CUDA events around each chain; the
+    device busy share of one profiled chain each, capture seconds, graph
+    pool and peak memory."""
+    from fcl_taco2_tpu_torch.models import teacher_config
+    from fcl_taco2_tpu_torch.train.step import (make_chained_train_step,
+                                                make_train_step,
+                                                step_generator)
+    cfg = teacher_config(IDIM, odim=ODIM, duration_classes=classes)
+    n = GRAPH_CHAIN * (chains + warmup)
+    dc, packs, [(ts_e, tx_e), (ts_g, tx_g)] = graph_setup(cfg, utts, n,
+                                                          models)
+    step = make_train_step(tx_e)
+
+    def eager_chain(c):
+        nonlocal ts_e
+        for j in range(GRAPH_CHAIN * c, GRAPH_CHAIN * (c + 1)):
+            ts_e, rep = step(ts_e, dc.assemble(packs[j]),
+                             step_generator(0, ts_e.step, TRAIN_DEVICE))
+        return rep["loss"]
+
+    chain = make_chained_train_step(tx_g, assemble=dc.assemble)
+
+    def graphed_chain(c):
+        nonlocal ts_g
+        ts_g, reps = chain(ts_g, packs[GRAPH_CHAIN * c:GRAPH_CHAIN
+                                       * (c + 1)], 0)
+        return reps
+
+    row = {"classes": list(classes)}
+    for name, fn in (("eager", eager_chain), ("graphed", graphed_chain)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for c in range(chains + warmup):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn(c)
+            end.record()
+            end.synchronize()
+            if c >= warmup:
+                times.append(start.elapsed_time(end) / GRAPH_CHAIN)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ms = float(np.median(times))
+        events = device_events(lambda: fn(chains + warmup - 1))
+        busy = busy_ms(events)
+        busy = None if busy is None else busy / GRAPH_CHAIN
+        row[name] = {"step_ms": ms, "step_ms_min": min(times),
+                     "step_ms_max": max(times), "device_busy_ms": busy,
+                     "device_idle_share": None if busy is None
+                     else 1 - busy / ms, "peak_gib": peak}
+        log(f"[graph] teacher B={TRAIN_B} bf16 "
+            f"{'classed' if classes else 'single-class'} {name} on {kind}: "
+            f"{ms:.2f} ms a step, median of {chains} chains of "
+            f"{GRAPH_CHAIN} after {warmup} (min {min(times):.2f}, max "
+            f"{max(times):.2f}; CUDA events around each chain); device "
+            f"busy {_busy_text(busy, ms)}; peak memory {peak:.2f} GiB | "
+            f"{smi}")
+    top, classes = top_kernels(events)
+    top = [(k, round(t / GRAPH_CHAIN, 3), c // GRAPH_CHAIN)
+           for k, t, c in top]
+    classes = {k: (round(t / GRAPH_CHAIN, 3), c // GRAPH_CHAIN)
+               for k, (t, c) in classes.items()}
+    log(f"[graph] graphed step's device time by kernel class (ms a step, "
+        f"launches a step): {classes}; top {len(top)} kernels: {top}")
+    row["graphed"].update(top_kernels=top, kernel_classes=classes, capture_s=chain.capture_s,
+                          graph_pool_gib=chain.pool_bytes / 2 ** 30)
+    log(f"[graph] capture {chain.capture_s:.2f} s (3 warm-up steps on a "
+        f"side stream from a copy of the state, then the capture), graph "
+        f"pool {chain.pool_bytes / 2 ** 30:.2f} GiB; graphed / eager "
+        f"{row['graphed']['step_ms'] / row['eager']['step_ms']:.3f} | {smi}")
+    if not torch.isfinite(chain.out).all():
+        raise RuntimeError("graph timing: non-finite report")
+    return row
+
+
+def graph_cli_check(smi, root):
+    """``fcl_train`` with no runtime flags (auto: the device cache and 4
+    steps a dispatch) against ``--device-cache off --steps-per-dispatch
+    1`` on the learnable corpus, FCL-taco2-T widths, 2 epochs of 8 steps
+    each; epoch-2 walls compared."""
+    from fcl_taco2_tpu_torch.cli.fcl_train import main as fcl_train
+    from fcl_taco2_tpu_torch.data.synthetic import write_learnable_corpus
+    train_json, valid_json = write_learnable_corpus(
+        root, 64, 8, vocab=IDIM, odim=ODIM, length=(24, 49),
+        max_dur=MAX_DUR, mean_dur=MEAN_DUR)
+    rows = {}
+    for name, extra in (
+            ("auto", []),
+            ("off", ["--device-cache", "off", "--steps-per-dispatch", "1"]),
+            ("off_chain", ["--device-cache", "off", "--steps-per-dispatch",
+                           "4"])):
+        exp = os.path.join(root, f"graph_{name}")
+        fcl_train(["--train-json", train_json, "--valid-json", valid_json,
+                   "--outdir", exp, "--batch-size", "8", "--epochs", "2",
+                   "--minibatches", "8",
+                   "--seed", "0", "--device", TRAIN_DEVICE, *extra] + [
+            a for k, v in TEACHER_CONF.items() for a in (f"--{k}", str(v))])
+        with open(os.path.join(exp, "log.jsonl")) as f:
+            rows[name] = [json.loads(line) for line in f]
+    auto, off, off_chain = rows["auto"], rows["off"], rows["off_chain"]
+    log(f"[graph] fcl_train teacher widths, batch 8, 8 steps an epoch: "
+        f"auto (device cache {auto[0]['device_cache']}, "
+        f"{auto[0]['steps_per_dispatch']} steps a dispatch, "
+        f"{auto[1]['dispatches']} dispatches an epoch, capture "
+        f"{auto[0]['capture_s']:.2f} s, graph pool "
+        f"{auto[0].get('graph_pool_bytes', 0) / 2 ** 20:.0f} MiB) epoch "
+        f"walls {auto[0]['train_wall_s']:.2f} / "
+        f"{auto[1]['train_wall_s']:.2f} s, step p50 "
+        f"{auto[1]['step_ms_p50']:.1f} ms; --device-cache off "
+        f"--steps-per-dispatch 1: {off[0]['train_wall_s']:.2f} / "
+        f"{off[1]['train_wall_s']:.2f} s, step p50 "
+        f"{off[1]['step_ms_p50']:.1f} ms; --device-cache off "
+        f"--steps-per-dispatch 4 (graphed, streamed batches): "
+        f"{off_chain[0]['train_wall_s']:.2f} / "
+        f"{off_chain[1]['train_wall_s']:.2f} s; epoch-2 loss "
+        f"{auto[1]['main/loss']:.4f} / {off[1]['main/loss']:.4f} / "
+        f"{off_chain[1]['main/loss']:.4f} | {smi}")
+    if not (auto[0]["device_cache"] and auto[0]["steps_per_dispatch"] == 4
+            and auto[1]["dispatches"] == 2 and auto[1]["steps"] == 8):
+        raise RuntimeError(f"fcl_train auto: not the cache with 4 steps a "
+                           f"dispatch: {auto[1]}")
+    if off[0]["device_cache"] or off[0]["steps_per_dispatch"] != 1:
+        raise RuntimeError(f"fcl_train off: {off[0]}")
+    if off_chain[1]["device_cache"] or off_chain[1]["dispatches"] != 2:
+        raise RuntimeError(f"fcl_train off, 4 a dispatch: {off_chain[1]}")
+    if not all(np.isfinite(r["main/loss"]) for r in auto + off + off_chain):
+        raise RuntimeError("fcl_train: non-finite loss")
+    return {"auto_epoch_wall_s": [r["train_wall_s"] for r in auto],
+            "off_epoch_wall_s": [r["train_wall_s"] for r in off],
+            "off_chain_epoch_wall_s": [r["train_wall_s"]
+                                       for r in off_chain],
+            "auto_step_ms_p50": auto[1]["step_ms_p50"],
+            "off_step_ms_p50": off[1]["step_ms_p50"]}
+
+
+def phase_graph(smi, kind):
+    """The device cache and the chained step as CUDA graph replays at
+    FCL-taco2-T width: agreement with eager steps (fp32) and the masks of
+    consecutive replays, classed and single-class; bf16 step times eager
+    against graphed; ``fcl_train``'s defaults.  No decoder or PWG kernel
+    runs."""
+    from fcl_taco2_tpu_torch.data.native import native_available
+    if not native_available():
+        raise RuntimeError("the native plan builder did not build")
+    zero_counts()
+    with tempfile.TemporaryDirectory() as root:
+        utts = graph_corpus(os.path.join(root, "corpus"), 48)
+        models = graph_models()
+        agree = [timed(graph_agreement, smi, utts, c, models)
+                 for c in (DURATION_CLASSES, ())]
+        timing = [timed(graph_timing, smi, kind, utts, c, models)
+                  for c in (DURATION_CLASSES, ())]
+        del models
+        cli = timed(graph_cli_check, smi, root)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"[graph] kernel launches during the phase {counts} (the training "
+        f"path runs none); native plan builder in use")
+    if any(counts.values()):
+        raise RuntimeError(f"the training path launched a kernel: {counts}")
+    log("[graph] " + json.dumps({"agreement": agree, "timing": timing,
+                                  "fcl_train": cli, "device": smi}))
+
+
+# ---------------------------------------------------------------------------
+# [finetune]: partial init, freezing, the transform and the trace
+# ---------------------------------------------------------------------------
+
+PREPROCESS_CONF = {"process": [
+    {"type": "utterance_cmvn", "norm_vars": True},
+    {"type": "freq_mask", "F": 10, "n_mask": 1}]}
+
+
+def phase_finetune(smi, kind, root, tckpt, train_json, valid_json):
+    """``fcl_train`` FCL-taco2-T with ``--enc-init``/``--dec-init`` from
+    the [kd] teacher, ``--freeze-mods enc.`` and ``--preprocess-conf``
+    (2 epochs), then the student with ``--profile-dir`` (2 epochs)."""
+    from fcl_taco2_tpu_torch.cli.fcl_train import main as fcl_train
+    from fcl_taco2_tpu_torch.train import checkpoint as ckpt
+    from fcl_taco2_tpu_torch.train.loop import Trainer
+    from fcl_taco2_tpu_torch.train.profiler import TRACE_FILE
+    from fcl_taco2_tpu_torch.utils.params import params_from_jax
+    zero_counts()
+    conf = os.path.join(root, "preprocess.json")
+    with open(conf, "w") as f:
+        json.dump(PREPROCESS_CONF, f)
+    common = ["--train-json", train_json, "--valid-json", valid_json,
+              "--batch-size", "8", "--minibatches", "6", "--seed", "1",
+              "--epochs", "2", "--device", TRAIN_DEVICE]
+    init_states = []
+    orig = Trainer.init_state
+
+    def init_state(self):  # record the state init_state hands the loop
+        ts = orig(self)
+        init_states.append({k: v.clone()
+                            for k, v in ts.model.state_dict().items()})
+        return ts
+
+    Trainer.init_state = init_state
+    try:
+        ts = fcl_train(common + [
+            "--outdir", os.path.join(root, "finetune"), "--enc-init", tckpt,
+            "--dec-init", tckpt, "--freeze-mods", "enc.",
+            "--preprocess-conf", conf] + [
+            a for k, v in TEACHER_CONF.items() for a in (f"--{k}", str(v))])
+    finally:
+        Trainer.init_state = orig
+    payload = ckpt.read_checkpoint(tckpt)
+    donor = params_from_jax(payload["params"], payload["model_state"])
+    init = init_states[0]
+    sel = [k for k in init if k.startswith(("encoder.", "decoder."))]
+    not_copied = [k for k in sel if not torch.equal(init[k].cpu(),
+                                                    donor[k])]
+    params = dict(ts.model.named_parameters())
+    frozen = [k for k in params if k.startswith("encoder.")]
+    moved_frozen = [k for k in frozen if not torch.equal(params[k],
+                                                         init[k])]
+    others = [k for k in params if not k.startswith("encoder.")]
+    still = [k for k in others if torch.equal(params[k], init[k])]
+    with open(os.path.join(root, "finetune", "log.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    log(f"[finetune] fcl_train teacher widths, --enc-init/--dec-init from "
+        f"the [kd] teacher, --freeze-mods enc., --preprocess-conf "
+        f"utterance_cmvn + freq_mask (device cache "
+        f"{rows[0]['device_cache']}, {rows[0]['steps_per_dispatch']} step "
+        f"a dispatch), 2 epochs ({ts.step} steps): {len(sel)} selected "
+        f"tensors equal the checkpoint after init_state "
+        f"({len(not_copied)} differ); {len(frozen)} frozen parameters, "
+        f"{len(moved_frozen)} moved; {len(others) - len(still)} of "
+        f"{len(others)} others moved; loss {rows[0]['main/loss']:.4f} -> "
+        f"{rows[1]['main/loss']:.4f} | {smi}")
+    if not_copied or moved_frozen or not sel or not frozen:
+        raise RuntimeError(f"finetune: not copied {not_copied[:3]}, frozen "
+                           f"but moved {moved_frozen[:3]}")
+    if len(still) > len(others) // 10:
+        raise RuntimeError(f"finetune: {len(still)} trainable tensors did "
+                           f"not move: {still[:5]}")
+    if rows[0]["device_cache"]:
+        raise RuntimeError("finetune: the cache was built under a host "
+                           "transform")
+    prof = os.path.join(root, "profile")
+    ts = fcl_train(common + ["--outdir", os.path.join(root, "profiled"),
+                             "--profile-dir", prof, *STUDENT_ARGS])
+    path = os.path.join(prof, TRACE_FILE)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    log(f"[finetune] fcl_train student --profile-dir: {path} "
+        f"{os.path.getsize(path) / 2 ** 20:.1f} MiB, {len(events)} events, "
+        f"{len(kernels)} CUDA kernel events over epoch 1 | {smi}")
+    if not kernels:
+        raise RuntimeError("finetune: the trace holds no CUDA kernel event")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"[finetune] kernel launches during the phase {counts} (the "
+        f"training path runs none)")
+    if any(counts.values()):
+        raise RuntimeError(f"the training path launched a kernel: {counts}")
+
+
 def speaking_student(student, root):
     """A copy of the student checkpoint whose duration predictor gives
     about MEAN_DUR frames a phoneme (its linear head's weights scaled by
@@ -1456,6 +1967,14 @@ def _padded(toks, durs, B, bucket):
     return tokens.cuda(), ilens.cuda(), dd.cuda()
 
 
+def timed(fn, *args):
+    """``fn(*args)``, its wall seconds logged under the function's name."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"[phase] {fn.__name__}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def timed_phase(name, fn, *args):
     """``fn(*args)``, its wall seconds logged."""
     t0 = time.perf_counter()
@@ -1490,11 +2009,14 @@ def main():
             launches[k] += v
     del models
     timed_phase("train", phase_train, smi, kind)
+    timed_phase("graph", phase_graph, smi, kind)
     with tempfile.TemporaryDirectory() as root:
         ckpts = timed_phase("kd", phase_kd, smi, kind, root)
         for k, v in timed_phase("cli", phase_cli, smi, kind, root,
                                 ckpts).items():
             launches[k] += v
+        timed_phase("finetune", phase_finetune, smi, kind, root, ckpts[0],
+                    *ckpts[2:])
     log(f"[phase] all: {time.perf_counter() - t_start:.1f} s")
 
     kernels = []

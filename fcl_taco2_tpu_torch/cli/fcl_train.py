@@ -9,10 +9,14 @@
 CLI mirror of the reference's tts_train.py (same flag names and yaml
 config chain).  Training runs on the card unless ``--device cpu`` is given;
 it raises when no card is present.  ``--perform-KD True`` distils a
-student from ``--teacher-checkpoint`` (``cli/fcl_distill.py``).  Not
-ported yet, and refused with an error: --freeze-mods,
---enc-init/--dec-init, --preprocess-conf, --profile-dir, more than one
-device, --steps-per-dispatch > 1 (outside KD) and --device-cache on.  --zoneout-rng is
+student from ``--teacher-checkpoint`` (``cli/fcl_distill.py``).  The
+defaults run the JAX trainer's single-card runtime: the dataset cache on
+the device when it fits (``--device-cache auto``) and 4 steps a dispatch
+with it (``--steps-per-dispatch 0``), on the card as replays of a CUDA
+graph of the step.  Fine-tuning (``--enc-init``/``--dec-init``,
+``--freeze-mods``), ``--preprocess-conf`` and ``--profile-dir`` work as
+in the JAX CLI.  Not ported yet, and refused with an error: more than
+one device (``--n-devices``/``--n-slices`` > 1).  --zoneout-rng is
 accepted and has no effect: the port draws its masks from torch's Philox
 generator.
 """
@@ -50,8 +54,9 @@ def get_parser():
                         "op that produced a NaN instead of the step-level "
                         "guard)")
     p.add_argument("--profile-dir", type=str, default=None,
-                   help="device trace of the first epoch (not ported "
-                        "yet)")
+                   help="write a torch.profiler Chrome trace of the first "
+                        "epoch (CPU and CUDA activity) into this "
+                        "directory")
     # model (names match e2e_tts_tacotron2_sa.py:138-287)
     p.add_argument("--embed-dim", type=int, default=512)
     p.add_argument("--elayers", type=int, default=1)
@@ -104,7 +109,7 @@ def get_parser():
     p.add_argument("--compute-dtype", type=str, default="bfloat16")
     p.add_argument("--remat-decoder", type=strtobool, default=None,
                    help="recompute decoder scan activations on backward "
-                        "(not ported yet; default off)")
+                        "(default: on for --perform-KD runs, else off)")
     p.add_argument("--model-module", type=str, default=None,
                    help="accepted for reference-config compatibility")
     p.add_argument("--use-second-target", type=strtobool, default=True)
@@ -141,16 +146,19 @@ def get_parser():
     p.add_argument("--sortagrad", type=int, default=0)
     # loop knobs of the JAX package (no reference analogue)
     p.add_argument("--steps-per-dispatch", type=int, default=0,
-                   help="optimizer steps per dispatch; 0 = auto = 1 here "
-                        "(> 1 is not ported yet)")
+                   help="optimizer steps per dispatch (replays of one "
+                        "CUDA graph of the step on the card); 0 = auto: "
+                        "4 with the device cache, else 1")
     p.add_argument("--ckpt-opt-dtype", type=str, default=None,
                    help="fetch optimizer moments in this dtype when "
                         "checkpointing (e.g. bfloat16: ~halves snapshot "
                         "bytes; restore upcasts)")
     p.add_argument("--device-cache", type=str, default="auto",
                    choices=["auto", "on", "off"],
-                   help="device-resident dataset cache (not ported yet: "
-                        "auto and off stream from the host, on raises)")
+                   help="device-resident dataset cache: auto builds it "
+                        "when the corpus fits --device-cache-max-mb (else "
+                        "says why it streams), on raises where it cannot "
+                        "be built, off streams batches from the host")
     p.add_argument("--device-cache-max-mb", type=int, default=2048)
     # optimization (tts_train.py:205-247)
     p.add_argument("--opt", type=str, default="adam",

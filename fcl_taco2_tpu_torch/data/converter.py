@@ -8,8 +8,9 @@ bucket (Tmax->x8, Lmax->x64, segments->x64), or fixed for the whole run
 (``fit_corpus``), and the per-phoneme work is an int32 index plan
 (``ops/regroup.build_plan``) consumed by device gathers.  The batch
 dimension is padded to a fixed size with empty utterances (ilens=0).
-The plans come from the numpy builders (the JAX package's native C++
-builder is not ported yet).
+The plans come from the native C++ builder (``data/native.py``,
+bit-equal to the numpy builders, which stand in only where no C++
+compiler exists).
 """
 
 import math
@@ -41,8 +42,8 @@ class BatchConverter:
         """With ``fixed_*`` set, every batch gets the SAME shape.  Use
         ``fit_corpus`` to derive caps.
 
-        ``transform``: optional callable ``transform(mel, train=...)``
-        applied to each utterance's mel after loading (reference
+        ``transform``: optional callable ``transform(mel, train=...)``,
+        e.g. ``data.transform.Transformation``, applied to each utterance's mel after loading (reference
         --preprocess-conf, io_utils_fcl.py:58-66); ``transform_train`` is
         its mode flag (tts.py:486-498).  Applied AFTER the cache so
         stochastic (train-only) ops re-draw every epoch.
@@ -89,6 +90,28 @@ class BatchConverter:
                 (load_durations(u) for u in utts), self.duration_classes,
                 self.batch_size, cap_bucket=self.seg_bucket)
         return self
+
+    def _build_plan(self, durations, olens, n_seg_padded, max_olen):
+        """The native plan builder where it is available, else
+        ``ops/regroup.build_plan`` (``converter.py:95-99``)."""
+        from fcl_taco2_tpu_torch.data.native import (build_plan_native,
+                                                     native_available)
+        if native_available():
+            return build_plan_native(durations, olens, self.max_dur,
+                                     n_seg_padded, max_olen)
+        return build_plan(durations, olens, self.max_dur, n_seg_padded,
+                          max_olen)
+
+    def _build_classed_plan(self, durations, olens, caps, max_olen):
+        """The native classed-plan builder where it is available, else
+        ``ops/regroup.build_classed_plan``."""
+        from fcl_taco2_tpu_torch.data.native import (
+            build_classed_plan_native, native_available)
+        if native_available():
+            return build_classed_plan_native(
+                durations, olens, self.duration_classes, caps, max_olen)
+        return build_classed_plan(durations, olens, self.duration_classes,
+                                  caps, max_olen)
 
     def _features(self, utt: Utterance):
         if self.cache is not None:
@@ -166,8 +189,7 @@ class BatchConverter:
                 caps = duration_class_caps(
                     [durations[i, :ilens[i]] for i in range(n)],
                     self.duration_classes, n, cap_bucket=self.seg_bucket)
-            plan = build_classed_plan(durations, olens,
-                                      self.duration_classes, caps, Lmax)
+            plan = self._build_classed_plan(durations, olens, caps, Lmax)
             return Batch(
                 seg_utt=None, seg_tok=None, seg_start=None, frame_mask=None,
                 position=None, utt_gather=plan.utt_gather,
@@ -180,8 +202,7 @@ class BatchConverter:
 
         n_seg = int((durations > 0).sum())
         n_seg_padded = self.fixed_nseg or _round_up(n_seg, self.seg_bucket)
-        plan = build_plan(durations, olens, self.max_dur, n_seg_padded,
-                          Lmax)
+        plan = self._build_plan(durations, olens, n_seg_padded, Lmax)
         return Batch(
             seg_utt=plan.seg_utt, seg_tok=plan.seg_tok,
             seg_start=plan.seg_start, frame_mask=plan.frame_mask,

@@ -6,7 +6,13 @@ them in order: on the card each array is copied into pinned host memory
 and sent with a non-blocking copy on a side stream, so the upload overlaps
 the running step; the consumer's stream waits on the upload's event before
 the batch is used (``BatchUploader``).  The order is the loader's, which
-the per-step generators follow.
+the per-step generators follow.  What the worker uploads is any tree of
+numpy arrays: a ``Batch``, the device cache's plan packs
+(``data/device_cache.py``), or tagged tuples of them (chained dispatch);
+a ``finish`` step, run on the consumer's thread and stream, turns an
+uploaded item into what the trainer consumes (the device cache
+assembles its batch there, into buffers the previous step has finished
+reading on the same stream).
 """
 
 import queue
@@ -27,13 +33,16 @@ class PrefetchLoader:
 
     DEPTH = 3
 
-    def __init__(self, batches, convert_fn, uploader):
-        """batches: list of utterance lists; convert_fn: batch -> Batch
-        (numpy); uploader: a ``BatchUploader`` (``put`` on the worker,
-        ``ready`` on the consumer's thread)."""
+    def __init__(self, batches, convert_fn, uploader, finish=None):
+        """batches: list of utterance lists (or of groups of them);
+        convert_fn: item -> tree of numpy arrays; uploader: a
+        ``BatchUploader`` (``put`` on the worker, ``ready`` on the
+        consumer's thread); finish: optional callable on the consumer's
+        thread, applied to each ready item."""
         self.batches = batches
         self.convert_fn = convert_fn
         self.uploader = uploader
+        self.finish = finish
         self.stats = {"wait_s": 0.0, "convert_s": 0.0, "put_s": 0.0,
                       "batches": 0}
 
@@ -87,7 +96,8 @@ class PrefetchLoader:
                 if item is stop:
                     break
                 stats["batches"] += 1
-                yield self.uploader.ready(item)
+                item = self.uploader.ready(item)
+                yield item if self.finish is None else self.finish(item)
         finally:
             abandoned.set()
             thread.join()
@@ -95,24 +105,24 @@ class PrefetchLoader:
                 raise err[0]
 
 
-def _map_batch(fn, batch):
-    """Apply ``fn`` to every array of a ``Batch`` (and its classes)."""
-    def one(x):
-        return None if x is None else fn(x)
-    out = {}
-    for k, v in batch._asdict().items():
-        if k == "seg_classes" and v is not None:
-            out[k] = tuple(type(c)(*[one(x) for x in c]) for c in v)
-        else:
-            out[k] = one(v)
-    return type(batch)(**out)
+def _map_batch(fn, tree):
+    """Apply ``fn`` to every array of a tree: a ``Batch`` (and its
+    classes), an array, or a tuple / list of them; strings (tags) and
+    None pass through."""
+    if tree is None or isinstance(tree, str):
+        return tree
+    if hasattr(tree, "_asdict"):  # Batch, SegClass
+        return type(tree)(*[_map_batch(fn, x) for x in tree])
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map_batch(fn, x) for x in tree)
+    return fn(tree)
 
 
 class BatchUploader:
-    """numpy ``Batch`` -> tensors on ``device``.  On the card: pinned host
-    copies, non-blocking copies on a side stream and an event that the
-    consumer's stream waits on (``ready``); on the CPU the arrays are
-    wrapped as they are."""
+    """A tree of numpy arrays (``_map_batch``) -> tensors on ``device``.
+    On the card: pinned host copies, non-blocking copies on a side stream
+    and an event that the consumer's stream waits on (``ready``); on the
+    CPU the arrays are wrapped as they are."""
 
     def __init__(self, device):
         self.device = torch.device(device)

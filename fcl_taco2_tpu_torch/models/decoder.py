@@ -21,14 +21,21 @@ import torch.nn.functional as F
 from fcl_taco2_tpu_torch.models import components as C
 from fcl_taco2_tpu_torch.ops.regroup import (scatter_frames,
                                              scatter_frames_classed)
-from fcl_taco2_tpu_torch.ops.rnn import lstm_cell, step_seed, zoneout
+from fcl_taco2_tpu_torch.ops.rnn import (lstm_cell, zoneout,
+                                         zoneout_keep_masks)
 from fcl_taco2_tpu_torch.ops.rnn_vjp import (ScanSpec, scan_plain,
                                              zoneout_lstm_scan)
 
 
 class Decoder(nn.Module):
+    """``mask_taps``: None, or a list that receives every train-mode
+    zoneout mask tensor as it is drawn, so a check can read the masks a
+    CUDA graph replay drew (the tensors a capture records are the graph's
+    own buffers)."""
+
     def __init__(self, cfg, device=None):
         super().__init__()
+        self.mask_taps = None
         idim = cfg.dec_idim
         lstm0_in = (idim + cfg.effective_prenet_units
                     + (1 if cfg.append_position else 0))
@@ -163,7 +170,7 @@ def apply_postnet_inference(decoder, cfg, before, seq_mask=None):
 
 def decoder_teacher_forced(decoder, cfg, enc_seg, seg_targets, position,
                            utt_gather, utt_mask, generator, train,
-                           zo_seed=0, bn_out=None, capture_kd=False):
+                           bn_out=None, capture_kd=False):
     """Teacher-forced pass over the phoneme batch (``decoder.py:169-209``).
 
     Args:
@@ -171,9 +178,9 @@ def decoder_teacher_forced(decoder, cfg, enc_seg, seg_targets, position,
         seg_targets: (P, D, odim) per-segment target frames (zero padded).
         position: (P, D) position ramps.
         utt_gather/utt_mask: the regroup plan back to utterance-major.
-        generator: the step's ``torch.Generator`` (prenet and postnet
-            dropout).
-        zo_seed: base of the per-step zoneout seeds.
+        generator: the step's ``torch.Generator``: the prenet dropout,
+            the zoneout masks and the postnet dropout draw from it, in
+            that order.
         bn_out: list receiving the postnet BatchNorms' new running
             statistics in train mode.
         capture_kd: also return the KD items.
@@ -185,8 +192,8 @@ def decoder_teacher_forced(decoder, cfg, enc_seg, seg_targets, position,
     if capture_kd:
         _check_kd_topology(cfg)
     core = _teacher_forced_core(decoder, cfg, enc_seg, seg_targets,
-                                position, generator, train, zo_seed,
-                                capture_kd)
+                                position, generator, train,
+                                capture_kd=capture_kd)
     seg_out, items = (core[0], core[1:]) if capture_kd else (core, ())
     before = scatter_frames(seg_out, utt_gather, utt_mask)
     post = [] if capture_kd else None
@@ -201,7 +208,7 @@ def decoder_teacher_forced(decoder, cfg, enc_seg, seg_targets, position,
 
 
 def decoder_teacher_forced_classed(decoder, cfg, class_inputs, utt_gather,
-                                   utt_mask, generator, train, zo_seed=0,
+                                   utt_mask, generator, train,
                                    bn_out=None, capture_kd=False):
     """Duration-classed teacher-forced pass (``decoder.py:212-255``): one
     scan per duration class, D_c steps each, then one gather back to
@@ -216,9 +223,8 @@ def decoder_teacher_forced_classed(decoder, cfg, class_inputs, utt_gather,
     if capture_kd:
         _check_kd_topology(cfg)
     cores = [_teacher_forced_core(decoder, cfg, enc_c, tgt_c, pos_c,
-                                  generator, train, step_seed(zo_seed, c),
-                                  capture_kd)
-             for c, (enc_c, tgt_c, pos_c) in enumerate(class_inputs)]
+                                  generator, train, capture_kd=capture_kd)
+             for enc_c, tgt_c, pos_c in class_inputs]
     outs = [c[0] for c in cores] if capture_kd else cores
     before = scatter_frames_classed(outs, utt_gather, utt_mask)
     post = [] if capture_kd else None
@@ -255,11 +261,15 @@ def _apply_train_postnet(decoder, cfg, before, generator, train, utt_mask,
 
 
 def _teacher_forced_core(decoder, cfg, enc_seg, seg_targets, position,
-                         generator, train, zo_seed, capture_kd=False):
+                         generator, train, zo_seed=None, capture_kd=False):
     """The teacher-forced scan over one phoneme batch, before regrouping
     (``decoder.py:281-386``): returns seg_out (P, D, odim), and with
     ``capture_kd`` (seg_out, prenet output (P, S, units), h of LSTM 0 and
     of LSTM 1 (P, S, H) each).
+
+    In train mode the zoneout masks of all S steps are drawn in one call
+    after the prenet's dropout: from ``generator`` itself, or with an
+    int ``zo_seed`` from a fresh generator seeded with it.
 
     The scan is the hand-built backward (``zoneout_lstm_scan``) unless
     ``remat_decoder`` asks for the autodiff scan with checkpointed steps
@@ -294,16 +304,21 @@ def _teacher_forced_core(decoder, cfg, enc_seg, seg_targets, position,
                     append_position=bool(cfg.append_position),
                     use_enc_out=enc_out is not None,
                     capture_kd=bool(capture_kd))
-    seeds = None
+    keep = None
     if train and cfg.zoneout_rate > 0.0:
-        seeds = [step_seed(zo_seed, s) for s in range(S)]
+        gen = generator if zo_seed is None \
+            else torch.Generator(device=generator.device)
+        keep = zoneout_keep_masks(gen, zo_seed, (S, 2 * cfg.dlayers), P,
+                                  cfg.dunits, float(cfg.zoneout_rate))
+        if decoder.mask_taps is not None:
+            decoder.mask_taps.append(keep)
     layers = [(decoder.lstm[0].weight_hh, decoder.lstm[0].bias_hh)]
     for cell in decoder.lstm[1:]:
         layers.append((cell.weight_ih, cell.weight_hh, cell.bias_ih,
                        cell.bias_hh))
     weights = (w_pre, w_pos, wf_z, tuple(layers))
     args = (spec, weights, enc_gates, enc_out, prenet_steps, pos_steps,
-            seeds)
+            keep)
     if cfg.decoder_custom_vjp and not cfg.remat_decoder \
             and torch.is_grad_enabled():
         res = zoneout_lstm_scan(*args)

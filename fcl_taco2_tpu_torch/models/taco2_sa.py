@@ -28,7 +28,6 @@ from fcl_taco2_tpu_torch.ops.masking import (lengths_to_non_pad_mask,
                                              weighted_mse)
 from fcl_taco2_tpu_torch.ops.regroup import (gather_segments,
                                              gather_token_vectors)
-from fcl_taco2_tpu_torch.ops.rnn import step_seed
 from fcl_taco2_tpu_torch.utils.device import resolve_device
 from fcl_taco2_tpu_torch.utils.initializers import init_tacotron2sa_
 
@@ -187,8 +186,10 @@ class Tacotron2SA(nn.Module):
         Args:
             batch: a ``Batch`` of tensors on the model's device.
             generator: the step's ``torch.Generator`` on that device; every
-                dropout draws from it and the zoneout seeds derive from its
-                initial seed.
+                dropout and the zoneout masks draw from it, in a fixed
+                order and with no host-side seed, so a CUDA graph of the
+                step replays fresh draws from the seed the generator holds
+                at each replay.
             train: dropout, zoneout masks and BatchNorm batch statistics.
             capture_kd: also return the knowledge KD compares
                 (``taco2_sa.py:303-318``).
@@ -229,7 +230,6 @@ class Tacotron2SA(nn.Module):
          enc_kd) = self._encode_and_predict(batch, generator, train, bn_enc,
                                             capture_kd)
         hs_cond = hs + p_embs + e_embs if cfg.use_fe_condition else hs
-        zo_seed = step_seed(generator.initial_seed(), 1)
         if batch.seg_classes is not None:
             class_inputs = tuple(
                 (gather_token_vectors(hs_cond, sc.seg_utt, sc.seg_tok),
@@ -239,7 +239,7 @@ class Tacotron2SA(nn.Module):
                 for sc in batch.seg_classes)
             dec = decoder_teacher_forced_classed(
                 self.decoder, cfg, class_inputs, batch.utt_gather,
-                batch.utt_mask, generator, train, zo_seed, bn_dec,
+                batch.utt_mask, generator, train, bn_dec,
                 capture_kd)
         else:
             enc_seg = gather_token_vectors(hs_cond, batch.seg_utt,
@@ -248,8 +248,8 @@ class Tacotron2SA(nn.Module):
                                           batch.seg_start, batch.frame_mask)
             dec = decoder_teacher_forced(
                 self.decoder, cfg, enc_seg, seg_targets, batch.position,
-                batch.utt_gather, batch.utt_mask, generator, train, zo_seed,
-                bn_dec, capture_kd)
+                batch.utt_gather, batch.utt_mask, generator, train, bn_dec,
+                capture_kd)
         after, before = dec[:2]
         loss, report = self._losses(batch, after, before, d_outs, p_outs,
                                     e_outs, pad_mask)

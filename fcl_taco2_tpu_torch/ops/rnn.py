@@ -29,10 +29,10 @@ _MASK64 = (1 << 64) - 1
 
 
 def step_seed(base, *path):
-    """A 63-bit seed for one step of a scan, mixed from ``base`` and the
-    integers in ``path`` (splitmix64 finalizer): the zoneout masks of a
-    step are a function of this seed alone, so the hand-built backward
-    draws them again instead of saving them (``ops/rnn_vjp.py:28-29``)."""
+    """A 63-bit seed mixed from ``base`` and the integers in ``path``
+    (splitmix64 finalizer): the seed of a train step's generator is
+    ``step_seed(seed, step)``, so a step's draws depend on
+    ``(seed, step)`` alone."""
     z = base & _MASK64
     for p in path:
         z = (z + 0x9E3779B97F4A7C15 * (int(p) + 1)) & _MASK64
@@ -43,13 +43,18 @@ def step_seed(base, *path):
 
 
 def zoneout_keep_masks(gen, seed, n, P, H, rate):
-    """``n`` keep-old Bernoulli(``rate``) masks (n, P, H) of one decoder
-    step in one draw (``ops/rnn.py:62-82``).  ``gen`` is a
-    ``torch.Generator`` on the masks' device, re-seeded with ``seed``, so
-    the masks depend on ``seed`` only.  Torch's Philox stream cannot match
+    """Keep-old Bernoulli(``rate``) masks (``ops/rnn.py:62-82``) of shape
+    (n, P, H), or (*n, P, H) for a tuple ``n``, in one draw from ``gen``,
+    a ``torch.Generator`` on the masks' device.  With an int ``seed`` the
+    generator is re-seeded first, so the masks depend on ``seed`` only;
+    with ``seed=None`` they are the generator's next draw, which keeps
+    the call free of host state (a CUDA graph replays it with the seed
+    the generator holds at replay).  Torch's Philox stream cannot match
     JAX's RBG or threefry bits; the keep rate is what matches."""
-    gen.manual_seed(seed)
-    return torch.rand((n, P, H), generator=gen, device=gen.device) < rate
+    if seed is not None:
+        gen.manual_seed(seed)
+    shape = (n, P, H) if isinstance(n, int) else (*n, P, H)
+    return torch.rand(shape, generator=gen, device=gen.device) < rate
 
 
 def zoneout(old, new, rate, keep=None):

@@ -11,11 +11,14 @@ hot path (port of ``fcl_taco2_tpu/ops/rnn_vjp.py``, "strategy B").
 - ``out = h_last @ wf_z`` is hoisted out of the forward loop (one
   (S·P, H) GEMM over the saved h), and its cotangent out of the backward.
 
-Zoneout keep masks are drawn again in the backward from the same per-step
-seeds (``ops/rnn.zoneout_keep_masks`` depends on the seed alone) instead of
-being saved.  ``decoder_custom_vjp=False`` runs ``scan_plain``: the same
-step function under autograd, the oracle of this backward; with
-``remat=True`` each of its steps is checkpointed (``remat_decoder``).
+The zoneout keep masks of every step come in as one boolean tensor
+``keep`` (S, 2L, P, H), drawn by the caller before the scan
+(``models/decoder.py``), and the backward reads the same tensor: nothing
+in the scan holds host-side random state, so a CUDA graph of the train
+step replays it with fresh masks.  ``decoder_custom_vjp=False`` runs
+``scan_plain``: the same step function under autograd, the oracle of this
+backward; with ``remat=True`` each of its steps is checkpointed
+(``remat_decoder``) and gets its step's masks as an input.
 
 With ``ScanSpec.capture_kd`` both scans also return the per-step
 zoneout-blended ``h`` of LSTM layers 0 and 1 (KD knowledge), and the
@@ -34,8 +37,6 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
-from fcl_taco2_tpu_torch.ops.rnn import zoneout_keep_masks
-
 
 class ScanSpec(NamedTuple):
     """Static configuration of one teacher-forced scan
@@ -47,10 +48,6 @@ class ScanSpec(NamedTuple):
     append_position: bool
     use_enc_out: bool  # enc_out operand present (cfg.use_concate)
     capture_kd: bool = False  # also return h of layers 0 and 1, (S, P, H)
-
-
-def _use_train_zoneout(spec, seeds):
-    return spec.train and spec.zoneout_rate > 0.0 and seeds is not None
 
 
 def step_forward(spec, weights, enc_gates, hs, cs, prenet_t, pos_t, keep,
@@ -100,20 +97,15 @@ def _feat_out(spec, h_last, wf_z, enc_out):
     return outs
 
 
-def _keep(spec, seeds, gen, s, P):
-    if not _use_train_zoneout(spec, seeds):
+def _keep(spec, keep, s):
+    """Step ``s``'s (2L, P, H) masks in train mode, else None."""
+    if not (spec.train and spec.zoneout_rate > 0.0) or keep is None:
         return None
-    return zoneout_keep_masks(gen, seeds[s], 2 * spec.dlayers, P,
-                              spec.dunits, spec.zoneout_rate)
-
-
-def _mask_gen(spec, seeds, device):
-    return (torch.Generator(device=device)
-            if _use_train_zoneout(spec, seeds) else None)
+    return keep[s]
 
 
 def scan_plain(spec, weights, enc_gates, enc_out, prenet_steps, pos_steps,
-               seeds, remat=False):
+               keep, remat=False):
     """The scan as plain PyTorch ops, differentiated by autograd: the
     oracle of ``zoneout_lstm_scan``'s hand-built backward, and the same
     forward math op for op (``models/decoder.py:360-380``).
@@ -121,33 +113,30 @@ def scan_plain(spec, weights, enc_gates, enc_out, prenet_steps, pos_steps,
     ``remat``: each step runs under ``torch.utils.checkpoint`` (the JAX
     package's ``jax.checkpoint`` on the autodiff scan step,
     ``decoder.py:373-377``), so the backward recomputes a step's
-    activations from its carry instead of keeping them.  The step draws
-    its zoneout masks inside the checkpointed function from a generator
-    re-seeded with the step's own seed, so the recomputation redraws the
-    same masks.  Returns outs (S, P, W), and with ``spec.capture_kd`` also
+    activations from its carry instead of keeping them; its masks are one
+    of its inputs, so the recomputation blends with the same masks.
+    Returns outs (S, P, W), and with ``spec.capture_kd`` also
     the h of layers 0 and 1, (S, P, H) each."""
     L, H = spec.dlayers, spec.dunits
     S, P = prenet_steps.shape[0], enc_gates.shape[0]
-    gen = _mask_gen(spec, seeds, enc_gates.device)
 
-    def step(s, prenet_t, pos_t, *carry):
+    def step(keep_s, prenet_t, pos_t, *carry):
         hs, cs, _ = step_forward(spec, weights, enc_gates, carry[:L],
-                                 carry[L:], prenet_t, pos_t,
-                                 _keep(spec, seeds, gen, s, P))
+                                 carry[L:], prenet_t, pos_t, keep_s)
         return (*hs, *cs)
 
     if remat and torch.is_grad_enabled():
         plain_step = step
 
-        def step(s, *args):
+        def step(*args):
             return torch.utils.checkpoint.checkpoint(
-                plain_step, s, *args, use_reentrant=False,
+                plain_step, *args, use_reentrant=False,
                 preserve_rng_state=False)
 
     carry = [enc_gates.new_zeros(P, H) for _ in range(2 * L)]
     h_steps = [[] for _ in range(L)]
     for s in range(S):
-        carry = step(s, prenet_steps[s],
+        carry = step(_keep(spec, keep, s), prenet_steps[s],
                      None if pos_steps is None else pos_steps[s], *carry)
         for i in range(L):
             h_steps[i].append(carry[i])
@@ -162,13 +151,12 @@ class _ZoneoutLSTMScan(torch.autograd.Function):
     (dh, dc) plus post-loop weight GEMMs (``rnn_vjp.py:147-311``)."""
 
     @staticmethod
-    def forward(ctx, spec, seeds, enc_gates, enc_out, prenet_steps,
+    def forward(ctx, spec, keep, enc_gates, enc_out, prenet_steps,
                 pos_steps, w_pre, w_pos, wf_z, *layer_flat):
         L, H = spec.dlayers, spec.dunits
         S, P = prenet_steps.shape[0], enc_gates.shape[0]
         layers = _unflatten_layers(layer_flat)
         weights = (w_pre, w_pos, wf_z, layers)
-        gen = _mask_gen(spec, seeds, enc_gates.device)
         new = enc_gates.new_empty
         gates_all = [new(S, P, 4 * H) for _ in range(L)]
         h_all = [new(S, P, H) for _ in range(L)]
@@ -179,17 +167,17 @@ class _ZoneoutLSTMScan(torch.autograd.Function):
             hs, cs, gates = step_forward(
                 spec, weights, enc_gates, hs, cs, prenet_steps[s],
                 None if pos_steps is None else pos_steps[s],
-                _keep(spec, seeds, gen, s, P), save_gates=True)
+                _keep(spec, keep, s), save_gates=True)
             for i in range(L):
                 gates_all[i][s] = gates[i]
                 h_all[i][s] = hs[i]
                 c_all[i][s] = cs[i]
         outs = _feat_out(spec, h_all[L - 1], wf_z, enc_out)
-        ctx.spec, ctx.seeds = spec, seeds
+        ctx.spec = spec
         ctx.has_pos = pos_steps is not None
         ctx.has_enc_out = enc_out is not None
         ctx.save_for_backward(
-            prenet_steps, pos_steps if ctx.has_pos else None, w_pre,
+            keep, prenet_steps, pos_steps if ctx.has_pos else None, w_pre,
             w_pos if ctx.has_pos else None, wf_z, *layer_flat,
             *gates_all, *h_all, *c_all)
         if spec.capture_kd:
@@ -198,9 +186,9 @@ class _ZoneoutLSTMScan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, douts, *dcapture):
-        spec, seeds = ctx.spec, ctx.seeds
+        spec = ctx.spec
         L, H = spec.dlayers, spec.dunits
-        saved = ctx.saved_tensors
+        keep_all, *saved = ctx.saved_tensors
         prenet_steps, pos_steps, w_pre, w_pos, wf_z = saved[:5]
         n_flat = 2 + 4 * (L - 1)
         layers = _unflatten_layers(saved[5:5 + n_flat])
@@ -218,14 +206,13 @@ class _ZoneoutLSTMScan(torch.autograd.Function):
         d_enc_out = douts.sum(0) if ctx.has_enc_out else None
         dh_direct = douts @ wf_z  # (S, P, H)
 
-        gen = _mask_gen(spec, seeds, douts.device)
         use_zo = spec.zoneout_rate > 0.0
         r = spec.zoneout_rate
         dgates_all = [torch.empty_like(g) for g in gates_all]
         dhs = [douts.new_zeros(P, H) for _ in range(L)]
         dcs = [douts.new_zeros(P, H) for _ in range(L)]
         for s in reversed(range(S)):
-            keep = _keep(spec, seeds, gen, s, P)
+            keep = _keep(spec, keep_all, s)
             dx = None  # cotangent from layer i+1's input into h_new[i]
             for i in reversed(range(L)):
                 dh_new = dhs[i]
@@ -309,7 +296,7 @@ def _unflatten_layers(flat):
 
 
 def zoneout_lstm_scan(spec, weights, enc_gates, enc_out, prenet_steps,
-                      pos_steps, seeds):
+                      pos_steps, keep):
     """Teacher-forced scan of a ``spec.dlayers``-deep zoneout-LSTM stack
     with the hand-built backward (``rnn_vjp.py:84-99``).
 
@@ -320,7 +307,8 @@ def zoneout_lstm_scan(spec, weights, enc_gates, enc_out, prenet_steps,
         enc_out: (P, W) step-invariant feat_out term, or None.
         prenet_steps: (S, P, u) per-step prenet outputs (step-major).
         pos_steps: (S, P) position scalars, or None.
-        seeds: S per-step zoneout seeds (used in train mode with
+        keep: (S, 2L, P, H) boolean zoneout keep-old masks, [2i] for h
+            and [2i+1] for c of layer i (used in train mode with
             zoneout_rate > 0), or None.
     Returns outs (S, P, W), and with ``spec.capture_kd`` also the
     zoneout-blended h of layers 0 and 1, (S, P, H) each
@@ -329,6 +317,6 @@ def zoneout_lstm_scan(spec, weights, enc_gates, enc_out, prenet_steps,
     w_pre, w_pos, wf_z, layers = weights
     flat = [t for layer in layers for t in layer]
     return _ZoneoutLSTMScan.apply(
-        spec, seeds, enc_gates, enc_out if spec.use_enc_out else None,
+        spec, keep, enc_gates, enc_out if spec.use_enc_out else None,
         prenet_steps, pos_steps if spec.append_position else None, w_pre,
         w_pos if spec.append_position else None, wf_z, *flat)

@@ -8,8 +8,8 @@ One msgpack file carries ``params``, ``model_state``, ``opt_state``,
 flax's ``{"0": ..., "1": ...}`` maps), so a JAX-written checkpoint's
 weights load into the port and a port-written one's load in JAX with
 ``load_params_only``.  ``opt_state`` is the port's own tree
-(``train/optim.py``), keyed by parameter name: port -> port resume is
-exact.  The codec is ``utils/msgpack.py`` (the GPU host has no msgpack or
+(``train/optim.py``), keyed by parameter name, its counters written as
+ints: port -> port resume is exact.  The codec is ``utils/msgpack.py`` (the GPU host has no msgpack or
 flax).
 """
 
@@ -70,7 +70,7 @@ def _host_tree(ts, host_tensors):
     sd = dict(zip(sd_keys, host_tensors["state_dict"]))
     params, model_state = params_to_numpy(sd)
     opt = {k: ([t.numpy() if t.dtype != torch.bfloat16 else t for t in v]
-               if k in _OPT_LISTS else v)
+               if k in _OPT_LISTS else int(v))  # counters as ints
            for k, v in host_tensors["opt_state"].items()}
     return {"params": _flax_state_dict(params),
             "model_state": _flax_state_dict(model_state),
@@ -95,12 +95,15 @@ def start_state_fetch(ts, opt_state_dtype=None):
            for k, v in ts.opt_state.items()}
 
     def snap(t, opt_leaf):
+        if not isinstance(t, torch.Tensor):  # an int counter
+            return t
         if opt_leaf and narrow is not None and t.dtype == torch.float32:
             return t.to(narrow)
         return t.clone()
 
     dev_sd = [snap(t, False) for t in sd]
-    dev_opt = {k: ([snap(t, True) for t in v] if k in _OPT_LISTS else v)
+    dev_opt = {k: ([snap(t, True) for t in v] if k in _OPT_LISTS
+                   else snap(v, False))
                for k, v in opt.items()}
     step = int(ts.step)
     on_cuda = any(t.is_cuda for t in dev_sd)
@@ -112,6 +115,8 @@ def start_state_fetch(ts, opt_state_dtype=None):
     side.wait_stream(torch.cuda.current_stream(dev_sd[0].device))
 
     def to_host(t):
+        if not isinstance(t, torch.Tensor):
+            return t
         h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
         h.copy_(t, non_blocking=True)
         t.record_stream(side)
@@ -120,7 +125,7 @@ def start_state_fetch(ts, opt_state_dtype=None):
     with torch.cuda.stream(side):
         host = {"state_dict": [to_host(t) for t in dev_sd],
                 "opt_state": {k: ([to_host(t) for t in v]
-                                  if k in _OPT_LISTS else v)
+                                  if k in _OPT_LISTS else to_host(v))
                               for k, v in dev_opt.items()},
                 "step": step}
         done = torch.cuda.Event()
@@ -324,8 +329,11 @@ def restore_checkpoint(path, template=None):
                          f"match the live ones {sorted(template.opt_state)}")
     with torch.no_grad():
         for k, live in template.opt_state.items():
-            if k not in _OPT_LISTS:
-                template.opt_state[k] = int(saved[k])
+            if k not in _OPT_LISTS:  # a counter: kept where it lives
+                if isinstance(live, torch.Tensor):
+                    live.fill_(int(saved[k]))
+                else:
+                    template.opt_state[k] = int(saved[k])
                 continue
             for name, t in zip(names, live):
                 v = saved[k][name]

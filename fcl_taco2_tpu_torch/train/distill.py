@@ -20,28 +20,33 @@ from fcl_taco2_tpu_torch.train.step import (make_kd_eval_step,
 class KDTrainer(Trainer):
     """``kd``: a ``models.kd.KDStudent``; ``teacher_checkpoint``: a
     checkpoint of the teacher written by either package.  ``device``
-    defaults to the card and raises when none is present."""
+    defaults to the card and raises when none is present.  The device
+    cache serves KD as it serves the teacher's training; the steps stay
+    one a dispatch, as in the JAX package."""
 
     def __init__(self, kd, tcfg, train_utts, val_utts,
                  teacher_checkpoint: str, device="cuda"):
         if not teacher_checkpoint:
             raise ValueError("KD needs the teacher's checkpoint "
                              "(tts_distill.py:370-375)")
-        if tcfg.steps_per_dispatch > 1:
-            # the KD step closes over the frozen teacher, so the chained
-            # dispatch is not wired for it (distill.py:59-65)
-            print("steps_per_dispatch: not supported for KD training; "
-                  "running one step per dispatch", flush=True)
-            tcfg = dataclasses.replace(tcfg, steps_per_dispatch=1)
+        self.kd = kd
         super().__init__(kd.student, tcfg, train_utts, val_utts,
                          device=device)
-        self.kd = kd
         kd.teacher.to(self.device)
         load_params_only(teacher_checkpoint, kd.teacher)
-        self.train_step = make_kd_train_step(kd, self.tx)
-        self.eval_step = make_kd_eval_step(kd)
         save_model_json(tcfg.exp_dir, kd.scfg, extra={
             "train_config": dataclasses.asdict(tcfg),
             "teacher_config": dataclasses.asdict(kd.tcfg),
             "teacher_checkpoint": teacher_checkpoint,
         })
+
+    def _build_steps(self):
+        self.train_step = make_kd_train_step(self.kd, self.tx)
+        self.eval_step = make_kd_eval_step(self.kd)
+        # the KD step closes over the frozen teacher, so the chained
+        # dispatch is not wired for it (distill.py:935-946)
+        self.chain_step = None
+        self._spd = 1
+        if self.tcfg.steps_per_dispatch > 1:
+            print("steps_per_dispatch: not supported for KD training; "
+                  "running one step per dispatch", flush=True)

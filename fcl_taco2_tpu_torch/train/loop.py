@@ -9,14 +9,22 @@ checkpoint after the in-flight step on SIGTERM/SIGINT.
 
 Each step's ``torch.Generator`` is derived from ``(seed, step)``
 (``step_generator``), so a resumed run draws the same dropout and zoneout
-masks as an uninterrupted one.  Not ported yet (ROADMAP): the
-device-resident dataset cache and chained dispatch
-(``device_cache``/``steps_per_dispatch``, A3), multi-device meshes (A5),
-the ``--preprocess-conf`` transform and the profiler trace (A3), and
-fine-tuning's partial init and freezing (A2).  KD runs through
+masks as an uninterrupted one.  The single-card runtime is the JAX
+trainer's: with ``device_cache="auto"`` the corpus is uploaded once when
+it fits in ``device_cache_max_mb`` and each batch is assembled on the
+device from a packed plan vector (``data/device_cache.py``); with
+``steps_per_dispatch=0`` the trainer then chains 4 steps a dispatch (1
+without the cache), on the card as replays of one CUDA graph of the step
+(``train/step.py::make_chained_train_step``).  Fine-tuning
+(``enc_init``/``dec_init``, ``freeze_mods``, ``train/finetune.py``), the
+``preprocess_conf`` transform (``data/transform.py``) and the profiler
+trace of the first epoch (``profile_dir``, ``train/profiler.py``) are
+wired as in the JAX package.  Not ported yet: more than one device
+(``n_devices``/``n_slices``, ROADMAP A5).  KD runs through
 ``train/distill.py::KDTrainer``.
 """
 
+import contextlib
 import dataclasses
 import os
 import signal
@@ -24,21 +32,23 @@ import threading
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from fcl_taco2_tpu_torch.data.batchfy import make_batchset
 from fcl_taco2_tpu_torch.data.converter import BatchConverter
 from fcl_taco2_tpu_torch.data.loader import BatchUploader, PrefetchLoader
-from fcl_taco2_tpu_torch.ops.rnn import step_seed
 from fcl_taco2_tpu_torch.train.checkpoint import (AsyncCheckpointWriter,
                                                   restore_checkpoint,
                                                   save_checkpoint,
                                                   save_model_json)
 from fcl_taco2_tpu_torch.train.optim import build_optimizer
-from fcl_taco2_tpu_torch.train.profiler import StepTimer
+from fcl_taco2_tpu_torch.train.profiler import StepTimer, trace
 from fcl_taco2_tpu_torch.train.reporter import Reporter
 from fcl_taco2_tpu_torch.train.state import TrainState
-from fcl_taco2_tpu_torch.train.step import make_eval_step, make_train_step
+from fcl_taco2_tpu_torch.train.step import (make_chained_train_step,
+                                            make_eval_step, make_train_step,
+                                            pack_report, step_generator)
 from fcl_taco2_tpu_torch.utils.device import resolve_device
 
 EVAL_STREAM = 1 << 40  # eval generators: a stream apart from train steps
@@ -84,40 +94,24 @@ class TrainConfig:
     dec_init: Optional[str] = None
     dec_init_mods: tuple = ("dec.",)
     freeze_mods: tuple = ()
-    steps_per_dispatch: int = 0   # 0 = auto (1 here); >1 not ported yet
+    # K optimizer steps a dispatch (make_chained_train_step); 0 = auto:
+    # 4 with the device cache, 1 without it; > 1 needs fixed_shapes
+    steps_per_dispatch: int = 0
     ckpt_opt_dtype: Optional[str] = None  # e.g. "bfloat16" moments on disk
-    device_cache: str = "auto"    # "auto"/"off" stream from host
+    # device-resident dataset cache (data/device_cache.py): "auto" builds
+    # it when supported and within device_cache_max_mb (else says why it
+    # streams), "on" raises where it cannot be built, "off" streams
+    device_cache: str = "auto"
     device_cache_max_mb: int = 2048
     checkpoint_on_signal: bool = False
 
 
 def _not_ported(tcfg):
     """The knobs whose features wait for later slices, as errors."""
-    later = []
     if (tcfg.n_devices or 1) > 1 or tcfg.n_slices > 1:
-        later.append("multi-device training (n_devices/n_slices)")
-    if tcfg.steps_per_dispatch > 1:
-        later.append("chained dispatch (steps_per_dispatch > 1)")
-    if tcfg.device_cache == "on":
-        later.append("the device-resident dataset cache (device_cache=on)")
-    if tcfg.preprocess_conf:
-        later.append("--preprocess-conf transforms")
-    if tcfg.profile_dir:
-        later.append("the profiler trace (profile_dir)")
-    if tcfg.enc_init or tcfg.dec_init:
-        later.append("partial init from checkpoints (enc_init/dec_init, "
-                     "ROADMAP A2)")
-    if later:
         raise NotImplementedError(
-            "not ported yet (ROADMAP): " + "; ".join(later))
-
-
-def step_generator(seed, step, device):
-    """The ``torch.Generator`` of train step ``step``: a function of
-    ``(seed, step)`` only."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(step_seed(seed, step))
-    return gen
+            "not ported yet (ROADMAP A5): multi-device training "
+            "(n_devices/n_slices)")
 
 
 class Trainer:
@@ -137,6 +131,10 @@ class Trainer:
             max_dur=cfg.max_dur, batch_size=tcfg.batch_size, seg_bucket=64,
             odim=cfg.odim, cache={},
             duration_classes=cfg.effective_duration_classes)
+        if tcfg.preprocess_conf:
+            from fcl_taco2_tpu_torch.data.transform import Transformation
+            self.converter.transform = Transformation(
+                tcfg.preprocess_conf, seed=tcfg.seed)
         if tcfg.fixed_shapes:
             # one shape for the whole run: caps from train + val
             self.converter.fit_corpus(list(train_utts) + list(val_utts))
@@ -145,19 +143,86 @@ class Trainer:
             weight_decay=tcfg.weight_decay, grad_clip=tcfg.grad_clip,
             accum_grad=tcfg.accum_grad, noam_model_size=cfg.embed_dim,
             freeze_mods=tcfg.freeze_mods)
-        self.train_step = make_train_step(self.tx)
-        self.eval_step = make_eval_step()
         self.uploader = BatchUploader(self.device)
+        self._dcache = self._maybe_device_cache()
+        self._build_steps()  # after _dcache: the chain assembles from it
         self.reporter = Reporter(tcfg.exp_dir)
         save_model_json(tcfg.exp_dir, cfg,
                         extra={"train_config": dataclasses.asdict(tcfg)})
 
+    def _maybe_device_cache(self):
+        """The device-resident dataset cache where configured and
+        supported (``loop.py:165-199``)."""
+        t = self.tcfg
+        if t.device_cache == "off":
+            return None
+        on = t.device_cache == "on"
+
+        def no(reason):
+            if on:
+                raise ValueError(f"device_cache=on but {reason}")
+            print(f"device_cache: {reason}; streaming from host",
+                  flush=True)
+            return None
+
+        if not t.fixed_shapes:
+            return no("fixed_shapes is off")
+        if self.converter.transform is not None:
+            return no("a host mel transform (preprocess_conf) is set")
+        from fcl_taco2_tpu_torch.data.device_cache import (
+            DeviceBatchCache, estimate_cache_bytes)
+        utts = list(self.train_utts) + list(self.val_utts)
+        est = estimate_cache_bytes(self.converter, len(utts))
+        if not on and est > t.device_cache_max_mb * (1 << 20):
+            return no(f"dataset ~{est / (1 << 20):.0f} MB exceeds "
+                      f"device_cache_max_mb={t.device_cache_max_mb}")
+        dc = DeviceBatchCache(self.converter, utts, self.device)
+        print(f"device_cache: {len(utts)} utterances resident on "
+              f"{self.device} ({dc.bytes / (1 << 20):.1f} MB); per-step "
+              "H2D is the packed plan vector only", flush=True)
+        return dc
+
+    def _build_steps(self):
+        """The train, eval and chained steps; ``KDTrainer`` overrides
+        this (``loop.py:201-231``)."""
+        self.train_step = make_train_step(self.tx)
+        self.eval_step = make_eval_step()
+        self.chain_step = None
+        self._spd = self.tcfg.steps_per_dispatch
+        if self._spd == 0:  # auto: chain when the batches are plan packs
+            self._spd = 4 if self._dcache is not None else 1
+        if self._spd > 1:
+            if not self.tcfg.fixed_shapes:
+                raise ValueError("steps_per_dispatch > 1 requires "
+                                 "fixed_shapes (one graph for the run)")
+            self.chain_step = make_chained_train_step(
+                self.tx, assemble=None if self._dcache is None
+                else self._dcache.assemble)
+
+    def _run_train_step(self, ts, batch):
+        return self.train_step(ts, batch, step_generator(
+            self.tcfg.seed, ts.step, self.device))
+
     def init_state(self) -> TrainState:
-        params = list(self.model.parameters())
-        n = sum(p.numel() for p in params)
-        print(f"parameters: {n / 1e6:.2f} M in {len(params)} tensors",
-              flush=True)
-        return TrainState(self.model, self.tx.init(params), 0)
+        """Partial init from checkpoints (``enc_init``/``dec_init``, in
+        that order), the frozen leaves and the parameter report, then a
+        fresh optimizer state (``loop.py:253-276``)."""
+        from fcl_taco2_tpu_torch.train.finetune import (frozen_paths,
+                                                        load_partial)
+        from fcl_taco2_tpu_torch.utils.summary import format_param_report
+        t = self.tcfg
+        for ckpt, mods, tag in ((t.enc_init, t.enc_init_mods, "enc-init"),
+                                (t.dec_init, t.dec_init_mods, "dec-init")):
+            if ckpt:
+                copied = load_partial(self.model, ckpt, mods)
+                print(f"{tag}: loaded {len(copied)} tensors from {ckpt} "
+                      f"under {list(mods)}", flush=True)
+        if t.freeze_mods:
+            for p in frozen_paths(self.model, t.freeze_mods):
+                print(f"{p} is frozen not to be updated.", flush=True)
+        print(format_param_report(self.model), flush=True)
+        names, params = zip(*self.model.named_parameters())
+        return TrainState(self.model, self.tx.init(params, names), 0)
 
     def _epoch_batches(self, epoch):
         t = self.tcfg
@@ -173,18 +238,50 @@ class Trainer:
             shortest_first=shortest_first, num_batches=t.minibatches,
             seed=t.seed + epoch, odim=self.model.cfg.odim)
 
-    def _loader(self, batches):
-        return PrefetchLoader(batches, self.converter, self.uploader)
+    def _loader(self, batches, train=True, chain=1):
+        """Batches for the loop (``loop.py:294-352``).  With ``chain`` > 1
+        the batches go in groups of exactly ``chain`` (tagged "chain": a
+        (chain, P) tensor of plan packs with the device cache, else a
+        list of batches) and the epoch's remainder as single batches."""
+        # phases never overlap, so toggling the shared converter's mode
+        # is safe
+        self.converter.transform_train = train
+        dc = self._dcache
+        if chain <= 1:
+            if dc is not None:
+                return PrefetchLoader(batches, dc.plan, self.uploader,
+                                      finish=dc.assemble)
+            return PrefetchLoader(batches, self.converter, self.uploader)
+        groups, i = [], 0
+        while i + chain <= len(batches):
+            groups.append(batches[i:i + chain])
+            i += chain
+        groups.extend([b] for b in batches[i:])
+        one = self.converter if dc is None else dc.plan
+
+        def convert(group):
+            if len(group) == 1:
+                return ("single", one(group[0]))
+            items = [one(b) for b in group]
+            return ("chain", items if dc is None else np.stack(items))
+
+        def finish(item):
+            kind, x = item
+            if kind == "single" and dc is not None:
+                return kind, dc.assemble(x)
+            return item
+
+        return PrefetchLoader(groups, convert, self.uploader, finish=finish)
 
     def _flush(self, pending):
-        """Move a chunk of per-step reports to the host in one copy."""
+        """Move a chunk of packed per-step reports ((n, n_keys) each) to
+        the host in one copy."""
         if not pending:
             return
-        keys = sorted(pending[0])
-        rows = torch.stack([torch.stack([r[k].float() for k in keys])
-                            for r in pending]).cpu().tolist()
-        for row in rows:
-            self.reporter.report(dict(zip(keys, row)), prefix="main")
+        rows = torch.cat([r for _, r in pending]).cpu().tolist()
+        keys = [k for k, r in pending for _ in range(r.shape[0])]
+        for k, row in zip(keys, rows):
+            self.reporter.report(dict(zip(k, row)), prefix="main")
         pending.clear()
 
     def evaluate(self, ts, epoch):
@@ -193,8 +290,8 @@ class Trainer:
         bs = self.tcfg.batch_size
         batches = [self.val_utts[i:i + bs]
                    for i in range(0, len(self.val_utts), bs)]
-        for i, (chunk, batch) in enumerate(zip(batches,
-                                               self._loader(batches))):
+        for i, (chunk, batch) in enumerate(zip(
+                batches, self._loader(batches, train=False))):
             gen = step_generator(self.tcfg.seed,
                                  EVAL_STREAM + epoch * 100003 + i,
                                  self.device)
@@ -228,43 +325,87 @@ class Trainer:
             for sig, h in prev_handlers.items():
                 signal.signal(sig, h)
 
+    def _prepare_chain(self, ts, batches, chain):
+        """Capture the chained step's graph before the epoch's loader and
+        trace start, from the epoch's first batch; returns the seconds it
+        took (0 once captured, and on the CPU)."""
+        if self.chain_step is None or self.chain_step.graph is not None \
+                or self.device.type != "cuda" or len(batches) < chain:
+            return 0.0
+        first = self._dcache.plan(batches[0]) if self._dcache is not None \
+            else self.converter(batches[0])
+        self.chain_step.prepare(ts, self.uploader(first), self.tcfg.seed)
+        print(f"chained step: CUDA graph captured in "
+              f"{self.chain_step.capture_s:.2f} s (graph pool "
+              f"{self.chain_step.pool_bytes / 2 ** 20:.1f} MiB); "
+              f"{chain} replays a dispatch", flush=True)
+        return self.chain_step.capture_s
+
     def _run_epochs(self, ts, start_epoch, best_val, preempt):
         t = self.tcfg
         timer = StepTimer()
         bad_epochs = 0
         self.loop_stats = []  # per-epoch wall breakdown
         ckpt_writer = AsyncCheckpointWriter(opt_state_dtype=t.ckpt_opt_dtype)
-        K = 8  # reports moved to the host K steps at a time
+        K = 8  # dispatches' reports moved to the host K at a time
         for epoch in range(start_epoch, t.epochs):
-            ep = {"epoch": epoch + 1, "steps": 0, "eval_s": 0.0,
-                  "ckpt_s": 0.0, "plot_s": 0.0}
+            ep = {"epoch": epoch + 1, "dispatch_s": 0.0, "fetch_s": 0.0,
+                  "first_iter_s": 0.0, "capture_s": 0.0, "steps": 0,
+                  "eval_s": 0.0, "ckpt_s": 0.0, "plot_s": 0.0}
             t_epoch = time.perf_counter()
             batches = self._epoch_batches(epoch)
-            loader = self._loader(batches)
-            pending = []
-            for batch in loader:
-                timer.tic()
-                ts, report = self.train_step(
-                    ts, batch, step_generator(t.seed, ts.step, self.device))
-                pending.append(report)
-                if len(pending) >= K:
-                    self._flush(pending)
-                timer.toc()
-                ep["steps"] += 1
-                if t.log_interval_steps > 0 and \
-                        ts.step % t.log_interval_steps == 0:
-                    self._flush(pending)
-                    loss = self.reporter.peek(["main/loss"]).get("main/loss")
-                    print(f"epoch {epoch + 1:>3} iter {ts.step:>6} "
-                          f"loss={loss:.4f}  "
-                          f"({timer.summary().get('step_ms_p50', 0):.0f}"
-                          " ms/step p50)", flush=True)
-                if preempt.is_set():
-                    break
-            self._flush(pending)
+            chain = self._spd if self.chain_step is not None else 1
+            ep["capture_s"] = self._prepare_chain(ts, batches, chain)
+            profile = t.profile_dir is not None and epoch == start_epoch
+            with (trace(t.profile_dir) if profile
+                  else contextlib.nullcontext()):
+                loader = self._loader(batches, chain=chain)
+                pending, used = [], 0
+                for i, item in enumerate(loader):
+                    kind, batch = item if chain > 1 else ("single", item)
+                    timer.tic()
+                    t0 = time.perf_counter()
+                    if kind == "chain":
+                        ts, report = self.chain_step(ts, batch, t.seed)
+                        keys = self.chain_step.report_keys
+                    else:
+                        ts, report = self._run_train_step(ts, batch)
+                        keys, report = pack_report(report)
+                        report = report[None]
+                    t1 = time.perf_counter()
+                    pending.append((keys, report))
+                    if len(pending) >= K:
+                        self._flush(pending)
+                    t2 = time.perf_counter()
+                    ep["dispatch_s"] += t1 - t0
+                    ep["fetch_s"] += t2 - t1
+                    if i == 0:
+                        ep["first_iter_s"] = t2 - t0
+                    n_done = report.shape[0]
+                    prev_used, used = used, used + n_done
+                    ep["steps"] += n_done
+                    timer.toc(n=n_done)
+                    if t.log_interval_steps > 0 and \
+                            used // t.log_interval_steps \
+                            > prev_used // t.log_interval_steps:
+                        self._flush(pending)
+                        loss = self.reporter.peek(
+                            ["main/loss"]).get("main/loss")
+                        print(f"epoch {epoch + 1:>3} iter {ts.step:>6} "
+                              f"loss={loss:.4f}  "
+                              f"({timer.summary().get('step_ms_p50', 0):.0f}"
+                              " ms/step p50)", flush=True)
+                    if preempt.is_set():
+                        break
+                t0 = time.perf_counter()
+                self._flush(pending)
+                ep["fetch_s"] += time.perf_counter() - t0
             ep.update({f"loader_{k}": round(v, 4) if k != "batches" else v
                        for k, v in loader.stats.items()})
             ep["train_wall_s"] = time.perf_counter() - t_epoch
+            if self.chain_step is not None and \
+                    self.chain_step.graph is not None:
+                ep["graph_pool_bytes"] = self.chain_step.pool_bytes
             if preempt.is_set():
                 try:
                     ckpt_writer.wait()
@@ -286,6 +427,11 @@ class Trainer:
             extra.update({k: round(v, 4) for k, v in ep.items()
                           if isinstance(v, float)})
             extra["steps"] = ep["steps"]
+            extra["dispatches"] = loader.stats["batches"]
+            extra["steps_per_dispatch"] = chain
+            extra["device_cache"] = self._dcache is not None
+            if "graph_pool_bytes" in ep:
+                extra["graph_pool_bytes"] = ep["graph_pool_bytes"]
             if self.device.type == "cuda":  # saved activations dominate it
                 extra["max_memory_allocated_gib"] = round(
                     torch.cuda.max_memory_allocated(self.device) / 2 ** 30,

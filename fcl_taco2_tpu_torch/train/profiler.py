@@ -1,15 +1,52 @@
-"""Per-step wall timing (the port's ``StepTimer`` of
-``fcl_taco2_tpu/train/profiler.py``; the device trace is not ported yet).
+"""Tracing and per-step timing (port of
+``fcl_taco2_tpu/train/profiler.py``).
 
-``StepTimer`` keeps the host-clock durations of the last ``window`` steps
-and summarizes them as p50 / p90 / max.  On the card a step's host time
-covers its device time only where the step ends in a synchronization
-(the trainer's metric flush and non-finite check do).
+- ``trace(log_dir)``: a ``torch.profiler`` context with CPU activity and,
+  where a card is present, CUDA activity; on exit it writes a Chrome trace
+  (``trace.json``, viewable in Perfetto or chrome://tracing) into
+  ``log_dir``.  The trainer wraps its first epoch in it when
+  ``profile_dir`` is set (``loop.py:446-447``).
+- ``cost_analysis(fn, *args)``: the flops of one call, counted by
+  ``torch.utils.flop_counter.FlopCounterMode``; bytes are -1, as the JAX
+  version returns where a backend gives none.
+- ``StepTimer``: host-clock durations of the last ``window`` steps as
+  p50 / p90 / max.  On the card a step's host time covers its device time
+  only where the step ends in a synchronization (the trainer's metric
+  flush does).
 """
 
+import contextlib
+import os
 import time
 
 import numpy as np
+import torch
+
+TRACE_FILE = "trace.json"
+
+
+@contextlib.contextmanager
+def trace(log_dir):
+    """Profile the block; write ``log_dir/trace.json`` at its end."""
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
+
+
+def cost_analysis(fn, *args):
+    """{"flops": flops of ``fn(*args)``, "bytes_accessed": -1.0}."""
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as counter:
+        fn(*args)
+    return {"flops": float(counter.get_total_flops()),
+            "bytes_accessed": -1.0}
 
 
 class StepTimer:
@@ -22,7 +59,8 @@ class StepTimer:
         self._t = time.perf_counter()
 
     def toc(self, n=1):
-        """``n``: optimizer steps covered since ``tic``."""
+        """``n``: optimizer steps covered since ``tic`` (a chained
+        dispatch records its wall divided by its steps)."""
         if self._t is not None:
             self._durs.append((time.perf_counter() - self._t) / max(1, n))
             self._t = None

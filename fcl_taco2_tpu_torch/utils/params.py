@@ -110,6 +110,12 @@ def _jax_path(key):
     return tuple(out + [name]), _LEAVES[name][1], False
 
 
+def jax_path(key):
+    """A ``state_dict`` key's path in the JAX package's params or state
+    tree (a tuple of names and list indices)."""
+    return _jax_path(key)[0]
+
+
 def params_from_jax(params_np, state_np):
     """JAX (params, state) trees of numpy arrays -> a ``state_dict`` for
     ``models.taco2_sa.Tacotron2SA`` (CPU float tensors)."""

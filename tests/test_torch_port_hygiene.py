@@ -238,3 +238,74 @@ def test_serving_clis_and_kd_default_to_the_card(monkeypatch, tmp_path):
         KDTrainer(kd, TrainConfig(exp_dir=str(tmp_path / "kd2")), utts,
                   utts, teacher_checkpoint=path)
     assert next(kd.student.parameters()).device.type == "cpu"
+
+
+def test_runtime_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    """Without a card, ``DeviceBatchCache``, a chained ``Trainer`` and
+    ``fcl_train --enc-init`` raise the no-device error; with
+    ``device="cpu"`` (``--device cpu``) each runs."""
+    import os
+
+    from fcl_taco2_tpu_torch.cli.fcl_train import main
+    from fcl_taco2_tpu_torch.data.converter import BatchConverter
+    from fcl_taco2_tpu_torch.data.device_cache import DeviceBatchCache
+    from fcl_taco2_tpu_torch.data.manifest import load_manifest
+    from fcl_taco2_tpu_torch.data.synthetic import write_learnable_corpus
+    from fcl_taco2_tpu_torch.models import Tacotron2SA
+    from fcl_taco2_tpu_torch.train import checkpoint as ckpt
+    from fcl_taco2_tpu_torch.train.loop import TrainConfig, Trainer
+    from fcl_taco2_tpu_torch.train.optim import build_optimizer
+    from fcl_taco2_tpu_torch.train.state import TrainState
+    from helpers import tiny_config
+    from torch_port_helpers import port_config
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    train, valid = write_learnable_corpus(str(tmp_path), 4, 2)
+    utts = load_manifest(train)
+    conv = BatchConverter(max_dur=6, batch_size=2, odim=8).fit_corpus(utts)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DeviceBatchCache(conv, utts)
+    assert DeviceBatchCache(conv, utts, device="cpu").rows["mel"].device \
+        == torch.device("cpu")
+    cfg = port_config(tiny_config())
+    model = Tacotron2SA(cfg, device="cpu")
+    tcfg = TrainConfig(exp_dir=str(tmp_path / "exp"), epochs=1,
+                       batch_size=2, steps_per_dispatch=2,
+                       device_cache="on", plot_interval_epochs=0)
+    val = load_manifest(valid)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(model, tcfg, utts, val)
+    assert Trainer(model, tcfg, utts, val, device="cpu").run().step == 2
+    donor = str(tmp_path / "donor")
+    names, params = zip(*model.named_parameters())
+    ckpt.save_checkpoint(donor, TrainState(
+        model, build_optimizer().init(params, names), 0))
+    ckpt.save_model_json(str(tmp_path), cfg)
+    args = ["--train-json", train, "--valid-json", valid, "--enc-init",
+            donor, "--freeze-mods", "enc.", "--epochs", "1",
+            "--batch-size", "2", "--embed-dim", "16", "--eunits", "16",
+            "--econv-chans", "16", "--econv-layers", "2", "--dunits", "20",
+            "--prenet-units", "12", "--postnet-chans", "10",
+            "--postnet-layers", "3", "--duration-predictor-chans", "14",
+            "--max-dur", "6", "--duration-classes", "",
+            "--compute-dtype", "float32"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(args + ["--outdir", str(tmp_path / "cli")])
+    ts = main(args + ["--outdir", str(tmp_path / "cli_cpu"),
+                      "--device", "cpu"])
+    assert ts.step == 2
+    assert os.path.exists(tmp_path / "cli_cpu" / "snapshot.ep.1")
+
+
+def test_runtime_modules_import_no_jax():
+    """The slice's new modules are among the files the import check reads,
+    and import neither JAX nor the JAX package."""
+    new = ["train/finetune.py", "utils/summary.py", "data/transform.py",
+           "data/native.py", "data/device_cache.py", "train/profiler.py",
+           "train/step.py"]
+    for rel in new:
+        path = REPO / "fcl_taco2_tpu_torch" / rel
+        assert path.exists(), rel
+        bad = [m for m in _imported_roots(path) if m in FORBIDDEN]
+        assert not bad, (rel, bad)
+    assert (REPO / "fcl_taco2_tpu_torch" / "csrc" / "fclrt.cpp").exists()

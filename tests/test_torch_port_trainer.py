@@ -183,7 +183,7 @@ def test_eval_covers_the_whole_validation_split(tmp_path):
     cfg = port_config(tiny_config(max_dur=6))
     trainer = Trainer(Tacotron2SA(cfg, device="cpu", seed=0),
                       TrainConfig(exp_dir=str(tmp_path / "exp"),
-                                  batch_size=4),
+                                  batch_size=4, device_cache="off"),
                       load_manifest(train), load_manifest(valid),
                       device="cpu")
     seen = []
