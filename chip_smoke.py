@@ -38,7 +38,13 @@ prints no result):
    (time to first audio, x realtime), and its exactness against
    synthesize + the one-shot kernel at dropout 0, fp32.  Launch counters
    are zeroed just before each case's main-path call and must be non-zero
-   after it.
+   after it.  Reference checkpoints (``[import]``, after the text -> mel
+   cases): the seeded teacher exported to the reference's keys
+   (``export_reference_state_dict``), saved as an amp checkpoint with
+   DataParallel ``module.`` prefixes and loaded into a fresh model
+   (``load_reference_checkpoint``); its batch-1 ``synthesize`` (bf16,
+   dropout 0) must equal the source model's (``torch.equal``) through
+   ``fused_ar_decode_hbm``, counted like the cases above.
 7. Training (``[train]``), after the serving paths; no decoder or PWG
    kernel may launch in it (the JAX package has no Pallas kernel on the
    training path): the hand-built decoder backward against autograd
@@ -52,7 +58,9 @@ prints no result):
    busy time from a ``torch.profiler`` trace, peak memory, first and last
    loss; and ``fcl_train.main`` at FCL-taco2-S width on a learnable
    synthetic corpus, 2 epochs then a resume for a third (the loss falls,
-   the resume starts at the saved step, the files restore).
+   the resume starts at the saved step, the files restore, and the
+   optimizer state restored from the snapshot, written back in optax's
+   layout, equals the file's bit for bit: mu, nu and the counters).
 8. Knowledge distillation (``[kd]``), no decoder or PWG kernel may
    launch: the KD loss with its captures through the hand-built backward
    and through checkpointed steps (remat) against autograd through the
@@ -104,7 +112,19 @@ prints no result):
    parameters are bit-unchanged after the epochs and the others moved;
    then the student with ``--profile-dir``: the Chrome trace exists and
    holds CUDA kernel events.
-12. One JSON line of the kernels (launches: every main path above, the
+12. Preprocessing (``[preprocess]``, after ``[finetune]``), no kernel may
+   launch: ``audio/synthcorpus.generate_corpus`` writes 128 utterances
+   (seed 0, 24-80 phones: ~6.5 s mean, LJSpeech-like lengths); the
+   frontend (``Frontend``, default config) on the card against its CPU
+   path on the same wavs (log10-mel 1e-4 abs, energy 1e-4 of the max,
+   voicing equal on 99.9% of frames, f0 1 cent; flips printed); the
+   port's ``yin_f0`` on CUDA tensors meets the F0 goldens' budgets
+   (``tests/test_f0_goldens.py``'s, copied); ``fcl_preprocess --device
+   cuda`` end to end (audio seconds per wall second, its five stages,
+   the frontend's device ms per bucket, peak memory, the manifests'
+   utterance counts) and one ``fcl_train`` epoch at FCL-taco2-S width on
+   the manifests it wrote (finite loss).
+13. One JSON line of the kernels (launches: every main path above, the
    CLIs included), the nvidia-smi line, and last the result line
    ``{"ok": true, "device": {...}}``.  Each phase's seconds are logged
    (``[phase]``).
@@ -503,6 +523,53 @@ def phase_main_path(models, kind):
             f"{sum(want_len)} frames, budget {stats['budget']})")
         breakdown(synth, tokens, ilens, dd, stats["budget"], tag, kind)
     return launches
+
+
+def phase_import(models, kind):
+    """The reference's checkpoint layout on the card: the seeded teacher's
+    weights exported to the reference's keys, saved as an amp checkpoint
+    with DataParallel ``module.`` prefixes, loaded into a fresh model;
+    ``synthesize`` on the batch-1 protocol batch (bf16, dropout 0) must
+    equal the source model's bit for bit, through
+    ``fused_ar_decode_hbm``.  Returns the launch counts of the loaded
+    model's call."""
+    import dataclasses
+    from fcl_taco2_tpu_torch.models import Tacotron2SA
+    from fcl_taco2_tpu_torch.ops import decoder_cuda as K
+    from fcl_taco2_tpu_torch.utils.torch_import import (
+        export_reference_state_dict, load_reference_checkpoint)
+    tok1, dur1, _, _ = protocol()
+    cfg = dataclasses.replace(models["teacher"].cfg, dropout_rate=0.0)
+    src = Tacotron2SA(cfg, seed=2)
+    src.load_state_dict(models["teacher"].state_dict())
+    with tempfile.TemporaryDirectory() as root:
+        path = os.path.join(root, "amp_checkpoint_100.pt")
+        ref = export_reference_state_dict(src.state_dict(), cfg)
+        torch.save({"model": {"module." + k: v for k, v in ref.items()},
+                    "optimizer": {}, "amp": {}}, path)
+        size = os.path.getsize(path)
+        dst = load_reference_checkpoint(path, Tacotron2SA(cfg, seed=3))
+    tokens, ilens, dd = _padded([tok1], [dur1], 1, 32)  # Synthesizer's
+    budget = -(-int(dur1.sum()) // 64) * 64
+    want = src.synthesize(tokens, ilens, 0, budget, durations=dd)
+    torch.cuda.synchronize()
+    zero_counts()
+    got = dst.synthesize(tokens, ilens, 0, budget, durations=dd)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    same = {k: torch.equal(got[k], want[k])
+            for k in ("mel", "olens", "d_outs")}
+    log(f"[import] teacher full width -> export_reference_state_dict "
+        f"({len(ref)} reference keys) -> torch.save amp layout with "
+        f"'module.' ({size / 2 ** 20:.1f} MiB) -> load_reference_checkpoint"
+        f" into a fresh Tacotron2SA: synthesize batch 1 (96 phonemes, bf16,"
+        f" dropout 0) torch.equal {all(same.values())} {same}; launches "
+        f"{counts} on {kind}")
+    if not all(same.values()):
+        raise RuntimeError(f"import: the loaded model's output differs {same}")
+    if K.fused_ar_decode_hbm.launches == 0:
+        raise RuntimeError("import: fused_ar_decode_hbm did not launch")
+    return counts
 
 
 def _timed(fn):
@@ -1181,12 +1248,18 @@ def train_cli_check(smi):
                         m.state_dict().values()):
             if not torch.equal(a, b):
                 raise RuntimeError("train cli: snapshot.ep.3 != the run")
+        n_opt, opt_diff = restored_opt_state_diff(snap, cfg, ts3.tx)
+        if opt_diff:
+            raise RuntimeError(f"train cli: the restored optimizer state "
+                               f"differs from snapshot.ep.2's: {opt_diff}")
     log(f"[train] fcl_train student full width, batch 8, 6 steps an epoch: "
         f"mean loss epoch 1 {l1:.4f}, epoch 2 {l2:.4f}; resumed from "
         f"snapshot.ep.2 (step {saved_step}) for epoch {third['epoch']}, "
         f"ended at step {ts3.step} (epoch 3 loss "
         f"{third['main/loss']:.4f}); model.json, snapshot.ep.1-3 and "
-        f"model.loss.best restore; 2 epochs in {t_two:.1f} s wall, peak "
+        f"model.loss.best restore; the restored optimizer state (optax's "
+        f"layout, {n_opt} leaves: mu, nu, counters) equals snapshot.ep.2's "
+        f"bit for bit; 2 epochs in {t_two:.1f} s wall, peak "
         f"memory {log_rows[1].get('max_memory_allocated_gib')} GiB | {smi}")
     if not l2 < l1:
         raise RuntimeError(f"train cli: loss did not fall ({l1} -> {l2})")
@@ -1194,6 +1267,41 @@ def train_cli_check(smi):
             or ts3.step != saved_step + 6 or third["step"] != ts3.step:
         raise RuntimeError(f"train cli: saved step {saved_step}, resumed "
                            f"run ended at {ts3.step} ({third})")
+
+
+def restored_opt_state_diff(path, cfg, tx):
+    """Restore ``path`` into a fresh state with optimizer ``tx`` and write
+    its optimizer state back in optax's layout: (leaves, the paths of the
+    leaves that differ from the file's in value, dtype or shape)."""
+    from fcl_taco2_tpu_torch.models import Tacotron2SA
+    from fcl_taco2_tpu_torch.train import checkpoint as ckpt
+    from fcl_taco2_tpu_torch.train.state import TrainState
+    model = Tacotron2SA(cfg, device=TRAIN_DEVICE, seed=1)
+    names, params = zip(*model.named_parameters())
+    ts = TrainState(model, tx.init(params, names), 0, tx)
+    ckpt.restore_checkpoint(path, ts)
+    again = ckpt.to_optax(tx, ts.opt_state, list(names))
+    saved = ckpt.read_checkpoint(path)["opt_state"]
+    leaves, diff = 0, []
+
+    def walk(a, b, where):
+        nonlocal leaves
+        if isinstance(a, dict) or isinstance(b, dict):
+            if not (isinstance(a, dict) and isinstance(b, dict)
+                    and set(a) == set(b)):
+                diff.append(where)
+                return
+            for k in a:
+                walk(a[k], b[k], f"{where}/{k}")
+            return
+        leaves += 1
+        a, b = np.asarray(a), np.asarray(b)
+        if a.dtype != b.dtype or a.shape != b.shape \
+                or not np.array_equal(a, b):
+            diff.append(where)
+
+    walk(again, saved, "opt_state")
+    return leaves, diff
 
 
 def phase_train(smi, kind):
@@ -1777,6 +1885,209 @@ def phase_finetune(smi, kind, root, tckpt, train_json, valid_json):
         raise RuntimeError(f"the training path launched a kernel: {counts}")
 
 
+# [preprocess]: a synthetic corpus at LJSpeech-like lengths (~6.5 s mean,
+# <= ~11 s, 22,050 Hz), the default PreprocessConfig (80 mels, n_fft 1024,
+# hop 256, fmin 80, fmax 7600, 2^21 samples a bucket)
+PRE_DEVICE = "cuda"
+PRE_UTTS, PRE_PHONES = 128, (24, 80)
+PRE_SPLIT = 8  # validation and test utterances of the CLI's split
+TOL_MEL = 1e-4       # log10-mel, abs
+TOL_EN = 1e-4        # energy, abs over the utterance's max energy
+TOL_VOICED = 0.999   # share of frames with equal voicing
+TOL_CENTS = 1.0      # f0 on frames voiced in both
+TOL_PRE_WHY = ("the same frames, window, filterbank and YIN steps (the "
+               "STFT in fp64 rounded to complex64, the mel product and YIN "
+               "in fp32): cuFFT against pocketfft and other summation "
+               "orders")
+# tests/test_f0_goldens.py:24-32 (the test imports JAX, so the budgets are
+# copied): (min voicing F1, max median cents, max octave-error rate)
+F0_BUDGETS = {
+    "vibrato": (0.97, 15.0, 0.01),
+    "octave_trap": (0.97, 10.0, 0.01),
+    "creaky_low": (0.97, 15.0, 0.01),
+    "noisy": (0.95, 15.0, 0.01),
+    "breathy": (0.95, 15.0, 0.01),
+    "speechlike": (0.95, 15.0, 0.01),
+    "onsets": (0.88, 10.0, 0.01),
+}
+
+
+def f0_metrics(est, truth):
+    """``tests/test_f0_goldens.py::_metrics``: voicing F1, median cents and
+    octave-error rate on frames voiced in both."""
+    T = min(len(est), len(truth))
+    est, truth = est[:T], truth[:T]
+    tv, ev = truth > 0, est > 0
+    tp = int((tv & ev).sum())
+    fp = int((~tv & ev).sum())
+    fn = int((tv & ~ev).sum())
+    f1 = 2 * tp / max(2 * tp + fp + fn, 1)
+    both = tv & ev
+    if both.sum() <= 10:
+        raise RuntimeError("f0 goldens: almost no matched frames")
+    cents = 1200.0 * np.abs(np.log2(est[both] / truth[both]))
+    return f1, float(np.median(cents)), float((cents > 600).mean())
+
+
+def frontend_agreement(cfg, wavs, smi):
+    """``Frontend`` on the card against its CPU path on the same wavs."""
+    from fcl_taco2_tpu_torch.audio.preprocess import Frontend
+    fe = Frontend(cfg, PRE_DEVICE)
+    fe.process(wavs)  # warm-up: cuFFT plans of every bucket size
+    cold_ms = [st["ms"] for st in fe.bucket_stats]
+    fe.bucket_stats.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = fe.process(wavs)
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = Frontend(cfg, "cpu").process(wavs)
+    t_cpu = time.perf_counter() - t0
+    mel_err = max(float(np.abs(a[0] - b[0]).max())
+                  for a, b in zip(card, host))
+    en_err = max(float(np.abs(a[2] - b[2]).max() / b[2].max())
+                 for a, b in zip(card, host))
+    frames = sum(len(b[1]) for b in host)
+    flips = sum(int(((a[1] > 0) != (b[1] > 0)).sum())
+                for a, b in zip(card, host))
+    cents = max(float(np.abs(1200.0 * np.log2(a[1][v] / b[1][v])).max())
+                for a, b in zip(card, host)
+                for v in [(a[1] > 0) & (b[1] > 0)] if v.any())
+    ms = [st["ms"] for st in fe.bucket_stats]
+    log(f"[preprocess] Frontend {PRE_DEVICE} vs cpu on {len(wavs)} "
+        f"utterances ({frames} frames, {len(ms)} buckets): log10-mel max "
+        f"abs {mel_err:.3e} (tol {TOL_MEL}), energy {en_err:.3e} of the "
+        f"max (tol {TOL_EN}), voicing flips {flips} of {frames} (equal "
+        f"share {1 - flips / frames:.6f}, tol {TOL_VOICED}), f0 max "
+        f"{cents:.4f} cents on frames voiced in both (tol {TOL_CENTS}): "
+        f"{TOL_PRE_WHY}; card {t_card:.3f} s wall, device ms per bucket "
+        f"{[round(m, 3) for m in ms]} (sum {sum(ms):.3f}; the warm-up "
+        f"call's, with cuFFT's plans made, {[round(m, 3) for m in cold_ms]}"
+        f"); cpu {t_cpu:.3f} s | {smi}")
+    if mel_err > TOL_MEL or en_err > TOL_EN or cents > TOL_CENTS \
+            or 1 - flips / frames < TOL_VOICED:
+        raise RuntimeError("preprocess: the card's frontend disagrees with "
+                           "its CPU path")
+    return {"mel_err": mel_err, "en_err": en_err, "flips": flips,
+            "frames": frames, "max_cents": cents, "bucket_ms": ms,
+            "cold_ms": cold_ms, "card_s": t_card, "cpu_s": t_cpu}
+
+
+def f0_goldens_on_card(smi):
+    """The port's ``yin_f0`` on CUDA tensors against
+    ``tests/fixtures/f0_goldens.npz``'s analytic ground truth."""
+    from fcl_taco2_tpu_torch.ops.f0 import yin_f0
+    z = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "tests", "fixtures", "f0_goldens.npz"))
+    names = sorted({k.rsplit("_", 1)[0] for k in z.files
+                    if k.endswith("_signal")})
+    if set(names) != set(F0_BUDGETS):
+        raise RuntimeError(f"f0 goldens: cases {names}")
+    rows, failures = {}, []
+    for name in names:
+        x = torch.from_numpy(z[f"{name}_signal"].astype(np.float32)
+                             / 32767.0).to(PRE_DEVICE)
+        f0 = yin_f0(x, device=PRE_DEVICE)
+        if f0.device != x.device:
+            raise RuntimeError("f0 goldens: yin_f0 left the card")
+        f1, cents, octave = f0_metrics(f0.cpu().numpy(), z[f"{name}_f0"])
+        rows[name] = (round(f1, 4), round(cents, 2), round(octave, 4))
+        min_f1, max_cents, max_oct = F0_BUDGETS[name]
+        if f1 < min_f1 or cents > max_cents or octave > max_oct:
+            failures.append(name)
+    log(f"[preprocess] yin_f0 on {PRE_DEVICE}, F0 goldens (voicing F1, "
+        f"median cents, octave-error rate): {rows}; budgets met "
+        f"{not failures} | {smi}")
+    if failures:
+        raise RuntimeError(f"f0 goldens: budgets missed by {failures}")
+    return rows
+
+
+def phase_preprocess(smi, kind, root):
+    """Preprocessing on the card: a synthetic corpus, the frontend against
+    its CPU path, the F0 goldens, ``fcl_preprocess`` end to end (stages,
+    audio seconds per wall second, peak memory) and one ``fcl_train``
+    epoch at FCL-taco2-S width on the manifests it wrote.  No decoder or
+    PWG kernel may launch."""
+    import re
+    from glob import glob
+    from fcl_taco2_tpu_torch.audio.preprocess import (PreprocessConfig,
+                                                      read_wav)
+    from fcl_taco2_tpu_torch.audio.synthcorpus import generate_corpus
+    from fcl_taco2_tpu_torch.cli import fcl_preprocess
+    from fcl_taco2_tpu_torch.cli.fcl_train import main as fcl_train
+    zero_counts()
+    t0 = time.perf_counter()
+    corpus = generate_corpus(os.path.join(root, "corpus"), n_utts=PRE_UTTS,
+                             seed=0, min_phones=PRE_PHONES[0],
+                             max_phones=PRE_PHONES[1])
+    t_gen = time.perf_counter() - t0
+    wavs = [read_wav(p)[0]
+            for p in sorted(glob(os.path.join(corpus, "wavs", "*.wav")))]
+    lens = np.array([len(w) for w in wavs]) / SAMPLE_RATE
+    audio_s = float(lens.sum())
+    log(f"[preprocess] generate_corpus {PRE_UTTS} utterances, seed 0, "
+        f"{PRE_PHONES[0]}-{PRE_PHONES[1]} phones: {audio_s:.1f} s of audio "
+        f"(mean {lens.mean():.2f} s, max {lens.max():.2f} s) in "
+        f"{t_gen:.1f} s")
+    agree = frontend_agreement(PreprocessConfig(), wavs, smi)
+    goldens = f0_goldens_on_card(smi)
+
+    feat = os.path.join(root, "features")
+    lines = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fcl_preprocess.main([
+        "--data-root", corpus, "--textgrid-root", os.path.join(corpus, "tg"),
+        "--feature-root", feat, "--n-val", str(PRE_SPLIT), "--n-test",
+        str(PRE_SPLIT), "--device", PRE_DEVICE], log=lines.append)
+    t_cli = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    stages = {m.group(1): float(m.group(2)) for m in
+              (re.match(r"\s*stage (\w+): ([\d.]+) s", line)
+               for line in lines) if m}
+    bucket_ms = next((line.split("device ms ")[1] for line in lines
+                      if "device ms " in line), "")
+    n_utts = {}
+    for mode in ("train", "val", "test"):
+        with open(os.path.join(feat, f"{mode}_data.json")) as f:
+            n_utts[mode] = len(json.load(f)["utts"])
+    over = sum(np.load(p).max() > 50 for p in
+               glob(os.path.join(feat, "durations_MFA", "*.npy")))
+    log(f"[preprocess] fcl_preprocess --device {PRE_DEVICE}: "
+        f"{audio_s:.1f} s of audio in {t_cli:.2f} s wall = "
+        f"{audio_s / t_cli:.1f} audio s per wall s; stages (s) {stages}; "
+        f"frontend device ms per bucket {bucket_ms}; peak memory "
+        f"{peak:.1f} MiB; manifests {n_utts} = {sum(n_utts.values())} of "
+        f"{PRE_UTTS} ({over} with a phoneme over max_dur 50) on {kind} | "
+        f"{smi}")
+    if sum(n_utts.values()) != PRE_UTTS - over or len(stages) != 5:
+        raise RuntimeError(f"preprocess: manifests {n_utts}, {over} over "
+                           f"max_dur, stages {stages}")
+    exp = os.path.join(root, "pre_exp")
+    ts = fcl_train(["--train-json", os.path.join(feat, "train_data.json"),
+                    "--valid-json", os.path.join(feat, "val_data.json"),
+                    "--outdir", exp, "--batch-size", "8", "--epochs", "1",
+                    "--seed", "0", "--device", TRAIN_DEVICE, *STUDENT_ARGS])
+    with open(os.path.join(exp, "log.jsonl")) as f:
+        row = json.loads(f.readline())
+    log(f"[preprocess] fcl_train FCL-taco2-S on the written manifests: "
+        f"{ts.step} steps, epoch loss {row['main/loss']:.4f}, validation "
+        f"{row.get('validation/main/loss')}")
+    if not np.isfinite(row["main/loss"]) or ts.step == 0:
+        raise RuntimeError(f"preprocess: training on the manifests {row}")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"[preprocess] kernel launches during the phase {counts} (the "
+        f"preprocessing path runs none)")
+    if any(counts.values()):
+        raise RuntimeError(f"preprocessing launched a kernel: {counts}")
+    return {"audio_s": audio_s, "cli_s": t_cli, "stages": stages,
+            "peak_mib": peak, "manifests": n_utts, "frontend": agree,
+            "goldens": goldens}
+
+
 def speaking_student(student, root):
     """A copy of the student checkpoint whose duration predictor gives
     about MEAN_DUR frames a phoneme (its linear head's weights scaled by
@@ -2004,6 +2315,8 @@ def main():
     timed_phase("dropout", phase_dropout, models)
     pwg, pwg_rows = timed_phase("pwg", phase_pwg_kernels)
     launches = timed_phase("main", phase_main_path, models, kind)
+    for k, v in timed_phase("import", phase_import, models, kind).items():
+        launches[k] += v
     for name, phase in (("tts", phase_tts), ("stream", phase_stream)):
         for k, v in timed_phase(name, phase, models, pwg, kind).items():
             launches[k] += v
@@ -2017,6 +2330,7 @@ def main():
             launches[k] += v
         timed_phase("finetune", phase_finetune, smi, kind, root, ckpts[0],
                     *ckpts[2:])
+        timed_phase("preprocess", phase_preprocess, smi, kind, root)
     log(f"[phase] all: {time.perf_counter() - t_start:.1f} s")
 
     kernels = []

@@ -7,10 +7,13 @@ One msgpack file carries ``params``, ``model_state``, ``opt_state``,
 ``model_state`` are the JAX package's trees (``utils/params.py::params_to_numpy``; lists stored as
 flax's ``{"0": ..., "1": ...}`` maps), so a JAX-written checkpoint's
 weights load into the port and a port-written one's load in JAX with
-``load_params_only``.  ``opt_state`` is the port's own tree
-(``train/optim.py``), keyed by parameter name, its counters written as
-ints: port -> port resume is exact.  The codec is ``utils/msgpack.py`` (the GPU host has no msgpack or
-flax).
+``load_params_only``.  ``opt_state`` is written in optax's layout (flax's
+``to_state_dict`` of the JAX package's optax chain, ``optax_layout``) when
+the ``TrainState`` carries its optimizer (``tx``, as the trainers' do), so
+either package resumes the other's snapshots; without it, in the port's
+own tree (``train/optim.py``'s dict, keyed by parameter name, counters as
+ints), which ``restore_checkpoint`` also reads.  Resumes are exact.  The
+codec is ``utils/msgpack.py`` (the GPU host has no msgpack or flax).
 """
 
 import dataclasses
@@ -25,7 +28,10 @@ import torch
 
 from fcl_taco2_tpu_torch.models.config import ModelConfig
 from fcl_taco2_tpu_torch.utils import msgpack
-from fcl_taco2_tpu_torch.utils.params import params_from_jax, params_to_numpy
+from fcl_taco2_tpu_torch.utils.params import (jax_leaf, param_tree,
+                                              params_from_jax,
+                                              params_to_numpy,
+                                              relayout_tensor)
 
 
 def save_model_json(exp_dir, cfg: ModelConfig, extra: Optional[dict] = None):
@@ -63,19 +69,151 @@ def _opt_tree(opt_state, names):
             for k, v in opt_state.items()}
 
 
+# --------------------------------------------------------------------------
+# the optimizer state in optax's layout
+# --------------------------------------------------------------------------
+
+def optax_layout(tx):
+    """The tree that flax's ``to_state_dict`` makes of the optax state the
+    JAX package's ``build_optimizer`` (``optim.py:30-72``) builds for the
+    settings of ``tx`` (a ``train.optim.Optimizer``): nested dicts whose
+    string leaves name the state's entries, empty dicts for optax's empty
+    states.  As read from optax 0.2.6, outermost first:
+
+    - ``accum_grad`` > 1, ``MultiSteps``: {mini_step, gradient_step,
+      inner_opt_state: <below>, acc_grads, skip_state: {}};
+    - ``freeze_mods``: {0: masked zeroing {inner_state: {}}, 1: <below>};
+    - ``nan_guard``, ``apply_if_finite``: {notfinite_count, last_finite,
+      total_notfinite, inner_state: <below>};
+    - the chain: [clip {} if grad_clip > 0], the core, [masked zeroing if
+      freeze_mods], keyed 0, 1, ...;
+    - the core, a chain: scale_by_adam {count, mu, nu}, then adam: the
+      rate {}; adamw: decay {}, the rate {}; lamb: decay {}, trust ratio
+      {}, the rate {}; noam: the schedule {count}.
+
+    Beside ``Optimizer.init``'s entries it names ``last_finite`` (true
+    unless the last emitted step was skipped: ``notfinite_count == 0``)
+    and ``gradient_step`` (emitted steps, applied or skipped: ``count +
+    total_notfinite``), both determined by the port's counters."""
+    core = [{"count": "count", "mu": "mu", "nu": "nu"}]
+    if tx.name == "noam":
+        core.append({"count": "count"})
+    else:
+        core += [{}] * (3 if tx.name == "lamb" else
+                        2 if tx.weight_decay else 1)
+    masked = {"inner_state": {}}
+    parts = [{}] if tx.grad_clip and tx.grad_clip > 0 else []
+    parts += [_seq(core)] + ([masked] if tx.freeze_mods else [])
+    node = _seq(parts)
+    if tx.nan_guard:
+        node = {"notfinite_count": "notfinite_count",
+                "last_finite": "last_finite",
+                "total_notfinite": "total_notfinite", "inner_state": node}
+    if tx.freeze_mods:
+        node = _seq([masked, node])
+    if tx.accum_grad > 1:
+        node = {"mini_step": "mini_step", "gradient_step": "gradient_step",
+                "inner_opt_state": node, "acc_grads": "acc_grads",
+                "skip_state": {}}
+    return node
+
+
+def _seq(items):
+    return {str(i): v for i, v in enumerate(items)}
+
+
+def to_optax(tx, opt, names):
+    """A host copy of the port's optimizer state (counters as ints or 0-d
+    tensors, per-parameter lists of CPU tensors in ``names`` order) ->
+    optax's tree (``optax_layout``): int32 counters, ``last_finite`` a
+    bool, moments in the JAX params tree's layout."""
+    count = int(opt["count"])
+    nf, tot = int(opt.get("notfinite_count", 0)), \
+        int(opt.get("total_notfinite", 0))
+
+    def value(name):
+        if name in _OPT_LISTS:
+            return _flax_state_dict(param_tree(zip(names, opt[name])))
+        if name == "last_finite":
+            return np.asarray(nf == 0)
+        n = count + tot if name == "gradient_step" else int(opt[name])
+        return np.asarray(n, np.int32)
+
+    def fill(node):
+        if isinstance(node, str):
+            return value(node)
+        return {k: fill(v) for k, v in node.items()}
+
+    return fill(optax_layout(tx))
+
+
+def _read_layout(layout, saved, out, where="opt_state"):
+    if isinstance(layout, str):
+        out.setdefault(layout, saved)  # noam: the adam count comes first
+        return
+    if not isinstance(saved, dict) or set(saved) != set(layout):
+        got = sorted(saved) if isinstance(saved, dict) else type(saved)
+        raise ValueError(f"{where}: keys {got} are not optax's "
+                         f"{sorted(layout)} for this optimizer")
+    for k, v in layout.items():
+        _read_layout(v, saved[k], out, f"{where}/{k}")
+
+
+def _leaf_paths(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaf_paths(v, prefix + (k,))
+    else:
+        yield prefix
+
+
+def from_optax(tx, saved, names):
+    """Inverse of ``to_optax``: optax's tree -> the entries of
+    ``tx.init``'s dict, per-parameter entries as {name: tensor} in the
+    port's layout (``restore_checkpoint`` copies them into the live
+    state).  Raises where the tree is not the layout ``tx`` has."""
+    got = {}
+    _read_layout(optax_layout(tx), saved, got)
+    paths = {n: tuple(str(p) for p in jax_leaf(n)[0]) for n in names}
+    out = {}
+    for k in ("count", "notfinite_count", "total_notfinite", "mini_step"):
+        if k in got:
+            out[k] = int(got[k])
+    for k in _OPT_LISTS:
+        if k not in got:
+            continue
+        have = set(_leaf_paths(got[k]))
+        if have != set(paths.values()):
+            raise ValueError(f"opt_state {k}: leaves "
+                             f"{sorted(have ^ set(paths.values()))} differ "
+                             "from the model's parameters")
+        out[k] = {}
+        for n, path in paths.items():
+            leaf = got[k]
+            for p in path:
+                leaf = leaf[p]
+            if not isinstance(leaf, torch.Tensor):  # bf16 comes as a tensor
+                leaf = torch.from_numpy(np.array(leaf))
+            out[k][n] = relayout_tensor(leaf, jax_leaf(n)[1])
+    return out
+
+
 def _host_tree(ts, host_tensors):
     """The checkpoint payload of a host copy of ``ts``'s tensors."""
     names = [n for n, _ in ts.model.named_parameters()]
     sd_keys = list(ts.model.state_dict().keys())
     sd = dict(zip(sd_keys, host_tensors["state_dict"]))
     params, model_state = params_to_numpy(sd)
-    opt = {k: ([t.numpy() if t.dtype != torch.bfloat16 else t for t in v]
-               if k in _OPT_LISTS else int(v))  # counters as ints
-           for k, v in host_tensors["opt_state"].items()}
+    if ts.tx is not None:
+        opt = to_optax(ts.tx, host_tensors["opt_state"], names)
+    else:
+        opt = _opt_tree(
+            {k: ([t.numpy() if t.dtype != torch.bfloat16 else t for t in v]
+                 if k in _OPT_LISTS else int(v))  # counters as ints
+             for k, v in host_tensors["opt_state"].items()}, names)
     return {"params": _flax_state_dict(params),
             "model_state": _flax_state_dict(model_state),
-            "opt_state": _opt_tree(opt, names),
-            "step": int(host_tensors["step"])}
+            "opt_state": opt, "step": int(host_tensors["step"])}
 
 
 def start_state_fetch(ts, opt_state_dtype=None):
@@ -315,7 +453,9 @@ def restore_checkpoint(path, template=None):
     """Returns (TrainState, epoch, best_val) (``checkpoint.py:289-322``).
     With a ``template`` TrainState, its model and optimizer state are
     overwritten in place (shapes checked, dtypes cast back to the live
-    ones); without one, the raw payload takes the state's place."""
+    ones); without one, the raw payload takes the state's place.  The
+    optimizer state may be in optax's layout (written by either package;
+    read through ``template.tx``) or in the port's own."""
     payload = read_checkpoint(path)
     epoch = int(payload.get("epoch", 0))
     best_val = float(payload.get("best_val", float("inf")))
@@ -324,6 +464,11 @@ def restore_checkpoint(path, template=None):
     _load_weights(template.model, payload)
     names = [n for n, _ in template.model.named_parameters()]
     saved = payload["opt_state"]
+    if "mu" not in saved:  # optax's layout (the port's own has "mu" on top)
+        if template.tx is None:
+            raise ValueError("an optimizer state in optax's layout needs "
+                             "the template's optimizer (TrainState.tx)")
+        saved = from_optax(template.tx, saved, names)
     if set(saved) != set(template.opt_state):
         raise ValueError(f"optimizer state keys {sorted(saved)} do not "
                          f"match the live ones {sorted(template.opt_state)}")

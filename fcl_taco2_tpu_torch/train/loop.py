@@ -222,7 +222,8 @@ class Trainer:
                 print(f"{p} is frozen not to be updated.", flush=True)
         print(format_param_report(self.model), flush=True)
         names, params = zip(*self.model.named_parameters())
-        return TrainState(self.model, self.tx.init(params, names), 0)
+        return TrainState(self.model, self.tx.init(params, names), 0,
+                          self.tx)
 
     def _epoch_batches(self, epoch):
         t = self.tcfg

@@ -12,3 +12,5 @@ class TrainState:
     #                    (parameters) and model_state (BatchNorm buffers)
     opt_state: dict    # train.optim.Optimizer.init(...)
     step: int = 0
+    tx: Any = None     # the train.optim.Optimizer of opt_state: with it,
+    #                    checkpoints hold opt_state in optax's layout

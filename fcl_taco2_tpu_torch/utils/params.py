@@ -116,6 +116,45 @@ def jax_path(key):
     return _jax_path(key)[0]
 
 
+def relayout_tensor(t, kind):
+    """``_relayout`` of a torch tensor (any dtype, bf16 included): a
+    contiguous tensor in the other package's layout."""
+    if kind == "T":
+        t = t.t()
+    elif kind == "conv":
+        t = t.permute(2, 1, 0)
+    return t.contiguous()
+
+
+def jax_leaf(key):
+    """A parameter's (JAX tree path, layout change): ``relayout_tensor``
+    with the change turns its tensor into the JAX array and back."""
+    path, kind, _ = _jax_path(key)
+    return path, kind
+
+
+def param_tree(named):
+    """(``state_dict`` key, tensor) pairs of parameters -> a tree shaped
+    as the JAX params tree (lists, and the empty ``bns`` lists of conv
+    stacks without BatchNorm), its leaves the tensors in the JAX layout
+    on the CPU: the form of an optimizer's per-parameter state in optax."""
+    tree = {}
+    for key, t in named:
+        path, kind = jax_leaf(key)
+        _insert(tree, path, relayout_tensor(t.detach().cpu(), kind))
+    tree = _lists(tree)
+    _restore_empty_bns(tree)
+    return tree
+
+
+def _restore_empty_bns(tree):
+    """JAX carries an empty ``bns`` list in each conv stack without
+    BatchNorm; a tree built from tensors has none."""
+    for part, stack in (("encoder", "convs"), ("decoder", "postnet")):
+        if stack in tree.get(part, {}):
+            tree[part][stack].setdefault("bns", [])
+
+
 def params_from_jax(params_np, state_np):
     """JAX (params, state) trees of numpy arrays -> a ``state_dict`` for
     ``models.taco2_sa.Tacotron2SA`` (CPU float tensors)."""
@@ -158,9 +197,9 @@ def params_to_numpy(state_dict):
     params, state = _lists(params), _lists(state)
     for part in ("encoder", "decoder"):  # JAX always carries both
         state.setdefault(part, {})
+    _restore_empty_bns(params)
     for part, stack in (("encoder", "convs"), ("decoder", "postnet")):
         if stack in params.get(part, {}):
-            params[part][stack].setdefault("bns", [])
             state[part].setdefault(stack, {}).setdefault("bns", [])
     return params, state
 

@@ -309,3 +309,53 @@ def test_runtime_modules_import_no_jax():
         bad = [m for m in _imported_roots(path) if m in FORBIDDEN]
         assert not bad, (rel, bad)
     assert (REPO / "fcl_taco2_tpu_torch" / "csrc" / "fclrt.cpp").exists()
+
+
+def test_preprocess_and_import_modules_import_no_jax():
+    """The modules of the preprocessing, reference-import and optimizer
+    interchange slice are among the files the import check reads, and
+    import neither JAX nor the JAX package."""
+    new = ["ops/stft.py", "ops/f0.py", "audio/textgrid.py",
+           "audio/synthcorpus.py", "audio/preprocess.py",
+           "cli/fcl_preprocess.py", "utils/torch_import.py",
+           "train/checkpoint.py"]
+    for rel in new:
+        path = REPO / "fcl_taco2_tpu_torch" / rel
+        assert path.exists(), rel
+        bad = [m for m in _imported_roots(path) if m in FORBIDDEN]
+        assert not bad, (rel, bad)
+
+
+def test_preprocess_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    """Without a card, ``Frontend(cfg)``, ``yin_f0`` on its default device
+    and ``fcl_preprocess`` without ``--device cpu`` raise; with ``--device
+    cpu`` the CLI runs."""
+    import os
+
+    import numpy as np
+    from fcl_taco2_tpu_torch.audio.preprocess import (Frontend,
+                                                      PreprocessConfig)
+    from fcl_taco2_tpu_torch.audio.synthcorpus import generate_corpus
+    from fcl_taco2_tpu_torch.cli import fcl_preprocess
+    from fcl_taco2_tpu_torch.ops.f0 import yin_f0
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = PreprocessConfig()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Frontend(cfg)
+    assert Frontend(cfg, "cpu").basis.device.type == "cpu"
+    x = np.zeros(4096, np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        yin_f0(x)
+    assert yin_f0(x, device="cpu").device.type == "cpu"
+    root = generate_corpus(str(tmp_path / "corpus"), n_utts=4, seed=0)
+    args = ["--data-root", root, "--textgrid-root", os.path.join(root, "tg"),
+            "--n-val", "1", "--n-test", "1"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fcl_preprocess.main(args + ["--feature-root", str(tmp_path / "a")],
+                            log=lambda *a: None)
+    splits, _ = fcl_preprocess.main(
+        args + ["--feature-root", str(tmp_path / "b"), "--device", "cpu"],
+        log=lambda *a: None)
+    assert len(splits["train"]) == 2
+    assert os.path.exists(tmp_path / "b" / "train_data.json")
