@@ -124,8 +124,27 @@ prints no result):
    the frontend's device ms per bucket, peak memory, the manifests'
    utterance counts) and one ``fcl_train`` epoch at FCL-taco2-S width on
    the manifests it wrote (finite loss).
-13. One JSON line of the kernels (launches: every main path above, the
-   CLIs included), the nvidia-smi line, and last the result line
+13. Data parallel (``[parallel]``, after ``[preprocess]``): 2 ranks of
+   ``parallel/_mp_worker.py --width full`` share card 0 over gloo (NCCL
+   refuses two ranks on one device; this is no scaling measurement): the
+   FCL-taco2-T fp32 step on the B=16 bench batch (8 utterances a rank,
+   dropouts 0, Adam lr 1e-4) for 3 steps with a snapshot after 2, one KD
+   step of FCL-taco2-S, sharded serving of both (2 bench utterances a
+   rank, fp32 and bf16 compute, durations given; ``fused_ar_decode`` and
+   ``fused_ar_decode_hbm`` must launch on both ranks) and synchronized
+   BatchNorm; a fresh 2-rank run resumes the snapshot for 2 steps.
+   Losses, grad norms and checksums are held to one process on the same
+   global batch (rtol 2e-4); the mels at ``[kernel]``'s limit for the
+   kernel's weight dtype (fp32 compute, against one process's batch of
+   4) or for bf16 (bf16 compute, against one process decoding each
+   rank's rows as a batch of 2, the batch of 4 logged beside it);
+   BatchNorm at 1e-5; the all-reduced MiB, calls and ms a step are
+   logged.  Then one NCCL rank in this process (a world of one process
+   group, so the same data-parallel path) against the undistributed
+   step.
+14. One JSON line of the kernels (launches: every main path above, the
+   CLIs and the ranks of ``[parallel]`` included), the nvidia-smi line,
+   and last the result line
    ``{"ok": true, "device": {...}}``.  Each phase's seconds are logged
    (``[phase]``).
 """
@@ -2088,6 +2107,203 @@ def phase_preprocess(smi, kind, root):
             "goldens": goldens}
 
 
+PAR_TIMEOUT = 900  # seconds a spawned rank may take
+TOL_PAR = 2e-4     # losses and checksums, relative (tests/test_parallel.py)
+TOL_PAR_WHY = ("fp32, TF32 off: the same math, the ranks' sums of local "
+               "terms over the global denominators in another order than "
+               "one process's global sums")
+TOL_BN = 1e-5
+
+
+def spawn_ranks(n, out, *extra):
+    """``n`` ranks of ``parallel/_mp_worker.py`` at full width, all on
+    card 0 over gloo (NCCL refuses two ranks on one device); returns rank
+    0's result and arrays.  Each rank logs to ``<out>.<rank>.log``; when
+    one fails, or at the time limit, every rank is killed (a rank whose
+    peer died would wait in a collective) and the logs' ends raised."""
+    from fcl_taco2_tpu_torch.parallel.distributed import free_port
+    port = free_port()
+    logs = [f"{out}.{i}.log" for i in range(n)]
+    procs = []
+    for i in range(n):
+        with open(logs[i], "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m",
+                 "fcl_taco2_tpu_torch.parallel._mp_worker",
+                 "--process-id", str(i), "--num-processes", str(n),
+                 "--port", str(port), "--device", "cuda:0", "--backend",
+                 "gloo", "--width", "full", "--out", out, *extra],
+                cwd=os.path.dirname(os.path.abspath(__file__)), stdout=f,
+                stderr=subprocess.STDOUT))
+    t0 = time.perf_counter()
+    try:
+        while any(p.poll() is None for p in procs):
+            failed = any(p.poll() not in (None, 0) for p in procs)
+            if failed or time.perf_counter() - t0 > PAR_TIMEOUT:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    if any(p.returncode for p in procs):
+        tails = []
+        for path in logs:
+            with open(path) as f:
+                tails.append(f.read()[-6000:])
+        codes = [p.returncode for p in procs]
+        raise RuntimeError(f"parallel: ranks ended {codes}:\n"
+                           + "\n====\n".join(tails))
+    with open(out) as f:
+        result = json.load(f)
+    with np.load(out + ".npz") as z:
+        return result, {k: z[k] for k in z.files}
+
+
+def _close(name, got, want, rtol, atol=0.0):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    err = float(np.max(np.abs(got - want) / (atol + rtol * np.abs(want))))
+    log(f"[parallel] {name}: {np.asarray(got).ravel()[:4].tolist()} vs "
+        f"{np.asarray(want).ravel()[:4].tolist()} (error / limit "
+        f"{err:.3g})")
+    if not err <= 1.0:
+        raise RuntimeError(f"parallel: {name} differs: {got} vs {want}")
+
+
+def phase_parallel(smi, kind, root):
+    """Data parallel on the one card (``[parallel]``): 2 ranks sharing
+    card 0 over gloo (``parallel/_mp_worker.py --width full``) train
+    FCL-taco2-T on the benchmark's B=16 batch (8 utterances a rank, fp32,
+    dropouts 0, Adam lr 1e-4: ``_mp_worker.LR`` says why) for 3 steps
+    (snapshot after 2), distil FCL-taco2-S from it for one step, serve
+    both sharded (2 utterances a rank) in fp32 compute (the decoder
+    kernels keep their weight dtypes), held to one process's batch of 4,
+    and in bf16 compute, held to one process's batches of each rank's 2
+    rows, and run the synchronized BatchNorm check;
+    a fresh 2-rank run resumes the snapshot for 2 steps; all held to one
+    process on the same global batch.  Then one rank over NCCL (a world
+    of one process group, so the same data-parallel path) against the
+    undistributed step.  The ranks' decoder kernel launches are
+    returned."""
+    import torch.distributed as dist
+    from fcl_taco2_tpu_torch.ops.conv import batch_norm_train
+    from fcl_taco2_tpu_torch.ops.masking import lengths_to_non_pad_mask
+    from fcl_taco2_tpu_torch.parallel import _mp_worker as W
+    from fcl_taco2_tpu_torch.parallel.distributed import (free_port,
+                                                          initialize)
+    from fcl_taco2_tpu_torch.parallel.mesh import make_mesh
+    torch.cuda.empty_cache()
+    with no_tf32():
+        t0 = time.perf_counter()
+        ref, ref_sum, ref_mid, ref_norms = W.run_training_steps(
+            4, checksum_steps=(2, 3), device="cuda", width="full")
+        ref_kd, ref_kd_sum = W.run_kd_steps(1, device="cuda", width="full")
+        ref_serve = W.run_serving(device="cuda", width="full")
+        ref_share = W.run_serving(device="cuda", width="full", shares=2)
+        torch.cuda.synchronize()
+        log(f"[parallel] one process: 4 teacher steps, a KD step, teacher "
+            f"and student serving (fp32 and bf16 compute, batches of 4 and "
+            f"of 2) in {time.perf_counter() - t0:.1f} s; losses {ref}")
+        ckpt = os.path.join(root, "par.ckpt")
+        t0 = time.perf_counter()
+        a, arrays = spawn_ranks(
+            2, os.path.join(root, "par_a.json"), "--mode", "all", "--steps",
+            "3", "--save-ckpt", ckpt, "--save-step", "2")
+        t_a = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        b, _ = spawn_ranks(2, os.path.join(root, "par_b.json"), "--mode",
+                           "dp", "--steps", "2", "--resume-ckpt", ckpt)
+        t_b = time.perf_counter() - t0
+    log(f"[parallel] 2 ranks sharing {kind} over {a['backend']} (not "
+        f"scaling: one card, time-sliced): {a['seconds']:.1f} s of work in "
+        f"{t_a:.1f} s wall (3 steps, KD, serving, BatchNorm); the resumed "
+        f"pair {t_b:.1f} s | {smi}")
+    _close("2-rank teacher losses vs 1", a["dp"]["losses"], ref[:3],
+           TOL_PAR)
+    _close("2-rank teacher grad norms vs 1", a["dp"]["grad_norms"],
+           ref_norms[:3], TOL_PAR)
+    _close("2-rank params checksum vs 1", a["dp"]["checksum"], ref_mid[3],
+           TOL_PAR)
+    _close("resumed 2-rank losses (steps 3-4) vs 1", b["dp"]["losses"],
+           ref[2:4], TOL_PAR)
+    _close("resumed 2-rank checksum vs 1", b["dp"]["checksum"], ref_sum,
+           TOL_PAR)
+    _close("2-rank KD loss vs 1", a["kd"]["losses"], ref_kd, TOL_PAR)
+    _close("2-rank KD checksum vs 1", a["kd"]["checksum"], ref_kd_sum,
+           TOL_PAR)
+    # fp32 compute: against one process decoding the batch of 4 at once;
+    # bf16 compute: against one process decoding each rank's 2 rows as a
+    # batch (the same shapes: bf16 products round by the batch's size,
+    # so a batch of 4 is logged beside it, not held to the limit)
+    tol = {"teacher": (TOL_BF16, "bf16 weights: " + TOL_BF16_WHY),
+           "student": (TOL_F32, "fp32 weights: " + TOL_F32_WHY),
+           "teacher_bf16": (TOL_BF16, "bf16 compute: " + TOL_BF16_WHY),
+           "student_bf16": (TOL_BF16, "bf16 compute: " + TOL_BF16_WHY)}
+
+    def mel_err(xs, ys):
+        return max(float(np.max(np.abs(x - y), initial=0.0))
+                   for x, y in zip(xs, ys))
+    for name, (limit, why) in tol.items():
+        bf16 = name.endswith("_bf16")
+        mels, frames = (ref_share if bf16 else ref_serve)[name]
+        got = [arrays[f"serve_{name}/{i}"] for i in range(len(mels))]
+        err = mel_err(got, mels)
+        by_batch = mel_err(ref_serve[name][0], ref_share[name][0])
+        log(f"[parallel] sharded {name} serving (2 utterances a rank): "
+            f"max |mel - one process's at batch {2 if bf16 else 4}| "
+            f"{err:.3g} (limit {limit}, {why}); frames "
+            f"{a[f'serve_{name}']['total_frames']} vs {frames}; one "
+            f"process at batch 4 vs 2: {by_batch:.3g}")
+        if err > limit or a[f"serve_{name}"]["total_frames"] != frames:
+            raise RuntimeError(f"parallel: sharded {name} serving differs")
+    launches = a["launches"]
+    log(f"[parallel] decoder kernel launches by rank {launches}")
+    for k, by_rank in launches.items():
+        if min(by_rank) == 0:
+            raise RuntimeError(f"parallel: {k} did not launch on every "
+                               f"rank: {by_rank}")
+    x, gy, w, b_, rm, rv, lens = W.bn_inputs()
+    for case in ("masked", "unmasked"):
+        t = {k: torch.tensor(v, device="cuda", requires_grad=k != "gy")
+             for k, v in dict(x=x, gy=gy, w=w, b=b_).items()}
+        mask = lengths_to_non_pad_mask(torch.tensor(lens, device="cuda"),
+                                       x.shape[1]) if case == "masked" \
+            else None
+        y, (nm, nv) = batch_norm_train(
+            t["x"], t["w"], t["b"], torch.tensor(rm, device="cuda"),
+            torch.tensor(rv, device="cuda"), mask=mask)
+        (y * t["gy"]).sum().backward()
+        for k, v in dict(y=y, dx=t["x"].grad, dw=t["w"].grad,
+                         db=t["b"].grad, mean=nm, var=nv).items():
+            _close(f"synced BatchNorm {case} {k}", arrays[f"bn_{case}/{k}"],
+                   v.detach().cpu().numpy(), TOL_BN, TOL_BN)
+    per = a["dp"]["allreduce_per_step"]
+    log(f"[parallel] per train step over gloo on {kind}: "
+        f"{per['bytes'] / 2 ** 20:.1f} MiB all-reduced in "
+        f"{per['calls']:.0f} calls (one gradient bucket, the rest "
+        f"BatchNorm's), {per['seconds'] * 1e3:.1f} ms | {smi}")
+    # one rank over NCCL: the same path, its collectives on a world of 1
+    initialize(f"localhost:{free_port()}", 1, 0, backend="nccl",
+               device="cuda:0")
+    try:
+        mesh = make_mesh()
+        mesh.timing = True
+        with no_tf32():
+            nccl, _, _, nccl_norm = W.run_training_steps(
+                1, device="cuda", mesh=mesh, width="full")
+        log(f"[parallel] 1 rank over {dist.get_backend()}: "
+            f"{mesh.stats['bytes'] / 2 ** 20:.1f} MiB in "
+            f"{mesh.stats['calls']} all-reduces, "
+            f"{mesh.stats['seconds'] * 1e3:.1f} ms a step | {smi}")
+    finally:
+        dist.destroy_process_group()
+    _close("1-rank NCCL loss vs undistributed", nccl, ref[:1], TOL_PAR)
+    _close("1-rank NCCL grad norm vs undistributed", nccl_norm,
+           ref_norms[:1], TOL_PAR)
+    return launches
+
+
 def speaking_student(student, root):
     """A copy of the student checkpoint whose duration predictor gives
     about MEAN_DUR frames a phoneme (its linear head's weights scaled by
@@ -2331,6 +2547,9 @@ def main():
         timed_phase("finetune", phase_finetune, smi, kind, root, ckpts[0],
                     *ckpts[2:])
         timed_phase("preprocess", phase_preprocess, smi, kind, root)
+        for k, v in timed_phase("parallel", phase_parallel, smi, kind,
+                                root).items():
+            launches[k] += sum(v)
     log(f"[phase] all: {time.perf_counter() - t_start:.1f} s")
 
     kernels = []

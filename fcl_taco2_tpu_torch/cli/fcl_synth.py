@@ -10,7 +10,9 @@ snapshot's projections are ignored), decodes every utterance in --json in
 batches, and writes feats.ark/feats.scp (parallel-wavegan-decode
 compatible) and a frames/s summary (decode.txt).  Runs on the card
 unless ``--device cpu`` is given, and raises when no card is present.
-One device serves: --n-devices above 1 is refused (ROADMAP A5).
+``--n-devices N`` (default 1) serves sharded over N ranks, one process a
+card (``Synthesizer(mesh=...)``): each decodes its rows of every batch,
+and rank 0 writes the files.
 """
 
 import argparse
@@ -37,8 +39,9 @@ def get_parser():
                    help="use corpus durations instead of the predictor "
                         "(reference dur= override)")
     p.add_argument("--no-ark", action="store_true")
-    p.add_argument("--n-devices", type=int, default=None,
-                   help="devices to serve on (only 1 is ported)")
+    p.add_argument("--n-devices", type=int, default=1,
+                   help="devices to serve on, one process a card; the "
+                        "batch size must divide by them")
     p.add_argument("--no-ragged-decode", action="store_true",
                    help="disable the duration-sorted, duration-bounded AR "
                         "decode (every phoneme runs to the max_dur cap)")
@@ -66,27 +69,37 @@ def load_acoustic_model(model_path, model_conf=None, device="cuda"):
 
 
 def main(argv=None):
+    """Decode; returns the mean frames/s, or None when the ranks of
+    ``--n-devices`` were spawned from here."""
+    from fcl_taco2_tpu_torch.parallel.distributed import cli_ranks, run_ranks
     args = get_parser().parse_args(argv)
-    if args.n_devices and args.n_devices > 1:
-        raise NotImplementedError(
-            "--n-devices > 1 is not ported yet (ROADMAP A5)")
+    return run_ranks(_synth_rank, cli_ranks(args.n_devices, args.device),
+                     argv, args.device)
 
+
+def _synth_rank(device, argv):
+    """One rank's decode on ``device``: every rank decodes its rows of
+    every batch, rank 0 writes the files and prints."""
     from fcl_taco2_tpu_torch.data import load_manifest
     from fcl_taco2_tpu_torch.infer import Synthesizer
+    from fcl_taco2_tpu_torch.parallel.mesh import make_mesh
 
-    model = load_acoustic_model(args.model, args.model_conf, args.device)
+    args = get_parser().parse_args(argv)
+    mesh = make_mesh(args.n_devices)
+    model = load_acoustic_model(args.model, args.model_conf, device)
     utts = load_manifest(args.json)
     synth = Synthesizer(model, batch_size=args.batch_size,
                         frame_per_token=args.frame_per_token,
                         ragged_decode=not args.no_ragged_decode,
                         quantize=args.quantize,
                         decoder_backend=args.decoder_backend,
-                        device=args.device)
+                        device=device, mesh=mesh)
     mean_fps = synth.synth_manifest(
         utts, args.out, write_ark=not args.no_ark, rng=args.seed,
         use_gt_durations=args.use_gt_durations, d_factor=args.d_factor)
-    print(f"decoded {len(utts)} utts, mean {mean_fps:.1f} frames/sec "
-          f"-> {args.out}")
+    if mesh.rank == 0:
+        print(f"decoded {len(utts)} utts, mean {mean_fps:.1f} frames/sec "
+              f"-> {args.out}")
     return mean_fps
 
 

@@ -15,10 +15,13 @@ the device when it fits (``--device-cache auto``) and 4 steps a dispatch
 with it (``--steps-per-dispatch 0``), on the card as replays of a CUDA
 graph of the step.  Fine-tuning (``--enc-init``/``--dec-init``,
 ``--freeze-mods``), ``--preprocess-conf`` and ``--profile-dir`` work as
-in the JAX CLI.  Not ported yet, and refused with an error: more than
-one device (``--n-devices``/``--n-slices`` > 1).  --zoneout-rng is
-accepted and has no effect: the port draws its masks from torch's Philox
-generator.
+in the JAX CLI.  ``--n-devices N`` trains data-parallel on N cards, one
+process a card (``parallel/``; by default every visible card, so a
+one-card host runs one process), with the same losses as one card;
+``--n-slices S`` groups them as S hosts of N/S (sums within a host,
+then across hosts).  Under ``torchrun`` each process is the rank its
+environment names.  --zoneout-rng is accepted and has no effect: the
+port draws its masks from torch's Philox generator.
 """
 
 import argparse
@@ -39,11 +42,13 @@ def get_parser():
                         "raises when no card is present; 'cpu' runs the "
                         "plain path)")
     p.add_argument("--n-devices", type=int, default=None,
-                   help="data-parallel devices (more than 1 is not "
-                        "ported yet)")
+                   help="data-parallel devices, one process a card "
+                        "(default: every visible card; --device cpu: 1, "
+                        "more run as CPU ranks over gloo)")
     p.add_argument("--n-slices", type=int, default=1,
-                   help="accepted for compatibility; > 1 is not ported "
-                        "yet")
+                   help=">1: the devices as this many hosts (replica x "
+                        "data grouping: gradients summed within a host, "
+                        "then across hosts)")
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--resume", type=str, default=None)
     p.add_argument("--minibatches", type=int, default=0)
@@ -272,8 +277,19 @@ def train_config_from_args(args):
 
 
 def main(argv=None):
+    """Train; with several ranks (``--n-devices``) they are spawned here
+    and this returns None, else the final ``TrainState``."""
+    from fcl_taco2_tpu_torch.parallel.distributed import cli_ranks, run_ranks
     argv = argv if argv is not None else sys.argv[1:]
     args = parse_with_configs(get_parser(), argv)
+    return run_ranks(_train_rank, cli_ranks(args.n_devices, args.device),
+                     argv, args.device)
+
+
+def _train_rank(device, argv):
+    """One rank's training run on ``device``."""
+    args = parse_with_configs(get_parser(), argv)
+    args.device = str(device)
 
     import logging
     # reference --verbose semantics (tts_train.py:395-406)

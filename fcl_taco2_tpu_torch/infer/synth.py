@@ -6,8 +6,17 @@ predicted durations overrun the frame budget, the frames/s stats,
 ``quantize="int8"`` with the codes prepared once at init, and manifest
 decoding (``synth_manifest``: feats.ark/feats.scp, per-utterance speed
 lines and a summary) with one batch's work in flight while the previous
-batch is read back.  The port runs eagerly, so there is no compile cache;
-one device serves (no mesh).
+batch is read back.  The port runs eagerly, so there is no compile cache.
+
+Sharded serving (``mesh``, ``synth.py:92-164``): every rank gets the same
+utterances, runs the whole ``synthesize`` on its contiguous share of the
+batch's rows (the fused decoder kernels run per rank, on the rank's
+card) and the outputs are gathered to every rank.  The gather is one
+``all_reduce`` of a zero-filled buffer in which each rank writes its own
+rows (exact: every other rank adds zeros), because gloo, which carries
+ranks that share one card, reduces and broadcasts CUDA tensors but
+gathers none.  The prenet dropout's generator is the same on every rank,
+as JAX replicates the key.
 """
 
 import math
@@ -31,12 +40,19 @@ def _round_up(x, mult):
 class Synthesizer:
     def __init__(self, model, batch_size=8, tok_bucket=32,
                  frame_per_token=16, frame_bucket=256, ragged_decode=True,
-                 quantize="none", decoder_backend="auto", device="cuda"):
+                 quantize="none", decoder_backend="auto", device="cuda",
+                 mesh=None):
         """``model``: a ``Tacotron2SA``; it is moved to ``device`` (the card
         unless ``device="cpu"``), and its parameters are cast to the
         config's compute dtype once here — the JAX package casts inside
         every call, to the same values.  ``quantize``: "none" | "int8"
-        (streaming decoder entry only; codes prepared once here)."""
+        (streaming decoder entry only; codes prepared once here).
+        ``mesh``: the serving ranks (``parallel/mesh.py``); ``batch_size``
+        must divide by their number."""
+        if mesh is not None and batch_size % mesh.size:
+            raise ValueError(f"batch_size {batch_size} not divisible by "
+                             f"mesh size {mesh.size}")
+        self.mesh = mesh if mesh is not None and mesh.distributed else None
         self.device = resolve_device(device)
         self.model = model.to(self.device).compute_model()
         self.ragged_decode = bool(ragged_decode)
@@ -54,11 +70,30 @@ class Synthesizer:
     def _run(self, tokens, ilens, durs, use_dur, gen_state, gen, budget,
              d_factor):
         gen.set_state(gen_state)  # a re-dispatch draws the same dropout
+        if self.mesh is None:
+            return self._synthesize(tokens, ilens, durs, use_dur, gen,
+                                    budget, d_factor)
+        b = tokens.shape[0] // self.mesh.size
+        rows = slice(self.mesh.rank * b, self.mesh.rank * b + b)
+        out = self._synthesize(tokens[rows], ilens[rows], durs[rows],
+                               use_dur, gen, budget, d_factor)
+        return {k: None if v is None else self._gather(v, rows)
+                for k, v in out.items()}
+
+    def _synthesize(self, tokens, ilens, durs, use_dur, gen, budget,
+                    d_factor):
         return self.model.synthesize(
             tokens, ilens, gen, frame_budget=budget,
             durations=durs if use_dur else None, d_factor=d_factor,
             ragged_decode=self.ragged_decode, quantize=self.quantize,
             decoder_backend=self.decoder_backend, prequant=self.prequant)
+
+    def _gather(self, part, rows):
+        """Every rank's rows of an output: each rank fills its own rows of
+        a zero buffer and the buffers are summed."""
+        full = part.new_zeros((self.batch_size,) + tuple(part.shape[1:]))
+        full[rows] = part
+        return self.mesh.all_reduce_(full)
 
     def _dispatch(self, token_lists, rng, durations=None, d_factor=1.0):
         """Launch one padded batch and start copying its result to the
@@ -166,13 +201,15 @@ class Synthesizer:
         k draws from a generator seeded by ``(rng, k)``, so two runs with
         one seed write the same arks.  ``use_gt_durations`` feeds the
         corpus durations instead of the predictor (the reference's dur=
-        knob, e2e_tts_tacotron2_sa.py:642-646)."""
+        knob, e2e_tts_tacotron2_sa.py:642-646).  On a mesh every rank
+        decodes and rank 0 alone writes the files."""
         from fcl_taco2_tpu_torch.data.manifest import load_durations
 
+        writes = self.mesh is None or self.mesh.rank == 0
         os.makedirs(out_dir, exist_ok=True)
         writer = ArkScpWriter(os.path.join(out_dir, "feats.ark"),
                               os.path.join(out_dir, "feats.scp")) \
-            if write_ark else None
+            if write_ark and writes else None
         speeds = []
         utt_lines = []
         total_frames = 0
@@ -218,6 +255,8 @@ class Synthesizer:
         total_wall = time.perf_counter() - t_start
         mean_fps = float(np.mean(speeds)) if speeds else 0.0
         total_fps = total_frames / total_wall if total_wall > 0 else 0.0
+        if not writes:
+            return mean_fps
         with open(os.path.join(out_dir, f"{label}.txt"), "w") as f:
             f.writelines(utt_lines)
             f.write(f"mean_frames_per_sec {mean_fps:.1f}\n")

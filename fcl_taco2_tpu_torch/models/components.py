@@ -17,7 +17,7 @@ import torch.nn.functional as F
 
 from fcl_taco2_tpu_torch.ops.conv import (batch_norm, batch_norm_train,
                                           conv1d, layer_norm)
-from fcl_taco2_tpu_torch.ops.masking import weighted_masked_sum
+from fcl_taco2_tpu_torch.ops.masking import masked_mean, weighted_masked_sum
 
 
 class BatchNorm(nn.Module):
@@ -194,16 +194,16 @@ def duration_predictor_apply(vp, x, pad_mask, generator=None,
 
 
 def duration_loss(logd_pred, targets_dur, mask, offset=1.0,
-                  weighted_n_valid=None):
+                  weighted_n_valid=None, count=None):
     """espnet DurationPredictorLoss: MSE in the log domain with offset,
     masked mean; ``weighted_n_valid`` switches to the use_weighted_masking
-    reduction (``components.py:221-237``)."""
+    reduction (``components.py:221-237``).  ``count``: the global batch's
+    count of ``mask``'s True entries, for a rank's share of it."""
     target = torch.log(targets_dur.to(logd_pred.dtype) + offset)
     diff = (logd_pred - target) ** 2
     if weighted_n_valid is not None:
         return weighted_masked_sum(diff, mask, weighted_n_valid)
-    mask_f = mask.to(logd_pred.dtype)
-    return torch.sum(diff * mask_f) / torch.clamp(torch.sum(mask_f), min=1.0)
+    return masked_mean(diff, mask, count)
 
 
 def duration_predictor_inference(vp, x, pad_mask, offset=1.0):

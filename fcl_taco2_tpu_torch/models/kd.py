@@ -15,8 +15,11 @@ and adds four toggleable distillation losses (reference
 
 The frozen teacher runs in train mode (dropout on, BatchNorm on batch
 statistics, its new statistics thrown away) under ``torch.no_grad``, from
-a generator of its own.  Projections apply to the captured activations
-(linear maps commute with the regrouping gathers).
+a generator of its own; on a rank of a data-parallel run its BatchNorm
+statistics are the global batch's, as the student's are (JAX runs the
+teacher in train mode over the global batch, ``kd.py:117-125``).
+Projections apply to the captured activations (linear maps commute with
+the regrouping gathers).
 """
 
 import torch
@@ -67,12 +70,14 @@ def _pick(plist, i):
     return plist[0] if len(plist) == 1 else plist[i]
 
 
-def _knowledge_mse(students, teachers, mask):
+def _knowledge_mse(students, teachers, mask, count=None):
     """Sum of masked-mean MSEs over tensor pairs, accumulated in fp32
-    whatever the compute dtype (``kd.py:98-107``)."""
+    whatever the compute dtype (``kd.py:98-107``); ``count`` as in
+    ``ops.masking.masked_mse``."""
     total = 0.0
     for s_item, t_item in zip(students, teachers):
-        total = total + masked_mse(s_item.float(), t_item.float(), mask)
+        total = total + masked_mse(s_item.float(), t_item.float(), mask,
+                                   count)
     return total
 
 
@@ -146,6 +151,10 @@ class KDStudent:
         Tmax, Lmax = batch.tokens.shape[1], batch.mel.shape[1]
         in_mask = lengths_to_non_pad_mask(batch.ilens, Tmax)[..., None]
         out_mask = lengths_to_non_pad_mask(batch.olens, Lmax)[..., None]
+        # a rank's share of a global batch divides by the global counts
+        g = batch.counts
+        n_in = None if g is None else g.tokens
+        n_out = None if g is None else g.frames()
         terms = {}
 
         if self.distill_output:
@@ -156,7 +165,8 @@ class KDStudent:
                 # the one KD criterion whose weighted path works in the
                 # reference (…_kd_student.py:72-80); the knowledge terms
                 # stay masked means (kd.py:141-155)
-                n_valid = torch.sum(batch.olens > 0).float()
+                n_valid = torch.sum(batch.olens > 0).float() \
+                    if g is None else g.n_valid
                 terms["output_l1_loss"] = (
                     weighted_l1(sa, ta, out_mask, n_valid)
                     + weighted_l1(sb, tb, out_mask, n_valid))
@@ -164,10 +174,12 @@ class KDStudent:
                     weighted_mse(sa, ta, out_mask, n_valid)
                     + weighted_mse(sb, tb, out_mask, n_valid))
             else:
-                terms["output_l1_loss"] = (masked_l1(sa, ta, out_mask)
-                                           + masked_l1(sb, tb, out_mask))
-                terms["output_mse_loss"] = (masked_mse(sa, ta, out_mask)
-                                            + masked_mse(sb, tb, out_mask))
+                terms["output_l1_loss"] = (
+                    masked_l1(sa, ta, out_mask, n_out)
+                    + masked_l1(sb, tb, out_mask, n_out))
+                terms["output_mse_loss"] = (
+                    masked_mse(sa, ta, out_mask, n_out)
+                    + masked_mse(sb, tb, out_mask, n_out))
 
         if self.distill_encoder:
             s_embed, *s_convs, s_blstm = s_know["encoder"]
@@ -176,7 +188,7 @@ class KDStudent:
                         for i, sc in enumerate(s_convs)]
             s_items.append(_proj(proj.blstm, s_blstm))
             terms["encoder_loss"] = _knowledge_mse(
-                s_items, t_know["encoder"], in_mask)
+                s_items, t_know["encoder"], in_mask, n_in)
 
         if self.distill_decoder:
             s_pre, s_l0, s_l1, *s_post = s_know["decoder"]
@@ -189,14 +201,14 @@ class KDStudent:
                         for i, sp in enumerate(s_post[:-1])]
             s_items.append(s_post[-1])
             terms["decoder_loss"] = _knowledge_mse(
-                s_items, t_know["decoder"], out_mask)
+                s_items, t_know["decoder"], out_mask, n_out)
 
         if self.distill_prosody:
             s_d, s_p, s_e, s_pe, s_ee = s_know["prosody"]
             s_items = [s_d, s_p, s_e, _proj(proj.pemb, s_pe),
                        _proj(proj.eemb, s_ee)]
             terms["prosody_loss"] = _knowledge_mse(
-                s_items, t_know["prosody"], in_mask)
+                s_items, t_know["prosody"], in_mask, n_in)
 
         for name, term in terms.items():
             loss = loss + term

@@ -71,7 +71,8 @@ class Batch(NamedTuple):
     ``data/converter.py`` makes it in numpy, ``data/loader.py`` moves it to
     the device).  With duration classes the flat seg_* / frame_mask /
     position fields are None and ``seg_classes`` carries the per-class
-    plans."""
+    plans.  ``counts`` is set on a rank's share of a data-parallel batch
+    only; the losses then divide by the global batch's counts."""
 
     tokens: Any        # (B, Tmax) int32, PAD=0
     ilens: Any         # (B,)
@@ -89,6 +90,9 @@ class Batch(NamedTuple):
     utt_mask: Any      # (B, Lmax) bool
     spembs: Any = None  # optional (B, spk_embed_dim)
     seg_classes: Any = None  # optional tuple of SegClass
+    # a rank's share of a global batch: the global batch's denominators
+    # (ops/masking.py::GlobalCounts, host numbers; parallel/distributed.py)
+    counts: Any = None
 
 
 def _cast_batch(batch, dtype):
@@ -303,8 +307,12 @@ class Tacotron2SA(nn.Module):
 
     def _losses(self, batch, after, before, d_outs, p_outs, e_outs,
                 pad_mask):
-        """The five loss terms in fp32 (``taco2_sa.py:230-300``)."""
+        """The five loss terms in fp32 (``taco2_sa.py:230-300``).  On a
+        rank's share of a global batch (``batch.counts``) every term
+        divides by the global batch's count, so the ranks' terms sum to
+        the global batch's."""
         cfg = self.cfg
+        g = batch.counts
         mel32 = batch.mel.float()
         after, before = after.float(), before.float()
         if cfg.use_masking or cfg.use_weighted_masking:
@@ -315,11 +323,15 @@ class Tacotron2SA(nn.Module):
                 olens_r = batch.olens - batch.olens % cfg.reduction_factor
                 out_mask = out_mask & lengths_to_non_pad_mask(
                     olens_r, batch.mel.shape[1])[..., None]
+            n_out = None if g is None else g.frames(cfg.reduction_factor)
         else:
             out_mask = None  # plain means over the padded buffers
+            n_out = None if g is None else g.n_utts
         in_mask = ~pad_mask
+        n_in = None if g is None else g.tokens
         if cfg.use_weighted_masking:
-            n_valid = torch.sum(batch.olens > 0).float()
+            n_valid = torch.sum(batch.olens > 0).float() if g is None \
+                else g.n_valid
             l1 = weighted_l1(after, mel32, out_mask, n_valid) + \
                 weighted_l1(before, mel32, out_mask, n_valid)
             mse = weighted_mse(after, mel32, out_mask, n_valid) + \
@@ -328,13 +340,14 @@ class Tacotron2SA(nn.Module):
                                   offset=cfg.duration_predictor_offset,
                                   weighted_n_valid=n_valid)
         else:
-            l1 = masked_l1(after, mel32, out_mask) + \
-                masked_l1(before, mel32, out_mask)
-            mse = masked_mse(after, mel32, out_mask) + \
-                masked_mse(before, mel32, out_mask)
+            l1 = masked_l1(after, mel32, out_mask, n_out) + \
+                masked_l1(before, mel32, out_mask, n_out)
+            mse = masked_mse(after, mel32, out_mask, n_out) + \
+                masked_mse(before, mel32, out_mask, n_out)
             # the duration loss is always masked (:560-565)
             dur = C.duration_loss(d_outs.float(), batch.durations, in_mask,
-                                  offset=cfg.duration_predictor_offset)
+                                  offset=cfg.duration_predictor_offset,
+                                  count=n_in)
         loss = l1 + mse + dur
         report = {"l1_loss": l1, "mse_loss": mse, "dur_loss": dur}
         if cfg.use_fe_condition:
@@ -346,8 +359,10 @@ class Tacotron2SA(nn.Module):
                                       n_valid)
             else:
                 fe_mask = in_mask[..., None] if cfg.use_masking else None
-                pitch = masked_mse(p_outs.float(), f0, fe_mask)
-                energy = masked_mse(e_outs.float(), en, fe_mask)
+                n_fe = n_in if cfg.use_masking \
+                    else None if g is None else g.n_utts
+                pitch = masked_mse(p_outs.float(), f0, fe_mask, n_fe)
+                energy = masked_mse(e_outs.float(), en, fe_mask, n_fe)
             loss = loss + pitch + energy
             report["pitch_loss"] = pitch
             report["energy_loss"] = energy

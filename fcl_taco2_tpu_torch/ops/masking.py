@@ -1,7 +1,36 @@
 """Length masks and the masked / weighted loss reductions (port of
-``fcl_taco2_tpu/ops/masking.py``)."""
+``fcl_taco2_tpu/ops/masking.py``).
+
+On a rank of a data-parallel run (``parallel/``) a loss sees only its
+share of the global batch; the reductions then take the global batch's
+counts (``GlobalCounts``, carried by the share as ``Batch.counts``) as
+their denominators, so each rank's result is its local sum over the
+global denominator and the ranks' results sum to the global batch's, as
+in JAX, where the loss is one program over the global batch.  Without
+counts they divide by their own, the single-process run unchanged.
+"""
+
+import dataclasses
 
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class GlobalCounts:
+    """The global batch's denominators, as host numbers
+    (``parallel/distributed.py::make_global_batch``): every rank holds the
+    whole global batch on the host, so no collective makes them."""
+
+    n_utts: int     # utterances on the batch axis, padding rows included
+    n_valid: int    # utterances with frames (olens > 0)
+    tokens: int     # valid token positions: the token mask's count
+    olens: tuple    # every utterance's frame count
+
+    def frames(self, reduction_factor=1):
+        """The frame mask's count, each utterance's frames trimmed to a
+        multiple of ``reduction_factor`` as the mel loss trims them."""
+        r = reduction_factor
+        return sum(o - o % r for o in self.olens)
 
 
 def lengths_to_non_pad_mask(lengths, max_len):
@@ -16,13 +45,26 @@ def lengths_to_pad_mask(lengths, max_len):
     return ~lengths_to_non_pad_mask(lengths, max_len)
 
 
-def masked_mean(values, mask):
+def masked_mean(values, mask, count=None):
     """Mean of ``values`` over elements where ``mask`` is True; ``mask``
     broadcasts against ``values`` and the denominator counts the broadcast
-    selection (``masking.py:24-35``: ``masked_select(...).mean()``)."""
+    selection (``masking.py:24-35``: ``masked_select(...).mean()``).
+    ``count``: the number of True entries of ``mask`` (before the
+    broadcast) over the global batch, for a rank's share of it."""
     mask_f = torch.broadcast_to(mask, values.shape).to(values.dtype)
     total = torch.sum(values * mask_f)
-    return total / torch.clamp(torch.sum(mask_f), min=1.0)
+    if count is None:
+        return total / torch.clamp(torch.sum(mask_f), min=1.0)
+    return total / max(count * (values.numel() // mask.numel()), 1)
+
+
+def plain_mean(values, n_utts=None):
+    """The unmasked mean over the padded buffer; with ``n_utts`` (the
+    global batch's utterances, for a rank's share of it) the denominator
+    is the global batch's padded size."""
+    if n_utts is None:
+        return torch.mean(values)
+    return torch.sum(values) / (values.numel() // values.shape[0] * n_utts)
 
 
 def weighted_masked_sum(err, mask, n_valid_utts):
@@ -30,12 +72,17 @@ def weighted_masked_sum(err, mask, n_valid_utts):
     element weighs ``mask / frames of its utterance``, divided by
     ``n_valid_utts * feat_dim``, then summed.  ``mask`` is (B, T) or
     (B, T, 1), never pre-broadcast over features (the per-utterance count
-    is a frame count)."""
+    is a frame count).  ``n_valid_utts``: a tensor, or the global batch's
+    count as a number."""
     mask_f = mask.to(err.dtype)
     per_utt_frames = torch.sum(mask_f, dim=1, keepdim=True)
     feat = err.shape[-1] if err.dim() == 3 else 1
     w = mask_f / torch.clamp(per_utt_frames, min=1.0)
-    w = w / (torch.clamp(n_valid_utts, min=1.0).to(err.dtype) * feat)
+    if torch.is_tensor(n_valid_utts):
+        n_valid_utts = torch.clamp(n_valid_utts, min=1.0).to(err.dtype)
+    else:  # the global batch's count, a host number
+        n_valid_utts = max(float(n_valid_utts), 1.0)
+    w = w / (n_valid_utts * feat)
     return torch.sum(err * w)
 
 
@@ -50,16 +97,20 @@ def weighted_mse(pred, target, mask, n_valid_utts):
     return weighted_masked_sum(diff * diff, mask, n_valid_utts)
 
 
-def masked_l1(pred, target, mask):
+def masked_l1(pred, target, mask, count=None):
     """Masked-mean L1; ``mask=None`` is the unmasked mean over the padded
-    buffer (``masking.py:79-84``)."""
+    buffer (``masking.py:79-84``).  ``count``: for a rank's share of a
+    global batch, the global count of ``mask``'s True entries, or with
+    ``mask=None`` the global batch's utterances."""
     err = torch.abs(pred - target)
-    return torch.mean(err) if mask is None else masked_mean(err, mask)
+    return plain_mean(err, count) if mask is None \
+        else masked_mean(err, mask, count)
 
 
-def masked_mse(pred, target, mask):
+def masked_mse(pred, target, mask, count=None):
     """Masked-mean MSE; ``mask=None`` is the unmasked mean
-    (``masking.py:87-90``)."""
+    (``masking.py:87-90``); ``count`` as in ``masked_l1``."""
     diff = pred - target
     err = diff * diff
-    return torch.mean(err) if mask is None else masked_mean(err, mask)
+    return plain_mean(err, count) if mask is None \
+        else masked_mean(err, mask, count)

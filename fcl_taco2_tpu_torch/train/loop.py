@@ -19,9 +19,20 @@ without the cache), on the card as replays of one CUDA graph of the step
 (``enc_init``/``dec_init``, ``freeze_mods``, ``train/finetune.py``), the
 ``preprocess_conf`` transform (``data/transform.py``) and the profiler
 trace of the first epoch (``profile_dir``, ``train/profiler.py``) are
-wired as in the JAX package.  Not ported yet: more than one device
-(``n_devices``/``n_slices``, ROADMAP A5).  KD runs through
+wired as in the JAX package.  KD runs through
 ``train/distill.py::KDTrainer``.
+
+Data parallel (``n_devices``/``n_slices``, ``parallel/``): one process a
+card, each building the same global batches and training on its share
+of them (``make_global_batch``), with the global batch's losses and
+gradients (``train/step.py``), so n ranks train as one does.  As in JAX
+(``loop.py:121-133``, ``:183``, ``:218-222``, ``:289``, ``:382-392``)
+the batch size must divide by the ranks, a batch holds at least one
+utterance a rank, and a run of several ranks streams from the host
+(no device cache), runs one step a dispatch and does not checkpoint on
+a signal.  Rank 0 alone writes checkpoints, ``model.json``, the log and
+the plots, each rank its own profiler trace; every rank restores, and takes rank 0's parameters at the
+start and after a restore.
 """
 
 import contextlib
@@ -38,6 +49,8 @@ import torch
 from fcl_taco2_tpu_torch.data.batchfy import make_batchset
 from fcl_taco2_tpu_torch.data.converter import BatchConverter
 from fcl_taco2_tpu_torch.data.loader import BatchUploader, PrefetchLoader
+from fcl_taco2_tpu_torch.parallel.distributed import make_global_batch
+from fcl_taco2_tpu_torch.parallel.mesh import mesh_for
 from fcl_taco2_tpu_torch.train.checkpoint import (AsyncCheckpointWriter,
                                                   restore_checkpoint,
                                                   save_checkpoint,
@@ -106,30 +119,32 @@ class TrainConfig:
     checkpoint_on_signal: bool = False
 
 
-def _not_ported(tcfg):
-    """The knobs whose features wait for later slices, as errors."""
-    if (tcfg.n_devices or 1) > 1 or tcfg.n_slices > 1:
-        raise NotImplementedError(
-            "not ported yet (ROADMAP A5): multi-device training "
-            "(n_devices/n_slices)")
-
-
 class Trainer:
     """``device`` defaults to ``"cuda"`` and raises when no card is present
-    (``utils/device.py``); the model moves there."""
+    (``utils/device.py``); the model moves there.  ``mesh``: the ranks of
+    a data-parallel run (``parallel/mesh.py``); by default the one that
+    ``tcfg.n_devices`` / ``n_slices`` name over the process group this
+    process has joined (``parallel.distributed.initialize``)."""
 
     def __init__(self, model, tcfg: TrainConfig, train_utts, val_utts,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         self.device = resolve_device(device)
-        _not_ported(tcfg)
+        self.mesh = mesh if mesh is not None \
+            else mesh_for(tcfg.n_devices, tcfg.n_slices)
+        n_data = self.mesh.size
+        if tcfg.batch_size % n_data:
+            raise ValueError(
+                f"batch_size {tcfg.batch_size} not divisible by data-"
+                f"parallel degree {n_data}")
+        self.rank0 = self.mesh.rank == 0  # writes the run's files
         self.model = model.to(self.device)
         self.tcfg = tcfg
         self.train_utts = train_utts
         self.val_utts = val_utts
         cfg = model.cfg
         self.converter = BatchConverter(
-            max_dur=cfg.max_dur, batch_size=tcfg.batch_size, seg_bucket=64,
-            odim=cfg.odim, cache={},
+            max_dur=cfg.max_dur, batch_size=tcfg.batch_size,
+            seg_bucket=max(64, n_data * 8), odim=cfg.odim, cache={},
             duration_classes=cfg.effective_duration_classes)
         if tcfg.preprocess_conf:
             from fcl_taco2_tpu_torch.data.transform import Transformation
@@ -147,8 +162,9 @@ class Trainer:
         self._dcache = self._maybe_device_cache()
         self._build_steps()  # after _dcache: the chain assembles from it
         self.reporter = Reporter(tcfg.exp_dir)
-        save_model_json(tcfg.exp_dir, cfg,
-                        extra={"train_config": dataclasses.asdict(tcfg)})
+        if self.rank0:
+            save_model_json(tcfg.exp_dir, cfg,
+                            extra={"train_config": dataclasses.asdict(tcfg)})
 
     def _maybe_device_cache(self):
         """The device-resident dataset cache where configured and
@@ -169,6 +185,8 @@ class Trainer:
             return no("fixed_shapes is off")
         if self.converter.transform is not None:
             return no("a host mel transform (preprocess_conf) is set")
+        if self.mesh.size > 1:
+            return no("multi-device/multi-process runs stream from host")
         from fcl_taco2_tpu_torch.data.device_cache import (
             DeviceBatchCache, estimate_cache_bytes)
         utts = list(self.train_utts) + list(self.val_utts)
@@ -185,12 +203,16 @@ class Trainer:
     def _build_steps(self):
         """The train, eval and chained steps; ``KDTrainer`` overrides
         this (``loop.py:201-231``)."""
-        self.train_step = make_train_step(self.tx)
-        self.eval_step = make_eval_step()
+        self.train_step = make_train_step(self.tx, mesh=self.mesh)
+        self.eval_step = make_eval_step(mesh=self.mesh)
         self.chain_step = None
         self._spd = self.tcfg.steps_per_dispatch
         if self._spd == 0:  # auto: chain when the batches are plan packs
             self._spd = 4 if self._dcache is not None else 1
+        if self._spd > 1 and self.mesh.size > 1:
+            print("steps_per_dispatch: disabled on multi-process runs",
+                  flush=True)
+            self._spd = 1
         if self._spd > 1:
             if not self.tcfg.fixed_shapes:
                 raise ValueError("steps_per_dispatch > 1 requires "
@@ -201,7 +223,11 @@ class Trainer:
 
     def _run_train_step(self, ts, batch):
         return self.train_step(ts, batch, step_generator(
-            self.tcfg.seed, ts.step, self.device))
+            self.tcfg.seed, ts.step, self.device, self.mesh.rank))
+
+    def _convert(self, utts):
+        """Utterances -> this rank's share of the global numpy batch."""
+        return make_global_batch(self.mesh, self.converter(utts))
 
     def init_state(self) -> TrainState:
         """Partial init from checkpoints (``enc_init``/``dec_init``, in
@@ -221,6 +247,7 @@ class Trainer:
             for p in frozen_paths(self.model, t.freeze_mods):
                 print(f"{p} is frozen not to be updated.", flush=True)
         print(format_param_report(self.model), flush=True)
+        self.mesh.broadcast_module_(self.model)
         names, params = zip(*self.model.named_parameters())
         return TrainState(self.model, self.tx.init(params, names), 0,
                           self.tx)
@@ -236,8 +263,9 @@ class Trainer:
             batch_bins=t.batch_bins, batch_frames_in=t.batch_frames_in,
             batch_frames_out=t.batch_frames_out,
             batch_frames_inout=t.batch_frames_inout,
-            shortest_first=shortest_first, num_batches=t.minibatches,
-            seed=t.seed + epoch, odim=self.model.cfg.odim)
+            min_batch_size=self.mesh.size, shortest_first=shortest_first,
+            num_batches=t.minibatches, seed=t.seed + epoch,
+            odim=self.model.cfg.odim)
 
     def _loader(self, batches, train=True, chain=1):
         """Batches for the loop (``loop.py:294-352``).  With ``chain`` > 1
@@ -252,7 +280,7 @@ class Trainer:
             if dc is not None:
                 return PrefetchLoader(batches, dc.plan, self.uploader,
                                       finish=dc.assemble)
-            return PrefetchLoader(batches, self.converter, self.uploader)
+            return PrefetchLoader(batches, self._convert, self.uploader)
         groups, i = [], 0
         while i + chain <= len(batches):
             groups.append(batches[i:i + chain])
@@ -295,7 +323,7 @@ class Trainer:
                 batches, self._loader(batches, train=False))):
             gen = step_generator(self.tcfg.seed,
                                  EVAL_STREAM + epoch * 100003 + i,
-                                 self.device)
+                                 self.device, self.mesh.rank)
             report = self.eval_step(ts, batch, gen)
             self.reporter.report({k: float(v) for k, v in report.items()},
                                  prefix="validation/main",
@@ -305,7 +333,15 @@ class Trainer:
         t = self.tcfg
         preempt = threading.Event()
         prev_handlers = {}
-        if t.checkpoint_on_signal and \
+        want_handler = t.checkpoint_on_signal
+        if want_handler and self.mesh.size > 1:
+            # a signal on one rank would stop it while its peers wait in
+            # a collective, and every rank would write the snapshot
+            print("checkpoint_on_signal: disabled on multi-process runs "
+                  "(uncoordinated preemption would deadlock peers)",
+                  flush=True)
+            want_handler = False
+        if want_handler and \
                 threading.current_thread() is threading.main_thread():
             def _on_signal(signum, frame):
                 print(f"signal {signum}: checkpointing after the in-flight "
@@ -318,6 +354,7 @@ class Trainer:
             start_epoch, best_val = 0, float("inf")
             if t.resume:
                 ts, start_epoch, best_val = restore_checkpoint(t.resume, ts)
+                self.mesh.broadcast_module_(self.model)
                 print(f"resumed from {t.resume} at epoch {start_epoch}, "
                       f"step {ts.step} (best_val {best_val:.4f})",
                       flush=True)
@@ -358,7 +395,8 @@ class Trainer:
             chain = self._spd if self.chain_step is not None else 1
             ep["capture_s"] = self._prepare_chain(ts, batches, chain)
             profile = t.profile_dir is not None and epoch == start_epoch
-            with (trace(t.profile_dir) if profile
+            rank = self.mesh.rank if self.mesh.size > 1 else None
+            with (trace(t.profile_dir, rank) if profile
                   else contextlib.nullcontext()):
                 loader = self._loader(batches, chain=chain)
                 pending, used = [], 0
@@ -439,8 +477,9 @@ class Trainer:
                     3)
             entry = self.reporter.summarize(epoch + 1, ts.step, extra=extra,
                                             write=False)
-            self.reporter.print_entry(
-                entry, keys=["main/loss", "validation/main/loss"])
+            if self.rank0:
+                self.reporter.print_entry(
+                    entry, keys=["main/loss", "validation/main/loss"])
             val = entry.get("validation/main/loss")
             improved = val is not None and val < best_val
             if improved:
@@ -449,7 +488,7 @@ class Trainer:
             elif val is not None:
                 bad_epochs += 1
             need_snap = (epoch + 1) % t.save_interval_epochs == 0
-            if need_snap or improved:
+            if (need_snap or improved) and self.rank0:
                 t0 = time.perf_counter()
                 jobs = []
                 if need_snap:
@@ -465,7 +504,7 @@ class Trainer:
                 ep["ckpt_bg_s"] = round(ckpt_writer.last_bg_s, 4)
                 ep["ckpt_skipped"] = ckpt_writer.skipped
                 ep["ckpt_coalesced"] = ckpt_writer.coalesced
-            if t.plot_interval_epochs > 0 and \
+            if t.plot_interval_epochs > 0 and self.rank0 and \
                     (epoch + 1) % t.plot_interval_epochs == 0:
                 t0 = time.perf_counter()
                 self.reporter.plot()
@@ -473,7 +512,8 @@ class Trainer:
             entry.update({k: (round(v, 4) if isinstance(v, float) else v)
                           for k, v in ep.items()
                           if k.startswith("ckpt") or k == "plot_s"})
-            self.reporter.write_entry(entry)
+            if self.rank0:
+                self.reporter.write_entry(entry)
             self.loop_stats.append(ep)
             if val is not None and t.patience > 0 \
                     and bad_epochs >= t.patience:
@@ -481,5 +521,6 @@ class Trainer:
                       f"(patience {t.patience})", flush=True)
                 break
         ckpt_writer.wait()  # files exist before run() returns
-        self.reporter.plot()
+        if self.rank0:
+            self.reporter.plot()
         return ts

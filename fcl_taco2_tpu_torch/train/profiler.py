@@ -1,9 +1,10 @@
 """Tracing and per-step timing (port of
 ``fcl_taco2_tpu/train/profiler.py``).
 
-- ``trace(log_dir)``: a ``torch.profiler`` context with CPU activity and,
-  where a card is present, CUDA activity; on exit it writes a Chrome trace
-  (``trace.json``, viewable in Perfetto or chrome://tracing) into
+- ``trace(log_dir, rank)``: a ``torch.profiler`` context with CPU
+  activity and, where a card is present, CUDA activity; on exit it writes
+  a Chrome trace (``trace.json``, or ``trace.rank<k>.json`` for rank k of
+  a data-parallel run; viewable in Perfetto or chrome://tracing) into
   ``log_dir``.  The trainer wraps its first epoch in it when
   ``profile_dir`` is set (``loop.py:446-447``).
 - ``cost_analysis(fn, *args)``: the flops of one call, counted by
@@ -26,8 +27,9 @@ TRACE_FILE = "trace.json"
 
 
 @contextlib.contextmanager
-def trace(log_dir):
-    """Profile the block; write ``log_dir/trace.json`` at its end."""
+def trace(log_dir, rank=None):
+    """Profile the block; write ``log_dir/trace.json`` at its end, or
+    ``trace.rank<rank>.json`` when a ``rank`` is given."""
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
@@ -37,7 +39,8 @@ def trace(log_dir):
         yield prof
         if torch.cuda.is_available():
             torch.cuda.synchronize()
-    prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
+    name = TRACE_FILE if rank is None else f"trace.rank{rank}.json"
+    prof.export_chrome_trace(os.path.join(log_dir, name))
 
 
 def cost_analysis(fn, *args):

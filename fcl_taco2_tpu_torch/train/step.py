@@ -16,29 +16,56 @@ updated in place.  The step's draws come from the card's default
 generator, which a graph replay reads at replay time: the loop re-seeds
 it with ``step_seed(seed, step)`` before each replay, so replay k draws
 the masks an eager step k draws.  On the CPU the chain is K eager steps.
+
+Data parallel (``mesh`` of more than one rank, ``parallel/``): each rank
+runs the step on its share of the global batch, whose losses divide by
+the global batch's counts (``ops/masking.py``) and whose BatchNorm
+statistics are every rank's (``ops/conv.py::synced_batch_norm``); the
+gradients and the report values are then summed over the ranks in one
+flat all-reduce, before the non-finite guard and the clip, so every rank
+takes the same decisions and applies the same update, and the
+parameters stay equal without a broadcast.  Each rank draws from its own
+generator (``step_generator(..., rank)``).  The chained step stays
+single-process, as in JAX.
 """
 
 import time
 
 import torch
 
+from fcl_taco2_tpu_torch.ops.conv import synced_batch_norm
 from fcl_taco2_tpu_torch.ops.rnn import step_seed
 from fcl_taco2_tpu_torch.train.optim import global_norm
 
 
-def loss_and_grads(model, batch, generator, loss_fn=None):
+def _sum_over_ranks(mesh, grads, report):
+    """Gradients and report values summed over the ranks, in one flat
+    fp32 all-reduce (each rank's values are its share of the global
+    batch's, over the global denominators)."""
+    if mesh is None or not mesh.distributed:
+        return grads, report
+    keys = sorted(report)
+    vals = [report[k].detach().float().reshape(1) for k in keys]
+    mesh.all_reduce_list_(list(grads) + vals)
+    return grads, {k: v.reshape(()) for k, v in zip(keys, vals)}
+
+
+def loss_and_grads(model, batch, generator, loss_fn=None, mesh=None):
     """Forward and backward of ``loss_fn`` (default ``model.loss_fn``) in
     train mode.  Returns (report, new_state, grads): ``grads`` follows
     ``model.parameters()`` (zeros for a parameter the loss does not
     reach, as JAX gives) and ``report`` gains ``grad_norm``, the global
-    norm of the raw gradients."""
+    norm of the raw gradients.  With a ``mesh`` of several ranks,
+    ``grads`` and ``report`` are the global batch's (summed over the
+    ranks)."""
     params = list(model.parameters())
     loss_fn = loss_fn or model.loss_fn
-    loss, (report, new_state, _) = loss_fn(batch, generator, train=True)
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    with synced_batch_norm(mesh):
+        loss, (report, new_state, _) = loss_fn(batch, generator, train=True)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(params, grads)]
-    report = dict(report)
+    grads, report = _sum_over_ranks(mesh, grads, dict(report))
     report["grad_norm"] = global_norm(grads)
     return report, new_state, grads
 
@@ -67,53 +94,58 @@ def pack_report(report):
     return keys, torch.stack([report[k].detach().float() for k in keys])
 
 
-def make_train_step(tx, loss_fn=None):
+def make_train_step(tx, loss_fn=None, mesh=None):
     """Returns step(train_state, batch, generator) -> (train_state,
     report); ``train_state.model`` is updated in place.  ``loss_fn``
-    replaces ``train_state.model.loss_fn`` (KD)."""
+    replaces ``train_state.model.loss_fn`` (KD).  ``mesh``: the ranks
+    of a data-parallel run (``batch`` is then this rank's share of the
+    global batch, ``parallel/distributed.py::make_global_batch``)."""
 
     def step(ts, batch, generator):
         report, new_state, grads = loss_and_grads(ts.model, batch,
-                                                  generator, loss_fn)
+                                                  generator, loss_fn, mesh)
         return apply_update(ts, tx, grads, new_state), report
 
     return step
 
 
-def make_eval_step(loss_fn=None):
+def make_eval_step(loss_fn=None, mesh=None):
     """Eval step: the report only, model state untouched
-    (``step.py:176-188``)."""
+    (``step.py:176-188``); with a ``mesh``, summed over its ranks."""
 
     @torch.no_grad()
     def step(ts, batch, generator):
         _, (report, _, _) = (loss_fn or ts.model.loss_fn)(batch, generator,
                                                           train=False)
-        return report
+        return _sum_over_ranks(mesh, [], dict(report))[1]
 
     return step
 
 
-def make_kd_train_step(kd, tx):
+def make_kd_train_step(kd, tx, mesh=None):
     """KD step (``step.py:129-159``): the frozen teacher's forward and the
     student's update; ``train_state.model`` is ``kd.student``, so the
     update and ``grad_norm`` cover the student and its ``kd_proj``
-    only.  The same as ``make_train_step(tx, kd.loss_fn)``; the name is
-    the JAX package's, for code ported from it."""
-    return make_train_step(tx, kd.loss_fn)
+    only.  The same as ``make_train_step(tx, kd.loss_fn, mesh)``; the
+    name is the JAX package's, for code ported from it."""
+    return make_train_step(tx, kd.loss_fn, mesh)
 
 
-def make_kd_eval_step(kd):
+def make_kd_eval_step(kd, mesh=None):
     """KD eval step (``step.py:162-174``): teacher and student in eval
-    mode, the report only.  The same as ``make_eval_step(kd.loss_fn)``;
-    the name is the JAX package's, for code ported from it."""
-    return make_eval_step(kd.loss_fn)
+    mode, the report only.  The same as ``make_eval_step(kd.loss_fn,
+    mesh)``; the name is the JAX package's, for code ported from it."""
+    return make_eval_step(kd.loss_fn, mesh)
 
 
-def step_generator(seed, step, device):
-    """The ``torch.Generator`` of train step ``step``: a function of
-    ``(seed, step)`` only."""
+def step_generator(seed, step, device, rank=0):
+    """The ``torch.Generator`` of train step ``step`` on rank ``rank`` of
+    a data-parallel run: a function of ``(seed, step, rank)`` only, so a
+    resumed run replays its draws and no two ranks draw the same masks.
+    Rank 0 draws what a single-process run draws."""
     gen = torch.Generator(device=device)
-    gen.manual_seed(step_seed(seed, step))
+    gen.manual_seed(step_seed(seed, step) if rank == 0
+                    else step_seed(seed, step, rank))
     return gen
 
 

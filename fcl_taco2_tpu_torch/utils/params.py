@@ -204,6 +204,32 @@ def params_to_numpy(state_dict):
     return params, state
 
 
+def save_trees_npz(path, **trees):
+    """JAX trees of numpy arrays (params, state, ...) -> one ``.npz``,
+    each leaf under ``<tree>/<path>`` (list indices as numbers); read back
+    with ``load_trees_npz``.  Empty lists are not kept (no weight lives
+    in one)."""
+    flat = {}
+    for name, tree in trees.items():
+        for where, arr in _flatten(tree):
+            flat["/".join([name] + [str(p) for p in where])] = \
+                np.asarray(arr)
+    np.savez(path, **flat)
+
+
+def load_trees_npz(path):
+    """``save_trees_npz``'s file -> {tree name: JAX tree of numpy arrays}
+    (for ``params_from_jax``)."""
+    trees = {}
+    with np.load(path) as data:
+        for key in data.files:
+            name, *parts = key.split("/")
+            _insert(trees.setdefault(name, {}),
+                    tuple(int(p) if p.isdigit() else p for p in parts),
+                    data[key])
+    return {k: _lists(v) for k, v in trees.items()}
+
+
 # --------------------------------------------------------------------------
 # Parallel WaveGAN: the JAX ``pwg_init`` tree <-> ``ParallelWaveGAN``
 # --------------------------------------------------------------------------

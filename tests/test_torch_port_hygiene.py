@@ -359,3 +359,52 @@ def test_preprocess_entry_points_default_to_the_card(monkeypatch, tmp_path):
         log=lambda *a: None)
     assert len(splits["train"]) == 2
     assert os.path.exists(tmp_path / "b" / "train_data.json")
+
+
+def test_parallel_modules_import_no_jax():
+    """The data-parallel slice's modules are among the files the import
+    check reads, and import neither JAX nor the JAX package."""
+    new = ["parallel/__init__.py", "parallel/mesh.py",
+           "parallel/distributed.py", "parallel/_mp_worker.py",
+           "ops/masking.py", "ops/conv.py", "train/loop.py",
+           "train/distill.py", "infer/synth.py", "cli/fcl_train.py",
+           "cli/fcl_synth.py"]
+    for rel in new:
+        path = REPO / "fcl_taco2_tpu_torch" / rel
+        assert path.exists(), rel
+        bad = [m for m in _imported_roots(path) if m in FORBIDDEN]
+        assert not bad, (rel, bad)
+
+
+def test_parallel_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    """Without a card, a mesh's ranks default to it too: the worker's and
+    the CLIs' ranks run on ``cuda:<rank>`` unless told ``cpu`` (the
+    worker's ``main`` and its workloads raise), and the sharded
+    ``Synthesizer`` raises like the single one."""
+    from fcl_taco2_tpu_torch.infer import Synthesizer
+    from fcl_taco2_tpu_torch.models import Tacotron2SA
+    from fcl_taco2_tpu_torch.parallel import _mp_worker
+    from fcl_taco2_tpu_torch.parallel.distributed import (cli_ranks,
+                                                          rank_device)
+    from fcl_taco2_tpu_torch.parallel.mesh import make_mesh
+    from helpers import tiny_config
+    from torch_port_helpers import port_config
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    assert rank_device("cuda", 1) == torch.device("cuda", 1)
+    assert rank_device("cuda:0", 1) == torch.device("cuda", 0)
+    assert rank_device("cpu", 1) == torch.device("cpu")
+    assert cli_ranks(None, "cpu") == 1 and cli_ranks(3, "cpu") == 3
+    model = Tacotron2SA(port_config(tiny_config()), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Synthesizer(model, mesh=make_mesh())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _mp_worker.main(["--process-id", "0", "--num-processes", "1",
+                         "--port", "1", "--out", str(tmp_path / "r.json")])
+    assert not (tmp_path / "r.json").exists()
+    for run in (_mp_worker.run_training_steps, _mp_worker.run_kd_steps,
+                _mp_worker.run_serving, _mp_worker.check_synced_bn,
+                lambda: _mp_worker.run_trainers(str(tmp_path))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            run()

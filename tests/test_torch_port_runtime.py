@@ -274,16 +274,21 @@ def test_cost_analysis_counts_flops():
 
 
 def test_not_ported_refuses_only_multi_device():
-    from fcl_taco2_tpu_torch.train.loop import TrainConfig, _not_ported
+    """Every knob is ported; multi-device runs need one process a device
+    (``parallel/``), so a single process asked for several refuses with
+    that cause, and a mesh of one is the single-process run."""
+    from fcl_taco2_tpu_torch.parallel.mesh import mesh_for
+    from fcl_taco2_tpu_torch.train.loop import TrainConfig
     for kw in (dict(n_devices=2), dict(n_slices=2)):
-        with pytest.raises(NotImplementedError, match="multi-device"):
-            _not_ported(TrainConfig(**kw))
+        t = TrainConfig(**kw)
+        with pytest.raises(ValueError, match="one process a device"):
+            mesh_for(t.n_devices, t.n_slices)
     knobs = dict(freeze_mods=("enc.",), enc_init="x", dec_init="y",
                  preprocess_conf="conf.json", profile_dir="prof",
                  device_cache="on", steps_per_dispatch=4, n_devices=1)
-    for k, v in knobs.items():
-        _not_ported(TrainConfig(**{k: v}))
-    _not_ported(TrainConfig(**knobs))
+    t = TrainConfig(**knobs)
+    mesh = mesh_for(t.n_devices, t.n_slices)
+    assert (mesh.size, mesh.rank, mesh.distributed) == (1, 0, False)
     assert {f.name for f in dataclasses.fields(TrainConfig)} >= set(knobs)
 
 
