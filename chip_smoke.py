@@ -32,7 +32,10 @@ prints no result):
    odim 80, 96 phonemes, Poisson(8) durations clipped to [1, 50], seed 0,
    durations given), seeded full-width weights, bf16 compute.  Text ->
    mel: ``Synthesizer.synth_batch`` for teacher batch 1, teacher batch
-   16, teacher batch 1 int8, student batch 1.  Text -> wav:
+   16, teacher batch 1 int8, student batch 1, and teacher batch 16 with
+   ``decoder_backend="hybrid"`` and ``"scan"`` beside ``auto`` (frames/s
+   of each; at dropout 0 hybrid's mels within 2e-3 of auto's, or no
+   further than the scan's).  Text -> wav:
    ``TTSPipeline.tts_batch`` for student batch 1, teacher batch 1,
    teacher batch 16 (RTF).  Streaming: ``StreamTTS`` for the student
    (time to first audio, x realtime), and its exactness against
@@ -124,7 +127,21 @@ prints no result):
    the frontend's device ms per bucket, peak memory, the manifests'
    utterance counts) and one ``fcl_train`` epoch at FCL-taco2-S width on
    the manifests it wrote (finite loss).
-13. Data parallel (``[parallel]``, after ``[preprocess]``): 2 ranks of
+13. The quality protocol in small (``[quality]``, after
+   ``[preprocess]``, on its features: 112 training, 8 validation and 8
+   test utterances): ``fcl_train`` trains FCL-taco2-T with its defaults
+   (bf16, the device cache, graphed chains) for QUALITY_EPOCHS epochs;
+   ``fcl_synth`` decodes the test utterances with ground-truth and
+   predicted durations and with ground-truth durations in int8
+   (``fused_ar_decode_hbm``), ``fcl_train --perform-KD True`` distils
+   FCL-taco2-S for a few epochs and its decodes run ``fused_ar_decode``;
+   ``fcl_eval`` scores each (MCD / L1 / RMSE), beside the two MCD floors
+   and the predict-the-train-mean L1 (``scripts/torch_mcd_benchmark.py``'s
+   ``floors``).  Fails unless the teacher's ground-truth-duration L1 is at
+   most 0.9 x that L1 floor and its best validation loss is under half
+   the first epoch's, or unless a decode's kernel did not launch (the
+   counters zeroed before each decode).
+14. Data parallel (``[parallel]``, after ``[quality]``): 2 ranks of
    ``parallel/_mp_worker.py --width full`` share card 0 over gloo (NCCL
    refuses two ranks on one device; this is no scaling measurement): the
    FCL-taco2-T fp32 step on the B=16 bench batch (8 utterances a rank,
@@ -142,8 +159,9 @@ prints no result):
    logged.  Then one NCCL rank in this process (a world of one process
    group, so the same data-parallel path) against the undistributed
    step.
-14. One JSON line of the kernels (launches: every main path above, the
-   CLIs and the ranks of ``[parallel]`` included), the nvidia-smi line,
+15. One JSON line of the kernels (launches: every main path above, the
+   CLIs, ``[quality]``'s decodes and the ranks of ``[parallel]``
+   included), the nvidia-smi line,
    and last the result line
    ``{"ok": true, "device": {...}}``.  Each phase's seconds are logged
    (``[phase]``).
@@ -541,6 +559,63 @@ def phase_main_path(models, kind):
             f"(min {min(fps[1:]):.1f}, max {max(fps[1:]):.1f}; "
             f"{sum(want_len)} frames, budget {stats['budget']})")
         breakdown(synth, tokens, ilens, dd, stats["budget"], tag, kind)
+    for k, v in main_hybrid(models, kind, toks16, durs16).items():
+        launches[k] += v
+    return launches
+
+
+TOL_HYBRID = 2e-3  # [kernel]'s bf16 limit
+
+
+def main_hybrid(models, kind, toks16, durs16):
+    """teacher_b16 with ``decoder_backend="hybrid"`` (the head tile on
+    the streaming kernel, the rest on the plain scan in bf16) against
+    ``auto`` (the streaming kernel over every tile) and ``scan`` (no
+    kernel): frames/s of each, median of 5 after a warm-up, at dropout 0.
+    hybrid's mels must be within TOL_HYBRID of auto's, or no further from
+    them than the scan's are (hybrid's rows are auto's or the scan's).
+    Returns the launch counts of the checked calls."""
+    import dataclasses
+    from fcl_taco2_tpu_torch.infer import Synthesizer
+    from fcl_taco2_tpu_torch.models import Tacotron2SA
+    from fcl_taco2_tpu_torch.ops import decoder_cuda as K
+    cfg = dataclasses.replace(models["teacher"].cfg, dropout_rate=0.0)
+    model = Tacotron2SA(cfg, seed=2)
+    model.load_state_dict(models["teacher"].state_dict())
+    launches = dict.fromkeys(_counters(), 0)
+    mels, fps = {}, {}
+    for backend in ("auto", "hybrid", "scan"):
+        synth = Synthesizer(model, batch_size=16, decoder_backend=backend)
+        zero_counts()
+        mels[backend], _ = synth.synth_batch(toks16, 0, durations=durs16)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if (K.fused_ar_decode_hbm.launches == 0) != (backend == "scan"):
+            raise RuntimeError(f"teacher_b16 {backend}: launches {counts}")
+        for k, v in counts.items():
+            launches[k] += v
+        runs = []
+        for rep in range(6):
+            torch.cuda.synchronize()
+            runs.append(synth.synth_batch(toks16, rep,
+                                          durations=durs16)[1]
+                        ["frames_per_sec"])
+        fps[backend] = "{:.1f} frames/s (min {:.1f}, max {:.1f})".format(
+            np.median(runs[1:]), min(runs[1:]), max(runs[1:]))
+
+    def gap(b):
+        return max(float(np.abs(x - y).max())
+                   for x, y in zip(mels["auto"], mels[b]))
+
+    tol = max(TOL_HYBRID, gap("scan"))
+    log(f"[main] teacher_b16 decoder backends on {kind} (dropout 0, bf16, "
+        f"median of 5 after warm-up): auto {fps['auto']}, hybrid "
+        f"{fps['hybrid']}, scan {fps['scan']}; mel max abs vs auto: hybrid "
+        f"{gap('hybrid'):.3e}, scan {gap('scan'):.3e} (hybrid's tol "
+        f"{tol:.3e}: {TOL_HYBRID} or the scan's gap); launches {launches}")
+    if not gap("hybrid") <= tol:
+        raise RuntimeError(f"hybrid vs auto: mel gap {gap('hybrid'):.3e} > "
+                           f"{tol:.3e}")
     return launches
 
 
@@ -2107,6 +2182,131 @@ def phase_preprocess(smi, kind, root):
             "goldens": goldens}
 
 
+# [quality]: FCL-taco2-T trained at full width with fcl_train's defaults
+# (bf16, the device cache, graphed chains of 4) on [preprocess]'s 112
+# training utterances, then a KD student.  Batch 14 makes 8 steps an
+# epoch, two whole chains: at batch 16 the 7th step's remainder of 3 runs
+# eagerly, ~3x an epoch's graphed time.  The epoch counts are PERF.md's
+# prediction for convergence in about 2.5 minutes: 150 epochs passed the
+# gate by 0.853 x, too close for a run that is not bit-reproducible.
+QUALITY_BATCH = 14
+QUALITY_EPOCHS = 200
+QUALITY_KD_EPOCHS = 3
+QUALITY_TEACHER_ARGS = []  # fcl_train's defaults are FCL-taco2-T's
+QUALITY_STUDENT_CONF = os.path.join("conf", "train_fcl_taco2.student.yaml")
+QUALITY_TEACHER_CONF = os.path.join("conf", "train_fcl_taco2.teacher.yaml")
+L1_GATE = 0.9    # teacher gt-duration L1 <= this x the predict-mean L1
+VAL_GATE = 0.5   # best validation loss < this x the first epoch's
+
+
+def phase_quality(smi, kind, root, feat=None):
+    """The quality protocol in small (``scripts/torch_mcd_benchmark.py``'s
+    calls) on [preprocess]'s features: the teacher trained with
+    ``fcl_train``'s defaults, its test-shard decodes with ground-truth and
+    predicted durations (``fused_ar_decode_hbm``, bf16) and with
+    ground-truth durations in int8 (``--quantize int8``), a KD student and
+    its decodes (``fused_ar_decode``), each scored by ``fcl_eval``, beside
+    the floors.  Fails unless the teacher's ground-truth-duration L1 is
+    at most L1_GATE x the predict-the-train-mean L1 and its best
+    validation loss is under VAL_GATE x the first epoch's, or unless a
+    decode's kernel did not launch.  ``feat``: the features (default
+    ``root/features``).  Returns the decodes' launch counts."""
+    from fcl_taco2_tpu_torch.cli.fcl_train import main as fcl_train
+    from fcl_taco2_tpu_torch.ops import decoder_cuda as K
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(here, "scripts"))
+    from torch_mcd_benchmark import decode_and_eval, floors
+    feat = feat or os.path.join(root, "features")
+    data = ["--train-json", os.path.join(feat, "train_data.json"),
+            "--valid-json", os.path.join(feat, "val_data.json"),
+            "--batch-size", str(QUALITY_BATCH), "--seed", "137",
+            "--device", TRAIN_DEVICE]
+    exp, exp_s = os.path.join(root, "q_teacher"), os.path.join(root,
+                                                               "q_student")
+    t0 = time.perf_counter()
+    # one snapshot at the end (and model.loss.best): a full-width state
+    # each epoch would write ~350 MB an epoch to the disk
+    fcl_train([*QUALITY_TEACHER_ARGS, *data, "--outdir", exp,
+               "--epochs", str(QUALITY_EPOCHS),
+               "--save-interval-epochs", str(QUALITY_EPOCHS)])
+    t_teacher = time.perf_counter() - t0
+    with open(os.path.join(exp, "log.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    val = [r["validation/main/loss"] for r in rows]
+    best = int(np.argmin(val))
+    log(f"[quality] fcl_train FCL-taco2-T (its defaults: device cache "
+        f"{rows[-1].get('device_cache')}, {rows[-1].get('steps_per_dispatch')}"
+        f" steps a dispatch), {len(rows)} epochs of "
+        f"{rows[-1].get('dispatches')} dispatches in {t_teacher:.1f} s: "
+        f"train loss {rows[0]['main/loss']:.4f} -> {rows[-1]['main/loss']:.4f}"
+        f", validation {val[0]:.4f} -> best {val[best]:.4f} (epoch "
+        f"{best + 1}) -> last {val[-1]:.4f} | {smi}")
+
+    launches = dict.fromkeys(_counters(), 0)
+    results = {}
+
+    def decode(ckpt, tag, kernel, extra=()):
+        zero_counts()
+        results[tag] = decode_and_eval(feat, os.path.join(root, f"q_{tag}"),
+                                       ckpt, TRAIN_DEVICE, extra)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        for k, v in counts.items():
+            launches[k] += v
+        log(f"[quality] {tag}: {json.dumps(results[tag])}; launches "
+            f"{counts}")
+        if counts[kernel.__name__] == 0:
+            raise RuntimeError(f"quality {tag}: {kernel.__name__} did not "
+                               f"launch")
+
+    ckpt = os.path.join(exp, "model.loss.best")
+    gt = ["--use-gt-durations"]
+    decode(ckpt, "gt_dur", K.fused_ar_decode_hbm, gt)
+    decode(ckpt, "pred_dur", K.fused_ar_decode_hbm)
+    decode(ckpt, "gt_dur_int8", K.fused_ar_decode_hbm,
+           [*gt, "--quantize", "int8"])
+
+    t0 = time.perf_counter()
+    fcl_train(["--config", os.path.join(here, QUALITY_STUDENT_CONF), *data,
+               "--outdir", exp_s, "--epochs", str(QUALITY_KD_EPOCHS),
+               "--save-interval-epochs", str(QUALITY_KD_EPOCHS),
+               "--perform-KD", "True", "--share-proj", "True",
+               "--teacher-config", os.path.join(here, QUALITY_TEACHER_CONF),
+               "--teacher-checkpoint", ckpt])
+    t_kd = time.perf_counter() - t0
+    with open(os.path.join(exp_s, "log.jsonl")) as f:
+        kd_rows = [json.loads(line) for line in f]
+    log(f"[quality] fcl_train --perform-KD True FCL-taco2-S "
+        f"({QUALITY_STUDENT_CONF}), {len(kd_rows)} epochs in {t_kd:.1f} s: "
+        f"loss {kd_rows[0]['main/loss']:.4f} -> "
+        f"{kd_rows[-1]['main/loss']:.4f}, validation "
+        f"{kd_rows[-1].get('validation/main/loss')}")
+    ckpt_s = os.path.join(exp_s, "model.loss.best")
+    decode(ckpt_s, "student_gt_dur", K.fused_ar_decode, gt)
+    decode(ckpt_s, "student_pred_dur", K.fused_ar_decode)
+
+    fl = floors(feat)
+    l1, l1_floor = results["gt_dur"]["l1"], fl["predict_mean_l1"]
+    log(f"[quality] floors on the {results['gt_dur']['n_utts']} test "
+        f"utterances: {json.dumps(fl)}; teacher gt-duration L1 {l1:.4f} = "
+        f"{l1 / l1_floor:.3f} x the predict-mean L1 (gate {L1_GATE}); best "
+        f"validation loss {val[best]:.4f} = {val[best] / val[0]:.3f} x the "
+        f"first epoch's (gate {VAL_GATE}); MCD floors logged, not gated; "
+        f"launches {launches} on {kind}")
+    log("[quality] " + json.dumps({
+        "teacher_epochs": len(rows), "teacher_s": t_teacher,
+        "kd_epochs": len(kd_rows), "kd_s": t_kd, "floors": fl,
+        "results": results, "validation": [val[0], val[best], val[-1]],
+        "device": smi}))
+    if not l1 <= L1_GATE * l1_floor:
+        raise RuntimeError(f"quality: teacher gt-duration L1 {l1:.4f} > "
+                           f"{L1_GATE} x the predict-mean L1 {l1_floor:.4f}")
+    if not val[best] < VAL_GATE * val[0]:
+        raise RuntimeError(f"quality: best validation loss {val[best]:.4f} "
+                           f"not under {VAL_GATE} x the first {val[0]:.4f}")
+    return launches
+
+
 PAR_TIMEOUT = 900  # seconds a spawned rank may take
 TOL_PAR = 2e-4     # losses and checksums, relative (tests/test_parallel.py)
 TOL_PAR_WHY = ("fp32, TF32 off: the same math, the ranks' sums of local "
@@ -2547,6 +2747,9 @@ def main():
         timed_phase("finetune", phase_finetune, smi, kind, root, ckpts[0],
                     *ckpts[2:])
         timed_phase("preprocess", phase_preprocess, smi, kind, root)
+        for k, v in timed_phase("quality", phase_quality, smi, kind,
+                                root).items():
+            launches[k] += v
         for k, v in timed_phase("parallel", phase_parallel, smi, kind,
                                 root).items():
             launches[k] += sum(v)

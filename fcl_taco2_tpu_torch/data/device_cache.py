@@ -48,6 +48,31 @@ def _require_fixed(converter):
                          "(one plan layout for the run)")
 
 
+def _feature_key(u):
+    """What an utterance's cache row is made from."""
+    return (u.mel_path, u.dur_path, u.f0_path, u.energy_path, u.filetypes,
+            u.spemb_path, u.spemb_filetype, u.eos_appended,
+            tuple(int(t) for t in u.tokenids))
+
+
+def distinct_utterances(utts):
+    """One utterance per uttid, in first-seen order.  A validation
+    utterance that is also a training one (``--valid-json`` equal to
+    ``--train-json``, the quick-start pattern) shares its row; the same
+    uttid with other features raises.  The JAX package raises on any
+    repeat (``fcl_taco2_tpu/data/device_cache.py:116-117``), so its
+    default trainer fails on such manifests."""
+    seen = {}
+    for u in utts:
+        first = seen.setdefault(u.uttid, u)
+        if first is not u and _feature_key(first) != _feature_key(u):
+            raise ValueError(
+                f"uttid {u.uttid} appears twice with different features: "
+                f"{first.mel_path} and {u.mel_path} (durations "
+                f"{first.dur_path} and {u.dur_path})")
+    return list(seen.values())
+
+
 def estimate_cache_bytes(converter, n_utts, spk_embed_dim=0):
     """Device bytes the cache will occupy (for the ``auto`` gate)."""
     T, L = converter.fixed_tmax, converter.fixed_lmax
@@ -81,6 +106,7 @@ class DeviceBatchCache:
 
     def _build(self, utts):
         conv, T, L = self.converter, self.Tmax, self.Lmax
+        utts = distinct_utterances(utts)
         N = len(utts)
         tokens = np.zeros((N + 1, T), np.int32)
         durs = np.zeros((N + 1, T), np.int32)
@@ -91,8 +117,6 @@ class DeviceBatchCache:
         olens = np.zeros(N + 1, np.int32)
         spembs = None
         for i, u in enumerate(utts):
-            if u.uttid in self._rows:
-                raise ValueError(f"duplicate uttid {u.uttid}")
             self._rows[u.uttid] = i
             m, d, p, e = conv._features(u)
             nT, nL = u.n_tokens, m.shape[0]

@@ -188,8 +188,10 @@ class Trainer:
         if self.mesh.size > 1:
             return no("multi-device/multi-process runs stream from host")
         from fcl_taco2_tpu_torch.data.device_cache import (
-            DeviceBatchCache, estimate_cache_bytes)
-        utts = list(self.train_utts) + list(self.val_utts)
+            DeviceBatchCache, distinct_utterances, estimate_cache_bytes)
+        # a validation utterance that is also a training one shares its row
+        utts = distinct_utterances(list(self.train_utts)
+                                   + list(self.val_utts))
         est = estimate_cache_bytes(self.converter, len(utts))
         if not on and est > t.device_cache_max_mb * (1 << 20):
             return no(f"dataset ~{est / (1 << 20):.0f} MB exceeds "

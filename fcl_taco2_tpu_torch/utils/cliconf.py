@@ -1,7 +1,7 @@
 """Yaml-config + CLI override resolution (the port's copy of
 ``fcl_taco2_tpu/utils/cliconf.py``; yaml is imported only when a config
-file is given, and without PyYAML a JSON config file, which is also
-valid yaml, still parses).
+file is given, and without PyYAML a JSON config file, or a flat yaml
+mapping of scalars such as ``conf/*.yaml``, still parses).
 
 The reference uses configargparse with a --config/--config2/--config3
 override chain (tts_train.py:24-43).  Same contract here:
@@ -42,17 +42,59 @@ def parse_with_configs(parser: argparse.ArgumentParser, argv):
 def _load_config(path):
     try:
         import yaml
-    except ImportError:  # JSON is a subset of yaml
-        import json
+    except ImportError:
         with open(path) as f:
-            try:
-                return json.load(f)
-            except json.JSONDecodeError as e:
-                raise ImportError(
-                    f"{path}: PyYAML is not installed, so a config file "
-                    f"must be JSON ({e})") from e
+            return parse_flat_config(f.read(), path)
     with open(path) as f:
         return yaml.safe_load(f) or {}
+
+
+def _scalar(text):
+    """A yaml 1.1 plain scalar as PyYAML's safe loader reads the ones the
+    configs use: booleans, null, ints, floats with a dot, else a string."""
+    low = text.lower()
+    if low in ("true", "yes", "on"):
+        return True
+    if low in ("false", "no", "off"):
+        return False
+    if low in ("null", "~", ""):
+        return None
+    if text[:1] in "'\"" and text[-1:] == text[:1]:
+        return text[1:-1]
+    try:
+        return int(text)
+    except ValueError:
+        pass
+    if "." in text:  # PyYAML reads 1e-3 as a string, 1.0e-3 as a float
+        try:
+            return float(text)
+        except ValueError:
+            pass
+    return text
+
+
+def parse_flat_config(text, path="<config>"):
+    """A config file without PyYAML: JSON (a subset of yaml), or a flat
+    yaml mapping of plain scalars (``key: value`` lines and ``#``
+    comments, as ``conf/*.yaml`` are).  Anything else raises."""
+    import json
+    try:
+        return json.loads(text)
+    except json.JSONDecodeError:
+        pass
+    out = {}
+    for n, line in enumerate(text.splitlines(), 1):
+        body = "" if line.lstrip().startswith("#") else line.split(" #")[0]
+        if not body.strip():
+            continue
+        key, sep, value = body.partition(":")
+        if not sep or line[:1].isspace() or not key.strip() \
+                or value.strip()[:1] in ("[", "{", "|", ">", "&", "*"):
+            raise ImportError(
+                f"{path}:{n}: PyYAML is not installed, and this line is "
+                f"not a flat 'key: scalar' entry: {line!r}")
+        out[key.strip()] = _scalar(value.strip())
+    return out
 
 
 def strtobool(v):

@@ -16,6 +16,7 @@ paper's workflow end to end on the CPU.
   entry points (``tests/test_cli.py::test_cli_full_workflow``'s shape).
 """
 
+import glob
 import json
 import os
 import wave
@@ -237,8 +238,9 @@ def test_fcl_tts_wav_lengths_match_jax(served, tmp_path, mode):
 
 @pytest.mark.parametrize("text", ["json", "yaml"])
 def test_config_without_pyyaml(tmp_path, monkeypatch, text):
-    """Where PyYAML is missing a JSON config still parses, and a yaml one
-    fails with an error that says why."""
+    """Where PyYAML is missing a JSON config and a flat yaml one (as
+    ``conf/*.yaml`` are) still parse, the yaml one to what PyYAML reads,
+    and a yaml file that is not flat fails with an error that says why."""
     import builtins
 
     from fcl_taco2_tpu_torch.utils.cliconf import parse_with_configs
@@ -257,11 +259,28 @@ def test_config_without_pyyaml(tmp_path, monkeypatch, text):
                 else TEACHER_YAML)
     argv = ["--train-json", "t.json", "--valid-json", "v.json",
             "--outdir", "o", "--config", conf]
+    args = parse_with_configs(fcl_train.get_parser(), argv)
     if text == "json":
-        args = parse_with_configs(fcl_train.get_parser(), argv)
         assert (args.eunits, args.max_dur) == (20, 6)
     else:
-        with pytest.raises(ImportError, match="PyYAML.*must be JSON"):
+        monkeypatch.setattr(builtins, "__import__", real_import)
+        import yaml
+        want = {k.replace("-", "_"): v
+                for k, v in yaml.safe_load(TEACHER_YAML).items()}
+        assert {k: getattr(args, k) for k in want} == want
+        from fcl_taco2_tpu_torch.utils.cliconf import parse_flat_config
+        conf_dir = os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "conf")
+        paths = sorted(glob.glob(os.path.join(conf_dir, "*.yaml")))
+        assert len(paths) == 2
+        for path in paths:
+            with open(path) as f:
+                text = f.read()
+            assert parse_flat_config(text, path) == yaml.safe_load(text)
+        monkeypatch.setattr(builtins, "__import__", no_yaml)
+        with open(conf, "w") as f:
+            f.write("eunits: 20\nduration-classes:\n  - 8\n  - 16\n")
+        with pytest.raises(ImportError, match="PyYAML is not installed"):
             parse_with_configs(fcl_train.get_parser(), argv)
 
 

@@ -23,11 +23,20 @@ def _imported_roots(path):
 
 
 def test_port_imports_no_jax_and_no_jax_package():
+    """The package, ``chip_smoke.py`` and the port's scripts
+    (``scripts/torch_*.py``) import neither JAX nor the JAX package; the
+    scripts import neither the JAX CLIs (``cli/``) nor a JAX script."""
     files = sorted((REPO / "fcl_taco2_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
-    assert len(files) > 10
+    scripts = sorted((REPO / "scripts").glob("torch_*.py"))
+    assert len(files) > 10 and len(scripts) >= 9
+    jax_scripts = {f.stem for f in (REPO / "scripts").glob("*.py")
+                   if not f.stem.startswith("torch_")}
     bad = [(f.relative_to(REPO), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN]
+    bad += [(f.relative_to(REPO), m) for f in scripts
+            for m in _imported_roots(f)
+            if m in FORBIDDEN | jax_scripts | {"cli"}]
     assert not bad, bad
 
 
@@ -408,3 +417,30 @@ def test_parallel_entry_points_default_to_the_card(monkeypatch, tmp_path):
                 lambda: _mp_worker.run_trainers(str(tmp_path))):
         with pytest.raises(RuntimeError, match="CUDA"):
             run()
+
+
+QUALITY_SCRIPTS = {
+    "torch_mcd_benchmark": [],
+    "torch_dur_quality": ["--feat-dir", "f", "--teacher-exp", "t"],
+    "torch_quant_quality": [],
+    "torch_decode_protocol": ["--model", "m", "--json", "j"],
+    "torch_f0_groundtruth_eval": [],
+}
+
+
+@pytest.mark.parametrize("name", sorted(QUALITY_SCRIPTS))
+def test_quality_scripts_default_to_the_card(monkeypatch, tmp_path, name):
+    """Each quality script refuses to run without a card unless given
+    ``--device cpu``, before it reads or writes a file."""
+    import importlib
+
+    monkeypatch.syspath_prepend(str(REPO / "scripts"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    script = importlib.import_module(name)
+    out = tmp_path / "out.json"
+    argv = [*QUALITY_SCRIPTS[name], "--out", str(out)]
+    if name in ("torch_mcd_benchmark", "torch_quant_quality"):
+        argv += ["--workdir", str(tmp_path / "wd")]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        script.main(argv)
+    assert not out.exists() and not (tmp_path / "wd").exists()

@@ -172,3 +172,76 @@ def test_synthesizer_synth_batch_matches_jax(models):
     for g, w in zip(pmels, jmels):
         assert g.shape == w.shape
         np.testing.assert_allclose(g, w, atol=ATOL)
+
+
+# bf16 serving: XLA and PyTorch round bf16 in other places (fused biases,
+# excess precision inside XLA's fusions), so the port's bf16 mel differs
+# from JAX's by noise of the size of bf16's own distance from fp32.  The
+# limit is twice JAX's own bf16-vs-fp32 gap on the same input (measured
+# on this batch: port vs JAX ~0.01-0.02, JAX's gap ~0.01); the cast policy
+# itself, which a misplaced cast would break without leaving that noise,
+# is held op by op.
+_SERVE_PRODUCTS = ("convolution", "mm", "addmm", "bmm")
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for tiny bf16 products: as fast, and the test
+    workers sharing the cores do not oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_bf16_serving_policy_matches_jax(models, shape, one_thread):
+    """``synthesize`` with ``compute_dtype="bfloat16"`` (the plain decode
+    on the CPU) against JAX's (``taco2_sa.py``'s cast policy,
+    ``tests/test_mixed_precision.py:40``): every convolution and matrix
+    product, predicted and given durations alike, takes bf16 operands and
+    gives bf16; the mel comes out fp32; values within the bf16 noise."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    jm, params, state, _ = models[shape]
+    cfg16 = jm.cfg.replace(compute_dtype="bfloat16")
+    jm16 = JModel(cfg16)
+    pm = port_model(cfg16, params, state)
+    tokens, ilens, durs = _batch()
+    products = []
+
+    class LogProducts(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.overloadpacket.__name__
+            if name in _SERVE_PRODUCTS:
+                outs = out if isinstance(out, (tuple, list)) else (out,)
+                products.append((name, {
+                    t.dtype for t in (*args, *outs)
+                    if isinstance(t, torch.Tensor) and t.is_floating_point()
+                }))
+            return out
+
+    with LogProducts():
+        for given in (False, True):
+            got = pm.compute_model().synthesize(
+                torch.from_numpy(tokens).long(),
+                torch.from_numpy(ilens).long(), 0, 40,
+                durations=torch.from_numpy(durs) if given else None)
+    names = {n for n, _ in products}
+    assert {"convolution", "mm"} <= names, names
+    assert all(d == {torch.bfloat16} for _, d in products), \
+        [p for p in products if p[1] != {torch.bfloat16}]
+    assert got["mel"].dtype == torch.float32
+
+    def jax_mel(model):
+        return np.asarray(model.synthesize(
+            params, state, jnp.asarray(tokens), jnp.asarray(ilens),
+            jax.random.PRNGKey(1), frame_budget=40,
+            durations=jnp.asarray(durs))["mel"])
+
+    want16, want32 = jax_mel(jm16), jax_mel(jm)
+    assert want16.dtype == np.float32
+    jax_gap = float(np.abs(want16 - want32).max())
+    err = float(np.abs(got["mel"].numpy() - want16).max())
+    assert 0 < jax_gap and err <= 2 * jax_gap, (err, jax_gap)
