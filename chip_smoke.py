@@ -47,7 +47,25 @@ prints no result):
    DataParallel ``module.`` prefixes and loaded into a fresh model
    (``load_reference_checkpoint``); its batch-1 ``synthesize`` (bf16,
    dropout 0) must equal the source model's (``torch.equal``) through
-   ``fused_ar_decode_hbm``, counted like the cases above.
+   ``fused_ar_decode_hbm``, counted like the cases above.  On the card
+   ``Synthesizer``, ``TTSPipeline`` and ``StreamTTS`` replay CUDA graphs
+   (``utils/graphs.py``); their launch counts include every replay.
+6b. Compiled execution (``[compiled]``, after ``[stream]``): each CUDA
+   graph against the same call run eagerly, bit for bit, for the same
+   generator state: the teacher_b1, teacher_b16, teacher_b1_int8 and
+   student_b1 mels (the capture must hold the decoder's cluster launch),
+   a re-dispatch from a saved state, two states that must differ, the
+   prenet keep rate of 8 replays' seeds (within 4 standard errors), the
+   tts_student_b1 wav and every stream_student chunk; batch-1 ms eager
+   beside graphed with the frontend / decode / rest split, RTF and time
+   to first audio both ways, each graph's capture seconds, pool MiB and
+   replays.  Then, under deterministic algorithms (fp32, TF32 off), 4
+   graphed single train steps and eval steps of FCL-taco2-T on device
+   cache batches and 4 graphed KD steps (remat on and off) and KD eval
+   steps against eager ones from the same state: losses, reports and
+   every parameter and buffer bit-equal; and the graphed bf16 single
+   step's time (the chain's is ``[graph]``'s).  ``scripts/
+   torch_compiled_phase.py`` runs this phase alone.
 7. Training (``[train]``), after the serving paths; no decoder or PWG
    kernel may launch in it (the JAX package has no Pallas kernel on the
    training path): the hand-built decoder backward against autograd
@@ -72,7 +90,8 @@ prints no result):
    within 1e-6, gradient leaves within 1e-4); the KD step at
    scripts/bench_kd.py's protocol (B=16, 96 phonemes, Poisson(8)
    durations, seed 0, bf16, classes 8,16,32,50) with remat on and off,
-   timed as the train step is; ``fcl_train`` trains a full-width teacher
+   timed as the train step is, as the graph replay the trainer runs;
+   ``fcl_train`` trains a full-width teacher
    for one epoch on the learnable corpus and ``fcl_train --perform-KD
    True`` distils the full-width student from it for 2 epochs (the loss
    falls, log.jsonl has the KD terms).
@@ -92,7 +111,8 @@ prints no result):
 10. The device cache and the chained train step (``[graph]``, after
    ``[train]``), FCL-taco2-T at full width, the bench batch protocol
    (B=16 utterances of 96 phonemes, Poisson(8) durations) through
-   ``DeviceBatchCache``, classed (8,16,32,50) and single-class; no
+   ``DeviceBatchCache``, classed (8,16,32,50) and single-class (its eager
+   references are ``make_train_step(graphed=False)``); no
    decoder or PWG kernel may launch: 8 steps as 2 chains of 4 replays of
    one CUDA graph against 8 eager steps from the same state and seed
    (fp32, TF32 off, dropout and zoneout at their published rates,
@@ -105,7 +125,8 @@ prints no result):
    one, min and max, device busy share of one profiled chain, capture
    seconds, graph pool, peak memory); and ``fcl_train`` with no runtime
    flags (the cache is built and 4 steps run a dispatch) against
-   ``--device-cache off --steps-per-dispatch 1``, epoch walls.  The
+   ``--device-cache off --steps-per-dispatch 1`` (graphed single steps)
+   and ``--steps-per-dispatch 4``, epoch walls.  The
    native plan builder must be the converter's.
 11. Fine-tuning (``[finetune]``, after ``[cli]``), no kernel may launch:
    ``fcl_train`` FCL-taco2-T with ``--enc-init``/``--dec-init`` from the
@@ -130,7 +151,9 @@ prints no result):
 13. The quality protocol in small (``[quality]``, after
    ``[preprocess]``, on its features: 112 training, 8 validation and 8
    test utterances): ``fcl_train`` trains FCL-taco2-T with its defaults
-   (bf16, the device cache, graphed chains) for QUALITY_EPOCHS epochs;
+   (bf16, the device cache, graphed chains) for QUALITY_EPOCHS epochs at
+   batch 16 (a chain of 4 and 3 single replays an epoch; the epoch walls
+   are logged as ``[compiled]``'s);
    ``fcl_synth`` decodes the test utterances with ground-truth and
    predicted durations and with ground-truth durations in int8
    (``fused_ar_decode_hbm``), ``fcl_train --perform-KD True`` distils
@@ -340,13 +363,16 @@ def decoder_case(model, P, ragged, wdt, fn):
         t = {"pos": pos, "enc_gates": eg.contiguous(),
              "enc_out": eo.contiguous()}
 
+    # the seed as the main path gives it: a (1,) int32 tensor on the card
+    seed = K.seed_tensor(0, torch.device("cuda"))
+
     def alone():
         return K._launch(pk, resident=resident, tensors=t, P=P,
                          D=cfg.max_dur, bounds=bounds,
-                         zoneout=cfg.zoneout_rate, dropout=0.0, seed=0)
+                         zoneout=cfg.zoneout_rate, dropout=0.0, seed=seed)
 
     def call():
-        return fn(dp, enc, pos, 0, packed=pk, **kw)
+        return fn(dp, enc, pos, seed, packed=pk, **kw)
     steps = int(K._row_bounds(bounds, P, cfg.max_dur, "cuda").max())
     return dp, enc, pos, fm, bounds, kw, alone, call, steps
 
@@ -825,8 +851,9 @@ def phase_pwg_kernels():
     outs, errs, mid = [], [], None
     with torch.no_grad():
         for j in range(n):
+            # the position as the stream gives it: (start, W) on the card
             args = (aux[:, j * Vh:(j + 1) * Vh], nz[:, j * Vh:(j + 1) * Vh],
-                    j * Vh, W)
+                    PC.stream_pos(j * Vh, W, "cuda"))
             if j == n // 2:
                 mid = (st, args)
             wav, st = PC.pwg_stream_step(packed, cfg, st, *args)
@@ -1014,6 +1041,381 @@ def phase_stream(models, pwg, kind):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# [compiled]: CUDA graphs wherever the JAX package jits
+# ---------------------------------------------------------------------------
+
+KEEP_SIGMAS = 4.0  # a keep rate's limit, in standard errors of its mean
+
+
+def _graph_rows(*graphed):
+    """Capture seconds, pool MiB, replays and kernels of each graph."""
+    rows = [r for g in graphed for r in g.stats()]
+    for r in rows:
+        r["pool_mib"] = r.pop("pool_bytes") / 2 ** 20
+    return rows
+
+
+def _same(a, b):
+    return len(a) == len(b) and all(np.array_equal(x, y)
+                                    for x, y in zip(a, b))
+
+
+def _replay_ms(fn, reps=5):
+    """Median host ms of ``fn()`` synchronized, after one warm-up."""
+    fn()
+    return float(np.median([_timed(fn)[1] for _ in range(reps)]))
+
+
+def graphed_split(synth, tokens, ilens, dd, budget):
+    """A batch's synthesize split as graphs: the frontend alone, the
+    decode alone (``decode_segments`` on the operands an eager call
+    gave it) and the whole call; the rest is the difference.  Host ms,
+    synchronized, median of 5 replays after one."""
+    from fcl_taco2_tpu_torch.utils.graphs import Graphed
+    m, gen = synth.model, torch.Generator(device="cuda").manual_seed(0)
+    seen = {}
+    orig = m.decode_segments
+
+    def spy(*a, **k):
+        seen["a"], seen["k"] = a, k
+        return orig(*a, **k)
+
+    m.decode_segments = spy
+    try:
+        m.synthesize(tokens, ilens, 0, budget, durations=dd,
+                     quantize=synth.quantize, prequant=synth.prequant)
+    finally:
+        del m.decode_segments
+    enc, dur, pos, fm, _ = seen["a"]
+    kw = dict(seen["k"])
+    tb, sb = kw.pop("tile_bounds"), kw.pop("step_bound")
+    fe = Graphed(lambda x, g: m.synth_frontend(x[0], x[1], durations=x[2]),
+                 "cuda", "split.frontend")
+    dec = Graphed(lambda x, g: orig(x[0], x[1], x[2], x[3], g,
+                                    tile_bounds=x[4], step_bound=x[5], **kw),
+                  "cuda", "split.decode")
+    args = (tokens, ilens, dd, torch.tensor(1.0), True, budget)
+    ms = {"frontend": _replay_ms(lambda: fe(None, (tokens, ilens, dd), gen)),
+          "decode": _replay_ms(lambda: dec(None, (enc, dur, pos, fm, tb,
+                                                  sb), gen)),
+          "total": _replay_ms(lambda: synth.graphs(None, args, gen))}
+    ms["rest"] = ms["total"] - ms["frontend"] - ms["decode"]
+    return ms
+
+
+def eager_split(synth, tokens, ilens, dd, budget):
+    """The same split eagerly (``breakdown``'s stages, median of 3)."""
+    m = synth.model
+    stage = {}
+    orig = {n: getattr(m, n) for n in ("synth_frontend", "decode_segments")}
+
+    def wrap(name):
+        def timed_stage(*a, **k):
+            out, stage[name] = _timed(lambda: orig[name](*a, **k))
+            return out
+        setattr(m, name, timed_stage)
+
+    for n in orig:
+        wrap(n)
+    rows = []
+    try:
+        for _ in range(4):
+            _, total = _timed(lambda: m.synthesize(
+                tokens, ilens, 0, budget, durations=dd,
+                quantize=synth.quantize, prequant=synth.prequant))
+            rows.append((total, stage["synth_frontend"],
+                         stage["decode_segments"]))
+    finally:
+        for n in orig:
+            delattr(m, n)
+    total, front, dec = np.median(np.array(rows[1:]), axis=0)
+    return {"frontend": front, "decode": dec, "total": total,
+            "rest": total - front - dec}
+
+
+def compiled_serving(models, pwg, kind, smi):
+    """Graphed serving against eager, bit for bit, for the same generator
+    state: the four synthesize cases, a re-dispatch from a saved state,
+    two states that must differ, the replays' prenet keep rate, the
+    student's text -> wav and every chunk of its stream; batch-1 ms eager
+    beside graphed with the frontend / decode / rest split, time to first
+    audio, capture seconds and pool MiB.  Returns the launch counts of
+    the graphed calls."""
+    from fcl_taco2_tpu_torch.infer import StreamTTS, Synthesizer, TTSPipeline
+    from fcl_taco2_tpu_torch.models.taco2_sa import kernel_seed
+    from fcl_taco2_tpu_torch.ops import decoder_cuda as K
+    tok1, dur1, toks16, durs16 = protocol()
+    launches = dict.fromkeys(_counters(), 0)
+    graphs, out = [], {"device": smi}
+    cases = (("teacher_b1", "teacher", 1, "none", [tok1], [dur1]),
+             ("teacher_b16", "teacher", 16, "none", toks16, durs16),
+             ("teacher_b1_int8", "teacher", 1, "int8", [tok1], [dur1]),
+             ("student_b1", "student", 1, "none", [tok1], [dur1]))
+    for tag, mkey, B, quantize, toks, durs in cases:
+        g = Synthesizer(models[mkey], batch_size=B, quantize=quantize)
+        e = Synthesizer(models[mkey], batch_size=B, quantize=quantize)
+        e.graphed = False
+        zero_counts()
+        mg, st = g.synth_batch(toks, 0, durations=durs)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        captured = dict(K.last_launch)  # the capture's decoder launch
+        for k, v in counts.items():
+            launches[k] += v
+        me, _ = e.synth_batch(toks, 0, durations=durs)
+        bit = _same(mg, me)
+        row = {"bit_equal": bit, "launches": counts,
+               "decoder_launch_in_capture": captured}
+        for name, s in (("graphed", g), ("eager", e)):
+            walls = [s.synth_batch(toks, r, durations=durs)[1]
+                     for r in range(6)][1:]
+            row[name] = {"ms": float(np.median([w["wall_sec"] * 1e3
+                                                for w in walls])),
+                         "frames_per_s": float(np.median(
+                             [w["frames_per_sec"] for w in walls]))}
+        if B == 1:
+            tokens, ilens, dd = _padded(toks, durs, B, g.tok_bucket)
+            row["graphed"]["split"] = graphed_split(g, tokens, ilens, dd,
+                                                    st["budget"])
+            row["eager"]["split"] = eager_split(e, tokens, ilens, dd,
+                                                st["budget"])
+        out[tag] = row
+        graphs.append(g.graphs)
+        log(f"[compiled] {tag}: graphed vs eager mels bit-equal {bit}; "
+            f"synth_batch ms (median of 5 after one, copy back included) "
+            f"graphed {row['graphed']['ms']:.3f} vs eager "
+            f"{row['eager']['ms']:.3f}, frames/s {row['graphed']['frames_per_s']:.1f}"
+            f" vs {row['eager']['frames_per_s']:.1f}"
+            + ("".join(f"; {n} split " + " + ".join(
+                f"{k} {row[n]['split'][k]:.3f}"
+                for k in ("frontend", "decode", "rest")) + " = "
+                f"{row[n]['split']['total']:.3f} ms"
+                for n in ("graphed", "eager")) if B == 1 else "")
+            + f"; launches (the capture's warm-ups and the replay) {counts}; "
+            f"the decoder launch the graph holds: cluster "
+            f"{captured['cluster']}, cooperative {captured['cooperative']}, "
+            f"captured {captured['captured']}, grid {captured['grid']} on "
+            f"{kind} | {smi}")
+        if captured["captured"] != 1:
+            raise RuntimeError(f"compiled {tag}: the decoder was not "
+                               "captured")
+        if not bit:
+            raise RuntimeError(f"compiled {tag}: graphed mels differ from "
+                               "eager ones")
+        if tag != "student_b1":
+            continue
+        # a re-dispatch from a saved state, two states, the keep rate
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        pend = g._dispatch(toks, gen, durations=durs)
+        args = (*pend["args"], pend["gen_state"])
+        again = g._run(*args, pend["gen"], pend["budget"], 1.0)
+        eager = e._run(*args, torch.Generator(device="cuda"),
+                       pend["budget"], 1.0)
+        other = g._run(*pend["args"], torch.Generator(device="cuda")
+                       .manual_seed(4).get_state(), pend["gen"],
+                       pend["budget"], 1.0)
+        redo = torch.equal(again["mel"], pend["out"]["mel"]) and \
+            torch.equal(again["mel"], eager["mel"])
+        differ = not torch.equal(other["mel"], again["mel"])
+        cfg = g.model.cfg
+        masks, seeds = [], []
+        for s in range(8):
+            gs = torch.Generator(device="cuda").manual_seed(100 + s)
+            state = gs.get_state()
+            g._run(*pend["args"], state, gs, pend["budget"], 1.0)
+            gs.set_state(state)  # the replay's first draw: its kernel seed
+            seeds.append(int(kernel_seed(gs, torch.device("cuda"))))
+            masks += [K.dropout_keep_mask(seeds[-1], cfg.dropout_rate, 96,
+                                          cfg.prenet_units, step=t, layer=l)
+                      for t in range(4) for l in range(2)]
+        kept = torch.stack(masks) > 0
+        keep = float(kept.float().mean())
+        sigma = (cfg.dropout_rate * (1 - cfg.dropout_rate)
+                 / kept.numel()) ** 0.5
+        z = abs(keep - (1 - cfg.dropout_rate)) / sigma
+        log(f"[compiled] student_b1 re-dispatch from a saved state: replay "
+            f"== first replay == eager {redo}; another state's mel differs "
+            f"{differ}; prenet keep rate over 8 replays' seeds {seeds[:3]}.."
+            f" (4 steps x 2 layers x 96 x {cfg.prenet_units} each) {keep:.5f}"
+            f" (want {1 - cfg.dropout_rate}, {z:.2f} standard errors; limit "
+            f"{KEEP_SIGMAS})")
+        if not (redo and differ and z < KEEP_SIGMAS
+                and len(set(seeds)) == len(seeds)):
+            raise RuntimeError("compiled: re-dispatch, states or keep rate")
+        out["redispatch_equal"], out["keep_rate"] = redo, keep
+
+    # text -> wav and the stream (the student)
+    pg = TTSPipeline(models["student"], pwg)
+    pe = TTSPipeline(models["student"], pwg)
+    pe.graphed = False
+    zero_counts()
+    wg, _ = pg.tts_batch([tok1], 0, durations=[dur1])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    for k, v in counts.items():
+        launches[k] += v
+    we, _ = pe.tts_batch([tok1], 0, durations=[dur1])
+    bit = _same(wg, we)
+    rtf = {}
+    for name, p in (("graphed", pg), ("eager", pe)):
+        rtf[name] = float(np.median([p.tts_batch([tok1], r, durations=[dur1])
+                                     [1]["rtf_x"] for r in range(5)]))
+    graphs.append(pg.graphs)
+    out["tts_student_b1"] = {"bit_equal": bit, "rtf": rtf,
+                             "launches": counts}
+    log(f"[compiled] tts_student_b1: graphed vs eager wav bit-equal {bit}; "
+        f"RTF median of 5 graphed {rtf['graphed']:.1f} vs eager "
+        f"{rtf['eager']:.1f}; launches {counts} on {kind}")
+    if not bit:
+        raise RuntimeError("compiled tts_student_b1: wavs differ")
+    sg = StreamTTS(models["student"], pwg)
+    se = StreamTTS(models["student"], pwg)
+    se.eager = set(se.graphs)
+    zero_counts()
+    cg = list(sg.stream(tok1, 0, durations=dur1))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    for k, v in counts.items():
+        launches[k] += v
+    ce = list(se.stream(tok1, 0, durations=dur1))
+    bit = _same(cg, ce)
+    ttfa = {}
+    for name, s in (("graphed", sg), ("eager", se)):
+        reps = [timed_stream(s, tok1, dur1, r)[:2] for r in range(5)]
+        ttfa[name] = [float(v) for v in np.median(np.array(reps), axis=0)]
+    graphs += list(sg.graphs.values())
+    out["stream_student"] = {"bit_equal": bit, "chunks": len(cg),
+                             "ttfa_ms_xrt": ttfa, "launches": counts}
+    log(f"[compiled] stream_student: {len(cg)} chunks graphed vs eager "
+        f"bit-equal {bit}; time to first audio median of 5 graphed "
+        f"{ttfa['graphed'][0]:.2f} ms vs eager {ttfa['eager'][0]:.2f} ms, "
+        f"x realtime {ttfa['graphed'][1]:.1f} vs {ttfa['eager'][1]:.1f}; "
+        f"launches {counts} on {kind}")
+    if not bit:
+        raise RuntimeError("compiled stream_student: chunks differ")
+    from fcl_taco2_tpu_torch.utils.graphs import pool_reserved_bytes
+    out["graphs"] = _graph_rows(*graphs)
+    pool = pool_reserved_bytes("cuda")
+    out["pool_mib"] = None if pool is None else pool / 2 ** 20
+    log("[compiled] captures (seconds with the warm-ups, pool MiB newly "
+        "reserved by the capture, replays, kernels a replay): "
+        + json.dumps(out["graphs"]) + "; the shared graph pool holds "
+        + ("not measured" if pool is None else f"{pool / 2 ** 20:.1f} MiB")
+        + " after every serving capture of the run so far")
+    log("[compiled] " + json.dumps({k: v for k, v in out.items()
+                                    if k != "graphs"}))
+    return launches
+
+
+def compiled_steps(smi, kind, n=4):
+    """Graphed train, KD and eval steps against eager, bit for bit over
+    ``n`` steps from the same state and seeds (fp32, TF32 off,
+    deterministic algorithms, dropout and zoneout at their published
+    rates): the teacher's single step and eval step on device-cache
+    batches, the KD step with remat on and off and the KD eval step on
+    the bench batch; then the graphed single step's time beside
+    ``[graph]``'s chain.  No decoder or PWG kernel runs."""
+    from fcl_taco2_tpu_torch.models import student_config, teacher_config
+    from fcl_taco2_tpu_torch.models.kd import KDStudent
+    from fcl_taco2_tpu_torch.train.optim import build_optimizer
+    from fcl_taco2_tpu_torch.train.state import TrainState
+    from fcl_taco2_tpu_torch.train.step import (make_eval_step,
+                                                make_kd_eval_step,
+                                                make_kd_train_step,
+                                                make_train_step,
+                                                step_generator)
+    dev = TRAIN_DEVICE
+    rows = {}
+
+    def run(name, steps, states, batches, evals):
+        losses = [[], []]
+        for j, b in enumerate(batches):
+            for i in range(2):
+                ts, rep = steps[i](states[i], b(j),
+                                   step_generator(0, states[i].step, dev))
+                states[i] = ts
+                losses[i].append(float(rep["loss"]))
+        bit = losses[0] == losses[1] and all(
+            torch.equal(a, b) for a, b in zip(
+                states[0].model.state_dict().values(),
+                states[1].model.state_dict().values()))
+        reports = [[{k: float(v) for k, v in evals[i](
+            states[i], b(j), step_generator(7, j, dev)).items()}
+            for j, b in enumerate(batches)] for i in range(2)]
+        rows[name] = {"bit_equal": bit, "losses": losses[1],
+                      "eval_bit_equal": reports[0] == reports[1],
+                      "capture_s": steps[1].capture_s,
+                      "graph_pool_mib": steps[1].pool_bytes / 2 ** 20}
+        log(f"[compiled] {name}: {len(batches)} graphed steps vs eager from "
+            f"the same state and seeds: losses and every parameter and "
+            f"buffer bit-equal {bit} (losses {losses[1][0]:.4f} -> "
+            f"{losses[1][-1]:.4f}); eval reports bit-equal "
+            f"{rows[name]['eval_bit_equal']}; capture "
+            f"{steps[1].capture_s:.2f} s ({steps[1].WARMUP} warm-up steps), "
+            f"pool {steps[1].pool_bytes / 2 ** 20:.1f} MiB | {smi}")
+        if not (bit and rows[name]["eval_bit_equal"]):
+            raise RuntimeError(f"compiled {name}: graphed differs from eager")
+
+    with tempfile.TemporaryDirectory() as root, no_tf32(), \
+            deterministic() as nondet:
+        utts = graph_corpus(os.path.join(root, "corpus"), 48)
+        models = graph_models()
+        cfg = teacher_config(IDIM, odim=ODIM, compute_dtype="float32",
+                             duration_classes=DURATION_CLASSES)
+        dc, packs, pairs = graph_setup(cfg, utts, n, models)
+        states = [ts for ts, _ in pairs]
+        steps = [make_train_step(tx, graphed=g)
+                 for (_, tx), g in zip(pairs, (False, True))]
+        evals = [make_eval_step(graphed=g) for g in (False, True)]
+        run("train_step", steps, states, [lambda j: dc.assemble(packs[j])]
+            * n, evals)
+        del models, dc, states, steps, pairs
+        for remat in (True, False):
+            kw = dict(odim=ODIM, duration_classes=DURATION_CLASSES,
+                      remat_decoder=remat, compute_dtype="float32")
+            kds = [KDStudent(student_config(IDIM, **kw),
+                             teacher_config(IDIM, **kw), device=dev, seed=0)
+                   for _ in range(2)]
+            batch, _ = train_batch(TRAIN_B, kds[0].scfg
+                                   .effective_duration_classes, dev)
+            states, steps = [], []
+            for kd, g in zip(kds, (False, True)):
+                tx = build_optimizer(name="adam", lr=1e-3, grad_clip=1.0)
+                names, params = zip(*kd.student.named_parameters())
+                states.append(TrainState(kd.student, tx.init(params, names),
+                                         0, tx))
+                steps.append(make_kd_train_step(kd, tx, graphed=g))
+            evals = [make_kd_eval_step(kd, graphed=g)
+                     for kd, g in zip(kds, (False, True))]
+            run(f"kd_step_remat_{'on' if remat else 'off'}", steps, states,
+                [lambda j: batch] * n, evals)
+            del kds, states, steps, evals
+    from fcl_taco2_tpu_torch.utils.graphs import pool_reserved_bytes
+    pool = pool_reserved_bytes("cuda")
+    rows["pool_mib"] = None if pool is None else pool / 2 ** 20
+    log(f"[compiled] deterministic algorithms on; ops without a "
+        f"deterministic version: {sorted(nondet) or 'none'}; the shared "
+        f"graph pool holds "
+        + ("not measured" if pool is None else f"{pool / 2 ** 20:.1f} MiB")
+        + " after the step captures")
+    rows["single_step_timing"] = train_step_timing(
+        smi, kind, DURATION_CLASSES, graphed=True)
+    log("[compiled] " + json.dumps({"steps": rows, "device": smi}))
+
+
+def phase_compiled(models, pwg, smi, kind):
+    """CUDA graphs wherever the JAX package jits: serving, then the
+    steps.  Returns the serving calls' launch counts."""
+    launches = compiled_serving(models, pwg, kind, smi)
+    zero_counts()
+    compiled_steps(smi, kind)
+    counts = read_counts()
+    if any(counts.values()):
+        raise RuntimeError(f"the training steps launched a kernel: {counts}")
+    return launches
+
+
 TRAIN_DEVICE = "cuda"  # the [train] phase's device
 TRAIN_B = 16                      # bench.py:335, the teacher's batch
 DURATION_CLASSES = (8, 16, 32, 50)  # bench.py:339, the CLI default
@@ -1132,13 +1534,15 @@ def train_vjp_check(smi):
 
 
 def train_step_timing(smi, kind, classes, warmup=3, reps=10,
-                      kd_remat=None):
+                      kd_remat=None, graphed=False):
     """The teacher train step at the bench protocol (bench.py:383-447):
     B=16, bf16 compute, Adam lr 1e-3, clip 1.0; CUDA events around whole
     steps, then synchronized forward / backward / optimizer splits.  With
     ``kd_remat`` True or False, the KD step instead (scripts/bench_kd.py:
     the full-width student distilled from the full-width teacher, the
-    same batch), with ``remat_decoder`` on or off."""
+    same batch), with ``remat_decoder`` on or off.  ``graphed``: the step
+    as the trainers run it on the card, a CUDA graph replay (the first
+    warm-up step captures it); else eager."""
     from fcl_taco2_tpu_torch.models import (Tacotron2SA, student_config,
                                             teacher_config)
     from fcl_taco2_tpu_torch.models.kd import KDStudent
@@ -1153,7 +1557,9 @@ def train_step_timing(smi, kind, classes, warmup=3, reps=10,
                                            duration_classes=classes),
                             device=TRAIN_DEVICE, seed=0)
         loss_fn = model.loss_fn
-        head = f"[train] teacher B={TRAIN_B} bf16 {tag}"
+        head = (f"[{'compiled' if graphed else 'train'}] teacher "
+                f"B={TRAIN_B} bf16 {tag} {'graphed' if graphed else 'eager'}"
+                " single step")
     else:
         kw = dict(odim=ODIM, duration_classes=classes,
                   remat_decoder=kd_remat)
@@ -1161,11 +1567,12 @@ def train_step_timing(smi, kind, classes, warmup=3, reps=10,
                        device=TRAIN_DEVICE, seed=0)
         model, loss_fn = kd.student, kd.loss_fn
         head = (f"[kd] KD step (student from teacher) B={TRAIN_B} bf16 "
-                f"{tag} remat {'on' if kd_remat else 'off'}")
+                f"{tag} remat {'on' if kd_remat else 'off'} "
+                f"{'graphed' if graphed else 'eager'}")
     cfg = model.cfg
     tx = build_optimizer(name="adam", lr=1e-3, grad_clip=1.0)
     ts = TrainState(model, tx.init(list(model.parameters())), 0)
-    step = make_train_step(tx, loss_fn)
+    step = make_train_step(tx, loss_fn, graphed=graphed)
     batch, olens = train_batch(TRAIN_B, cfg.effective_duration_classes,
                                TRAIN_DEVICE)
     torch.cuda.synchronize()
@@ -1215,6 +1622,10 @@ def train_step_timing(smi, kind, classes, warmup=3, reps=10,
            "loss_first": losses[0], "loss_last": losses[-1]}
     if kd_remat is not None:
         row["kd_remat"] = kd_remat
+    row["graphed"] = graphed
+    if graphed:
+        row.update(capture_s=step.capture_s,
+                   graph_pool_mib=step.pool_bytes / 2 ** 20)
     return row
 
 
@@ -1535,7 +1946,8 @@ def phase_kd(smi, kind, root):
     runs."""
     zero_counts()
     kd_vjp_check(smi)
-    rows = [train_step_timing(smi, kind, DURATION_CLASSES, kd_remat=remat)
+    rows = [train_step_timing(smi, kind, DURATION_CLASSES, kd_remat=remat,
+                              graphed=True)
             for remat in (True, False)]
     ckpts = kd_trainers(smi, root)
     torch.cuda.synchronize()
@@ -1655,7 +2067,7 @@ def graph_agreement(smi, utts, classes, models):
                                                           models)
     tag = "classed" if classes else "single-class"
     with no_tf32(), deterministic() as nondet:
-        step = make_train_step(tx_e)
+        step = make_train_step(tx_e, graphed=False)
         eager = []
         for j in range(8):
             ts_e, rep = step(ts_e, dc.assemble(packs[j]),
@@ -1729,7 +2141,7 @@ def graph_timing(smi, kind, utts, classes, models, chains=10, warmup=1):
     n = GRAPH_CHAIN * (chains + warmup)
     dc, packs, [(ts_e, tx_e), (ts_g, tx_g)] = graph_setup(cfg, utts, n,
                                                           models)
-    step = make_train_step(tx_e)
+    step = make_train_step(tx_e, graphed=False)
 
     def eager_chain(c):
         nonlocal ts_e
@@ -1740,10 +2152,13 @@ def graph_timing(smi, kind, utts, classes, models, chains=10, warmup=1):
 
     chain = make_chained_train_step(tx_g, assemble=dc.assemble)
 
+    last = []
+
     def graphed_chain(c):
         nonlocal ts_g
         ts_g, reps = chain(ts_g, packs[GRAPH_CHAIN * c:GRAPH_CHAIN
                                        * (c + 1)], 0)
+        last[:] = [reps]
         return reps
 
     row = {"classes": list(classes)}
@@ -1789,7 +2204,7 @@ def graph_timing(smi, kind, utts, classes, models, chains=10, warmup=1):
         f"side stream from a copy of the state, then the capture), graph "
         f"pool {chain.pool_bytes / 2 ** 30:.2f} GiB; graphed / eager "
         f"{row['graphed']['step_ms'] / row['eager']['step_ms']:.3f} | {smi}")
-    if not torch.isfinite(chain.out).all():
+    if not torch.isfinite(last[0]).all():
         raise RuntimeError("graph timing: non-finite report")
     return row
 
@@ -1828,7 +2243,8 @@ def graph_cli_check(smi, root):
         f"walls {auto[0]['train_wall_s']:.2f} / "
         f"{auto[1]['train_wall_s']:.2f} s, step p50 "
         f"{auto[1]['step_ms_p50']:.1f} ms; --device-cache off "
-        f"--steps-per-dispatch 1: {off[0]['train_wall_s']:.2f} / "
+        f"--steps-per-dispatch 1 (graphed single steps): "
+        f"{off[0]['train_wall_s']:.2f} / "
         f"{off[1]['train_wall_s']:.2f} s, step p50 "
         f"{off[1]['step_ms_p50']:.1f} ms; --device-cache off "
         f"--steps-per-dispatch 4 (graphed, streamed batches): "
@@ -2184,12 +2600,13 @@ def phase_preprocess(smi, kind, root):
 
 # [quality]: FCL-taco2-T trained at full width with fcl_train's defaults
 # (bf16, the device cache, graphed chains of 4) on [preprocess]'s 112
-# training utterances, then a KD student.  Batch 14 makes 8 steps an
-# epoch, two whole chains: at batch 16 the 7th step's remainder of 3 runs
-# eagerly, ~3x an epoch's graphed time.  The epoch counts are PERF.md's
-# prediction for convergence in about 2.5 minutes: 150 epochs passed the
-# gate by 0.853 x, too close for a run that is not bit-reproducible.
-QUALITY_BATCH = 14
+# training utterances, then a KD student.  Batch 16 makes 7 steps an
+# epoch: a chain of 4 and a remainder of 3 single replays of the chain's
+# graph (the epoch wall is logged as [compiled]'s).  The epoch count is
+# PERF.md's prediction for convergence in about 2.5 minutes: 150 epochs
+# passed the gate by 0.853 x at batch 14, too close for a run that is not
+# bit-reproducible.
+QUALITY_BATCH = 16
 QUALITY_EPOCHS = 200
 QUALITY_KD_EPOCHS = 3
 QUALITY_TEACHER_ARGS = []  # fcl_train's defaults are FCL-taco2-T's
@@ -2241,6 +2658,18 @@ def phase_quality(smi, kind, root, feat=None):
         f"train loss {rows[0]['main/loss']:.4f} -> {rows[-1]['main/loss']:.4f}"
         f", validation {val[0]:.4f} -> best {val[best]:.4f} (epoch "
         f"{best + 1}) -> last {val[-1]:.4f} | {smi}")
+    walls = [r["train_wall_s"] for r in rows]
+    log(f"[compiled] epoch wall at batch {QUALITY_BATCH} on the "
+        f"{rows[-1].get('steps')} steps of [preprocess]'s training split "
+        f"({rows[-1].get('dispatches')} dispatches: chains of "
+        f"{rows[-1].get('steps_per_dispatch')} and the remainder's single "
+        f"replays): first epoch {walls[0]:.3f} s (capture "
+        f"{rows[0].get('capture_s', 0):.2f} s, pool "
+        f"{rows[0].get('graph_pool_bytes', 0) / 2 ** 20:.1f} MiB), later "
+        f"epochs median {np.median(walls[1:]):.3f} s (min "
+        f"{min(walls[1:]):.3f}, max {max(walls[1:]):.3f}); eval "
+        f"{np.median([r.get('eval_s', 0) for r in rows[1:]]):.3f} s an "
+        f"epoch | {smi}")
 
     launches = dict.fromkeys(_counters(), 0)
     results = {}
@@ -2736,6 +3165,9 @@ def main():
     for name, phase in (("tts", phase_tts), ("stream", phase_stream)):
         for k, v in timed_phase(name, phase, models, pwg, kind).items():
             launches[k] += v
+    for k, v in timed_phase("compiled", phase_compiled, models, pwg, smi,
+                            kind).items():
+        launches[k] += v
     del models
     timed_phase("train", phase_train, smi, kind)
     timed_phase("graph", phase_graph, smi, kind)

@@ -118,17 +118,19 @@ struct DecodeArgs {
   void* scratch;          // activations and state (decoder_cuda._scratch_bytes)
   void* barrier;          // one u32, zero at launch
   void* trace;            // null, or (steps + 1) x 7 x grid u64 phase times
+  const void* seed;       // (1,) i32: the prenet dropout's seed, read on the
+                          // device (as the Pallas kernels read seed_ref), so
+                          // a CUDA graph replays the seed drawn before it
   int P, D, idim, odim, units, H;
   int ragged, resident, quantized;
   int units_per_block;    // UB: 2, 4 or 8 (the pack's gate order)
   float zoneout, dropout;
-  unsigned int seed;
 };
 
 // What a launch did, for the wrapper's log (decoder_cuda.last_launch).
 struct LaunchInfo {
   int grid, block_threads, units_per_block, stationary, smem_bytes,
-      barriers_per_step, prologue_barriers, cluster, cooperative;
+      barriers_per_step, prologue_barriers, cluster, cooperative, captured;
 };
 }
 
@@ -746,7 +748,7 @@ __global__ void __launch_bounds__(NTH, 1)
   c.drop_scale = 1.0f / (1.0f - a.dropout);
   c.drop_thr = (uint64_t)((1.0 - (double)a.dropout) * 4294967296.0);
   c.use_drop = a.dropout > 0.0f;
-  c.seed = a.seed;
+  c.seed = (uint32_t)*static_cast<const int*>(a.seed);
   c.pos = static_cast<const float*>(a.pos);
   c.pre_b1 = static_cast<const float*>(a.pre_b1);
   c.pre_b2 = static_cast<const float*>(a.pre_b2);
@@ -995,10 +997,17 @@ int launch(const DecodeArgs* a, cudaStream_t stream, LaunchInfo* info) {
   if (e != cudaSuccess) return e;
   DecodeArgs args = *a;
   void* params[] = {&args, &stationary};
+  // inside a CUDA graph capture the launch becomes a kernel node with the
+  // same attributes; a refused launch there ends the capture, so it is
+  // reported, not retried
+  cudaStreamCaptureStatus capture = cudaStreamCaptureStatusNone;
+  e = cudaStreamIsCapturing(stream, &capture);
+  if (e != cudaSuccess) return e;
+  info->captured = capture == cudaStreamCaptureStatusActive;
   cfg.numAttrs = 2;
   info->cooperative = 1;
   e = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kern), params);
-  if (e != cudaSuccess) {
+  if (e != cudaSuccess && !info->captured) {
     cudaGetLastError();  // not sticky: retry without the cooperative flag
     cfg.numAttrs = 1;
     info->cooperative = 0;

@@ -12,7 +12,9 @@
 // to [cum_i, W + cum_i); x_0 = noise * first_w + first_b masked to p < W.
 // The entries differ only where the TPU kernels differ: the stream entry
 // reads its state at the first tile and writes it after the last, and takes
-// start and W at run time.
+// start and W at run time, from the device (as the Pallas kernel reads
+// start_ref), so a CUDA graph of a stream step replays with the position
+// its caller wrote before the replay.
 //
 // What bounds it on the H100.  PWG v1 does 1,294,400 multiply-adds per
 // output sample (3*64*128 + 80*128 + 64*128 per layer, 30 layers, plus the
@@ -112,6 +114,8 @@ struct PwgArgs {
   float* xbuf;           // (2, B, tile, 64) ping-pong of one time tile
   float* hbuf;           // (2, B, sum_bw, 64) layer histories by tile parity
   float* ring_acc;       // (B, ra, 64) skip sums
+  const int* pos;        // (2,) i32 on the device: start, W; or null: the
+                         // start and W fields below
   int B, N, n_aux, n_noise, start, W, A, K1p, L, delay, tile, ra, sum_bw;
   float z_scale;         // sqrt(1 / L)
   int dil[MAX_LAYERS];
@@ -177,9 +181,9 @@ __device__ __forceinline__ void load_b(const float* p, int ld, uint32_t bh[2],
 // Conditioning row at stream position q: the caller's aux from start on,
 // the state's history before it; null (zero) past the aux's end or with
 // no state.
-__device__ __forceinline__ const float* aux_row(const PwgArgs& a, int b,
-                                                int q) {
-  const int j = q - a.start;
+__device__ __forceinline__ const float* aux_row(const PwgArgs& a, int start,
+                                                int b, int q) {
+  const int j = q - start;
   if (j >= 0)
     return j < a.n_aux ? a.aux + ((size_t)b * a.n_aux + j) * a.A : nullptr;
   return a.ah_in ? a.ah_in + ((size_t)b * a.delay + j + a.delay) * a.A
@@ -198,8 +202,9 @@ __device__ __forceinline__ float* xcur(const PwgArgs& a, int par, int b,
 // One time tile: positions [s0, s0 + n); the layer histories are read from
 // hread (positions [s0 - bw_i, s0)) and written to hwrite (positions
 // [s0 + n - bw_i, s0 + n)); either may be null (zero state / none kept).
+// start and W: the call's stream position and real sample count.
 struct Tile {
-  int s0, n;
+  int s0, n, start, W;
   const float* hread;
   float* hwrite;
 };
@@ -211,7 +216,8 @@ __device__ __forceinline__ size_t hrow(const PwgArgs& a, int b, int i,
 }
 
 // Load the state's skip sums into the ring (zero elsewhere).
-__device__ void prologue(const PwgArgs& a, size_t gtid, size_t gstride) {
+__device__ void prologue(const PwgArgs& a, int start, size_t gtid,
+                         size_t gstride) {
   const size_t nacc = (size_t)a.B * a.ra * C;
   for (size_t e = gtid; e < nacc; e += gstride) {
     const int c = e % C;
@@ -220,21 +226,22 @@ __device__ void prologue(const PwgArgs& a, size_t gtid, size_t gstride) {
     float v = 0.f;
     if (a.acc_in != nullptr && k < a.delay)
       v = a.acc_in[((size_t)b * a.delay + k) * C + c];
-    accrow(a, b, a.start + k)[c] = v;
+    accrow(a, b, start + k)[c] = v;
   }
 }
 
 // Store the aux history and the skip sums after the last tile (stream
 // entry only; the layer histories were written by the last tile).
-__device__ void epilogue(const PwgArgs& a, size_t gtid, size_t gstride) {
-  const int end = a.start + a.N;
+__device__ void epilogue(const PwgArgs& a, int start, size_t gtid,
+                         size_t gstride) {
+  const int end = start + a.N;
   const int A4 = a.A / 4;
   const size_t nah = (size_t)a.B * a.delay * A4;
   for (size_t e = gtid; e < nah; e += gstride) {
     const int c4 = e % A4;
     const int j = (e / A4) % a.delay;
     const int b = e / ((size_t)A4 * a.delay);
-    const float* src = aux_row(a, b, end - a.delay + j);
+    const float* src = aux_row(a, start, b, end - a.delay + j);
     st4(a.ah_out + ((size_t)b * a.delay + j) * a.A + 4 * c4,
         src ? ld4(src + 4 * c4) : make_float4(0.f, 0.f, 0.f, 0.f));
   }
@@ -248,17 +255,17 @@ __device__ void epilogue(const PwgArgs& a, size_t gtid, size_t gstride) {
 }
 
 // x_0 at positions [s0, s0 + n) of every row into ping-pong buffer 0.
-__device__ void first_conv(const PwgArgs& a, int s0, int n, size_t gtid,
-                           size_t gstride) {
+__device__ void first_conv(const PwgArgs& a, int start, int W, int s0, int n,
+                           size_t gtid, size_t gstride) {
   const size_t total = (size_t)a.B * n * (C / 4);
   for (size_t e = gtid; e < total; e += gstride) {
     const int c = 4 * (e % (C / 4));
     const int r = (e / (C / 4)) % n;
     const int b = e / ((size_t)(C / 4) * n);
     const int p = s0 + r;
-    const int j = p - a.start;
+    const int j = p - start;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (p < a.W) {
+    if (p < W) {
       const float nz = j < a.n_noise ? a.noise[(size_t)b * a.n_noise + j] : 0.f;
       const float4 w = ld4(a.first_w + c), bb = ld4(a.first_b + c);
       v = make_float4(nz * w.x + bb.x, nz * w.y + bb.y, nz * w.z + bb.z,
@@ -307,7 +314,7 @@ __device__ void gather(const PwgArgs& a, int i, const Tile& tl, int rt,
       continue;
     }
     const int b = jg / tl.n, p = tl.s0 + (jg - b * tl.n);
-    const float* arow = aux_row(a, b, p - cum);
+    const float* arow = aux_row(a, tl.start, b, p - cum);
     for (int c4 = lane; c4 < KQ; c4 += 32) {
       const float* src = nullptr;
       if (c4 < 3 * (C / 4)) {
@@ -456,7 +463,7 @@ __device__ void layer(const PwgArgs& a, int i, const Tile& tl, float* w_s,
       sum.y = sum.y + acc[0][2 * h + 1] + b2s.y;
       st2(accrow(a, b, p + a.delay - cum) + ccol, sum);
       if (xnext) {
-        const bool keep = p >= cum && p < a.W + cum;
+        const bool keep = p >= cum && p < tl.W + cum;
         float2 xo = make_float2(0.f, 0.f);
         if (keep) {
           xo.x = ((acc[1][2 * h] + b2o.x) + center[h].x) * SQRT_HALF;
@@ -531,7 +538,7 @@ __device__ void head(const PwgArgs& a, const Tile& tl, float* a_s,
         const float sum = ((pr[0] + pr[1]) + (pr[2] + pr[3])) +
                           ((pr[4] + pr[5]) + (pr[6] + pr[7]));
         const int b = jg / tl.n, p = tl.s0 + (jg - b * tl.n);
-        a.wav[(size_t)b * a.N + (p - a.start)] = sum + a.last2_b[0];
+        a.wav[(size_t)b * a.N + (p - tl.start)] = sum + a.last2_b[0];
       }
     }
     group_sync(q.grp);  // red and the z tile are reused by the next tile
@@ -557,16 +564,20 @@ __global__ void __launch_bounds__(NG * GW * 32, 1)
   const size_t gstride = (size_t)gridDim.x * blockDim.x;
   const size_t hsize = (size_t)a.B * a.sum_bw * C;
 
-  prologue(a, gtid, gstride);
-  const int end = a.start + a.N;
-  first_conv(a, a.start, min(a.tile, a.N), gtid, gstride);
+  const int start = a.pos != nullptr ? a.pos[0] : a.start;
+  const int W = a.pos != nullptr ? a.pos[1] : a.W;
+  prologue(a, start, gtid, gstride);
+  const int end = start + a.N;
+  first_conv(a, start, W, start, min(a.tile, a.N), gtid, gstride);
   grid.sync();
   int t = 0;
-  for (int s0 = a.start; s0 < end; s0 += a.tile, ++t) {
+  for (int s0 = start; s0 < end; s0 += a.tile, ++t) {
     const bool last = s0 + a.tile >= end;
     Tile tl;
     tl.s0 = s0;
     tl.n = min(a.tile, end - s0);
+    tl.start = start;
+    tl.W = W;
     tl.hread = t == 0 ? a.bufs_in : a.hbuf + (t & 1) * hsize;
     tl.hwrite = last ? a.bufs_out : a.hbuf + ((t + 1) & 1) * hsize;
     for (int i = 0; i < a.L; ++i) {
@@ -575,11 +586,11 @@ __global__ void __launch_bounds__(NG * GW * 32, 1)
     }
     head<NG>(a, tl, a_s, g_s, q);
     if (!last)
-      first_conv(a, s0 + a.tile, min(a.tile, end - s0 - a.tile), gtid,
-                 gstride);
+      first_conv(a, start, W, s0 + a.tile, min(a.tile, end - s0 - a.tile),
+                 gtid, gstride);
     grid.sync();
   }
-  if (a.ah_out != nullptr) epilogue(a, gtid, gstride);
+  if (a.ah_out != nullptr) epilogue(a, start, gtid, gstride);
 }
 
 size_t smem_bytes(int NG, int K1p) {
@@ -641,8 +652,20 @@ int pwg_stream_launch(const PwgArgs* a, void* stream, int* info) {
   info[4] = NG;
   info[5] = (int)smem;
   void* params[] = {const_cast<PwgArgs*>(a)};
-  e = cudaLaunchCooperativeKernel(kern, dim3(grid), dim3(threads), params,
-                                  smem, static_cast<cudaStream_t>(stream));
+  // the cooperative launch as cudaLaunchKernelExC with the cooperative
+  // attribute: the same launch, in the form a CUDA graph capture records
+  // as a kernel node
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeCooperative;
+  attr.val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelExC(&cfg, kern, params);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }

@@ -3,7 +3,10 @@
 
 ``TTSPipeline.tts_batch`` runs synthesize and the vocoder as one device
 pipeline; on the card the vocoder is the streaming kernel
-(``vocoder/pwg_cuda.py``).  ``vocode_chunked`` vocodes a mel stream in
+(``vocoder/pwg_cuda.py``), and the seed draw, the noise draw and
+``synth_vocode`` (the body of JAX's jitted ``fn``, pipeline.py:58-84) are
+one CUDA graph per ``(B, Tmax, budget)`` (``utils/graphs.py``), captured
+by the call's untimed warm-up.  ``vocode_chunked`` vocodes a mel stream in
 chunks with receptive-field context, edge-exact against the whole
 utterance.
 """
@@ -18,6 +21,7 @@ import torch
 from fcl_taco2_tpu_torch.models.taco2_sa import _generator
 from fcl_taco2_tpu_torch.ops.decoder_cuda import maybe_prequantize
 from fcl_taco2_tpu_torch.utils.device import resolve_device
+from fcl_taco2_tpu_torch.utils.graphs import Graphed, say_once
 from fcl_taco2_tpu_torch.vocoder.pwg import PWGConfig, pwg_generate
 from fcl_taco2_tpu_torch.vocoder.pwg_cuda import pack_pwg_weights, vocode
 
@@ -71,6 +75,12 @@ class TTSPipeline:
             self.model.cfg, self.model.decoder.jax_layout(), quantize)
         self.sample_rate = sample_rate
         self._seen = set()
+        self.graphs = Graphed(self._graph_body, self.device, "tts_batch")
+        self.graphed = self.device.type == "cuda"
+        if self.graphed and self.model.decode_route() == "scan":
+            self.graphed = False
+            say_once("TTSPipeline: this config decodes with the scan, which "
+                     "reads its step bound on the host; running eagerly")
 
     def synth_vocode(self, tokens, ilens, rng, budget, noise,
                      durations=None):
@@ -78,7 +88,8 @@ class TTSPipeline:
         pipeline's jitted ``fn``, pipeline.py:63-81).
 
         tokens/ilens: (B, Tmax)/(B,) int tensors on the device; rng: int
-        seed or ``torch.Generator`` for the prenet dropout; noise:
+        seed, ``torch.Generator`` or (1,) int32 seed tensor for the prenet
+        dropout (``Tacotron2SA.synthesize``); noise:
         (B, budget * hop) float; durations: optional (B, Tmax) int.
         Returns (wav (B, budget * hop) fp32, wav_lens, olens)."""
         hop = self.pwg_cfg.hop
@@ -91,6 +102,17 @@ class TTSPipeline:
         noise = noise.to(self.device).to(dt).float()
         wav = vocode(self.pwg, self.pwg_cfg, mel, noise, packed=self.packed)
         return wav.float(), out["olens"] * hop, out["olens"]
+
+    def _graph_body(self, inputs, gen):
+        """The seed draw, the noise draw and ``synth_vocode``: the decode's
+        seed stays on the device (the kernels read it there)."""
+        tokens, ilens, durs, budget = inputs
+        seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=gen,
+                             device=gen.device).to(torch.int32)
+        noise = torch.randn(tokens.shape[0], budget * self.pwg_cfg.hop,
+                            generator=gen, device=gen.device)
+        return self.synth_vocode(tokens, ilens, seed, budget, noise,
+                                 durations=durs)
 
     def tts_batch(self, token_lists: List[np.ndarray], rng,
                   frame_per_token=16,
@@ -120,15 +142,13 @@ class TTSPipeline:
         durs = None if durations is None else torch.from_numpy(durs).to(dev)
         gen = _generator(rng, dev)
         state = gen.get_state()
+        inputs = (tokens, ilens, durs, budget)
 
         def run():
             gen.set_state(state)  # the warm-up and the timed call agree
-            seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=gen,
-                                     device=dev))
-            noise = torch.randn(B, budget * self.pwg_cfg.hop,
-                                generator=gen, device=dev)
-            return self.synth_vocode(tokens, ilens, seed, budget, noise,
-                                     durations=durs)
+            if self.graphed:
+                return self.graphs(None, inputs, gen)
+            return self._graph_body(inputs, gen)
 
         key = (B, Tmax, budget)
         if key not in self._seen:  # one-time set-up (the kernels' build,

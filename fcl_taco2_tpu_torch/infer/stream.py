@@ -7,7 +7,8 @@ mel is produced in phoneme chunks, and the streaming vocoder
 calls, so audio leaves the device a fixed ``delay`` samples (~139 ms at
 22.05 kHz) behind the first decoded frame.
 
-Pipeline (host-driven, each stage an eager method):
+Pipeline (host-driven; on the card each stage is a CUDA graph, one per
+static shape, as JAX jits each stage, ``stream.py:134-139``):
 
     frontend (whole text)                -> hs, durations      [1 readback]
     per chunk of ``chunk_phonemes``:
@@ -21,6 +22,15 @@ Pipeline (host-driven, each stage an eager method):
 
 With dropout 0 the joined chunks equal ``synthesize`` + ``pwg_generate``
 over the whole utterance (fp reassociation only).
+
+The stages take the chunk's position (the vocoder step ``j``, the
+postnet window ``p0``, the frame count ``F``) as device scalars, slice
+their windows at device offsets and pass the vocoder its stream position
+as a device tensor, so a replay runs at the position written before it;
+the decode's kernel seed and the vocoder noise are drawn inside the
+stages from the stream's generator, in the host's fixed order, so a
+graphed stream and an eager one draw the same bits.  A decode on the scan
+route stays eager (it reads its step bound on the host) and says so once.
 """
 
 import copy
@@ -34,6 +44,7 @@ from fcl_taco2_tpu_torch.ops.conv import conv1d
 from fcl_taco2_tpu_torch.ops.decoder_cuda import (maybe_prequantize,
                                                   tile_step_bounds)
 from fcl_taco2_tpu_torch.utils.device import resolve_device
+from fcl_taco2_tpu_torch.utils.graphs import Graphed, say_once
 from fcl_taco2_tpu_torch.vocoder.pwg import PWGConfig, _smooth
 from fcl_taco2_tpu_torch.vocoder.pwg_cuda import (_round8, pack_pwg_weights,
                                                   pwg_stream_state,
@@ -109,13 +120,40 @@ class StreamTTS:
         self.pad = _round_up(max(self.ctx_post, self.cu, 1), 8)
         self.tail = _round_up(
             self.pad + -(-self.delay // self.hop) + self.Fv + self.Fc, 8)
+        stages = {"frontend": self._frontend,
+                  "decode": self._decode_chunk,
+                  "postnet": self._postnet_chunk,
+                  "vocode": self._vocode_step}
+        self.graphs = {k: Graphed(fn, self.device, f"stream.{k}")
+                       for k, fn in stages.items()}
+        self.eager = set()
+        if self.device.type != "cuda":
+            self.eager = set(stages)
+        elif self.model.decode_route(decoder_backend) in ("scan", "hybrid"):
+            self.eager.add("decode")
+            say_once(f"StreamTTS: decoder_backend={decoder_backend!r} "
+                     "decodes with the scan, which reads its step bound "
+                     "on the host; the decode stage runs eagerly")
+
+    def _stage(self, name, inputs, gen):
+        """Run a stage: a graph replay on the card, eagerly otherwise."""
+        g = self.graphs[name]
+        if name in self.eager:
+            return g.fn(inputs, gen)
+        return g(None, inputs, gen)
 
     # ---------------- stages ----------------
 
-    def _decode_chunk(self, hs, tok_idx, dur, position, mask, seg_start,
-                      gen, mel_buf):
+    def _frontend(self, inputs, gen):
+        tokens, ilens, durations, d_factor = inputs
+        hs, d_outs, _, _ = self.model.synth_frontend(
+            tokens, ilens, durations=durations, d_factor=d_factor)
+        return hs, d_outs
+
+    def _decode_chunk(self, inputs, gen):
         """AR-decode Pc phoneme segments and scatter them into ``mel_buf``
         (Lbuf + 1, odim), whose last row is the drop slot."""
+        hs, tok_idx, dur, position, mask, seg_start, mel_buf = inputs
         cfg = self.cfg
         dtype = getattr(torch, cfg.compute_dtype)
         enc_seg = hs[0][tok_idx]
@@ -127,29 +165,33 @@ class StreamTTS:
             quantize=self.quantize, prequant=self.prequant)
         D = mask.shape[1]
         frame_pos = seg_start[:, None] + torch.arange(
-            D, dtype=torch.int32, device=self.device)
+            D, dtype=torch.int32, device=mel_buf.device)
         Lbuf = mel_buf.shape[0] - 1
-        tgt = torch.where(mask, self.pad + frame_pos, Lbuf).reshape(-1)
-        keep = tgt < Lbuf
-        mel_buf[tgt[keep].long()] = seg_out.reshape(-1, cfg.odim)[keep].to(
-            mel_buf.dtype)
+        tgt = torch.where(mask, self.pad + frame_pos, Lbuf)
+        tgt = torch.where(tgt < Lbuf, tgt, Lbuf).reshape(-1)
+        # a scatter of fixed shape: dropped frames land in the drop slot,
+        # which is zeroed again
+        mel_buf.index_copy_(0, tgt.long(), seg_out.reshape(-1, cfg.odim).to(
+            mel_buf.dtype))
+        mel_buf[Lbuf] = 0
         return mel_buf
 
-    def _postnet_chunk(self, mel_buf, after_buf, p0, F_):
+    def _postnet_chunk(self, inputs, gen):
         """Refine frames [p0, p0 + Fc) given +-ctx_post frames of context;
         the per-window seq_mask (0 <= pos < F) makes the window's center
-        equal the whole-utterance postnet."""
+        equal the whole-utterance postnet.  ``p0`` and ``F_``: device
+        scalars."""
+        mel_buf, after_buf, p0, F_ = inputs
         cfg = self.cfg
         ctx, Fc = self.ctx_post, self.Fc
-        lo = self.pad + p0 - ctx
-        win = mel_buf[lo:lo + Fc + 2 * ctx]
-        gpos = p0 - ctx + torch.arange(Fc + 2 * ctx, device=self.device)
+        rows = torch.arange(Fc + 2 * ctx, device=mel_buf.device)
+        win = mel_buf[self.pad + p0 - ctx + rows]
+        gpos = p0 - ctx + rows
         mask = (gpos >= 0) & (gpos < F_)
         after = apply_postnet_inference(self.model.decoder, cfg, win[None],
                                         seq_mask=mask[None])
         after = after * mask[None, :, None].to(after.dtype)
-        after_buf[self.pad + p0:self.pad + p0 + Fc] = \
-            after[0, ctx:ctx + Fc].float()
+        after_buf[self.pad + p0 + rows[:Fc]] = after[0, ctx:ctx + Fc].float()
         return after_buf
 
     def _upsample_window(self, win, f0, F_):
@@ -174,16 +216,22 @@ class StreamTTS:
                 x.dtype)
         return x  # (1, Fw * hop, A)
 
-    def _vocode_step(self, vstate, after_buf, j, F_, noise):
-        """One ``pwg_stream_step`` over samples [j * Vh, (j + 1) * Vh)."""
+    def _vocode_step(self, inputs, gen):
+        """One ``pwg_stream_step`` over samples [j * Vh, (j + 1) * Vh);
+        ``j`` and ``F_`` are device scalars, the noise is drawn from
+        ``gen`` unless given (as JAX's ``_vocode_step`` and
+        ``_vocode_step_noise``)."""
+        vstate, after_buf, j, F_, noise = inputs
         f0 = j * self.Fv
-        lo = self.pad + f0 - self.cu
-        win = after_buf[lo:lo + self.Fv + 2 * self.cu]
+        rows = torch.arange(self.Fv + 2 * self.cu, device=after_buf.device)
+        win = after_buf[self.pad + f0 - self.cu + rows]
         aux = self._upsample_window(win, f0, F_)
         aux = aux[:, self.cu * self.hop:self.cu * self.hop + self.Vh]
+        if noise is None:
+            noise = torch.randn(1, self.Vh, generator=gen, device=gen.device)
+        pos = torch.stack([f0 * self.hop, F_ * self.hop]).to(torch.int32)
         return pwg_stream_step(self.packed, self.pwg_cfg, vstate,
-                               aux.contiguous(), noise, f0 * self.hop,
-                               F_ * self.hop, tile=self.tile)
+                               aux.contiguous(), noise, pos, tile=self.tile)
 
     def _readback(self, wav):
         """Start the wav's copy to the host: into pinned memory with an
@@ -221,18 +269,18 @@ class StreamTTS:
         tok_pad = np.zeros((1, Tb), np.int64)
         tok_pad[0, :T] = tokens
         ilens = torch.tensor([T], device=dev)
+        # one generator for the whole stream: the decode chunks draw their
+        # kernel seeds and the vocoder steps their noise from it, in order
         gen = _generator(rng, dev)
-        dec_gen = torch.Generator(device=dev)
-        dec_gen.manual_seed(int(torch.randint(0, 2 ** 31 - 1, (1,),
-                                              generator=gen, device=dev)))
         dur_t = None
         if durations is not None:
             dur_pad = np.zeros((1, Tb), np.int32)
             dur_pad[0, :T] = np.asarray(durations, np.int32)
             dur_t = torch.from_numpy(dur_pad).to(dev)
-        hs, d_outs, _, _ = self.model.synth_frontend(
-            torch.from_numpy(tok_pad).to(dev), ilens, durations=dur_t,
-            d_factor=d_factor)
+        hs, d_outs = self._stage("frontend", (
+            torch.from_numpy(tok_pad).to(dev), ilens, dur_t,
+            torch.tensor(float(d_factor), dtype=torch.float32, device=dev)),
+            gen)
         dur = d_outs[0, :T].cpu().numpy().astype(np.int64)  # 1 small D2H
         F_ = int(dur.sum())
         if F_ == 0:
@@ -248,6 +296,7 @@ class StreamTTS:
 
         starts = np.concatenate([[0], np.cumsum(dur)])[:-1]
         Wtot = F_ * self.hop
+        F_dev = torch.tensor(F_, device=dev)
         n_chunks = -(-T // Pc)
         n_vsteps = -(-(Wtot + self.delay) // self.Vh)
         if noise is not None:
@@ -268,11 +317,11 @@ class StreamTTS:
                     and ((j + 1) * Fv + self.cu <= posted or posted >= F_))
 
         def run_vocode(vstate):
-            if noise is None:
-                nz = torch.randn(1, self.Vh, generator=gen, device=dev)
-            else:
-                nz = noise[j * self.Vh:(j + 1) * self.Vh][None]
-            wav, vstate = self._vocode_step(vstate, after_buf, j, F_, nz)
+            nz = None if noise is None else \
+                noise[j * self.Vh:(j + 1) * self.Vh][None]
+            wav, vstate = self._stage("vocode", (
+                vstate, after_buf, torch.tensor(j, device=dev), F_dev, nz),
+                gen)
             return self._readback(wav), vstate
 
         def emit(jj, wav, event):
@@ -300,20 +349,21 @@ class StreamTTS:
             pos_c = np.where(
                 mask_c, d_range.astype(np.float32)
                 / np.maximum(dur_c[:, None], 1).astype(np.float32), 0.0)
-            mel_buf = self._decode_chunk(
+            mel_buf = self._stage("decode", (
                 hs, torch.from_numpy(idx_c).to(dev),
                 torch.from_numpy(dur_c).to(dev),
                 torch.from_numpy(pos_c).to(dev),
                 torch.from_numpy(mask_c).to(dev),
-                torch.from_numpy(st_c).to(dev), dec_gen, mel_buf)
+                torch.from_numpy(st_c).to(dev), mel_buf), gen)
             dec_f = F_ if k == n_chunks - 1 else int(
                 dur[:min((k + 1) * Pc, T)].sum())
             # the postnet window needs ctx_post future frames; at stream
             # end everything past F is masked, so no wait is needed
             while (posted + Fc + self.ctx_post <= dec_f
                    or (dec_f >= F_ and posted < F_)):
-                after_buf = self._postnet_chunk(mel_buf, after_buf, posted,
-                                                F_)
+                after_buf = self._stage("postnet", (
+                    mel_buf, after_buf, torch.tensor(posted, device=dev),
+                    F_dev), gen)
                 posted += Fc
             while vocode_ready():
                 (wav, event), vstate = run_vocode(vstate)

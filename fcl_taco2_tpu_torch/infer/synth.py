@@ -6,7 +6,17 @@ predicted durations overrun the frame budget, the frames/s stats,
 ``quantize="int8"`` with the codes prepared once at init, and manifest
 decoding (``synth_manifest``: feats.ark/feats.scp, per-utterance speed
 lines and a summary) with one batch's work in flight while the previous
-batch is read back.  The port runs eagerly, so there is no compile cache.
+batch is read back.
+
+Compiled as in JAX (``synth.py:111-171``): on the card the whole
+``synthesize`` of a batch is one CUDA graph per ``(B, Tmax, budget,
+use_dur)`` (``utils/graphs.py``), captured before the batch's timed
+window starts, as JAX's compile is; ``d_factor`` is an input, not part of
+the key.  A replay draws from the caller's generator at its state, so the
+exact re-dispatch from the saved state draws the same dropout.  The scan
+and ``hybrid`` decoder routes and sharded serving stay eager (each says
+why once): the first two read their step bound on the host, and gloo's
+collectives cannot be captured.
 
 Sharded serving (``mesh``, ``synth.py:92-164``): every rank gets the same
 utterances, runs the whole ``synthesize`` on its contiguous share of the
@@ -31,6 +41,7 @@ from fcl_taco2_tpu_torch.infer.ark import ArkScpWriter
 from fcl_taco2_tpu_torch.ops.decoder_cuda import maybe_prequantize
 from fcl_taco2_tpu_torch.ops.rnn import step_seed
 from fcl_taco2_tpu_torch.utils.device import resolve_device
+from fcl_taco2_tpu_torch.utils.graphs import Graphed, say_once
 
 
 def _round_up(x, mult):
@@ -66,10 +77,43 @@ class Synthesizer:
         self.tok_bucket = tok_bucket
         self.frame_per_token = frame_per_token
         self.frame_bucket = frame_bucket
+        self.graphs = Graphed(self._graph_body, self.device, "synthesize")
+        self.graphed = self.device.type == "cuda"
+        route = self.model.decode_route(decoder_backend) if self.graphed \
+            else None
+        if self.graphed and self.mesh is not None:
+            self.graphed = False
+            say_once("Synthesizer: sharded serving runs eagerly (gloo's "
+                     "collectives cannot be captured in a CUDA graph)")
+        elif route in ("scan", "hybrid"):
+            self.graphed = False
+            say_once(f"Synthesizer: decoder_backend={decoder_backend!r} "
+                     f"runs the {route} decode eagerly (it reads its step "
+                     "bound on the host to cut its loop short)")
+
+    def _graph_body(self, inputs, gen):
+        tokens, ilens, durs, d_factor, use_dur, budget = inputs
+        return self._synthesize(tokens, ilens, durs, use_dur, gen, budget,
+                                d_factor)
+
+    def _inputs(self, tokens, ilens, durs, use_dur, budget, d_factor):
+        return (tokens, ilens, durs,
+                torch.tensor(float(d_factor), dtype=torch.float32),
+                bool(use_dur), int(budget))
+
+    def _prepare(self, args, gen, budget, d_factor):
+        """Capture the batch's graph (when new), outside the timed
+        window."""
+        if self.graphed:
+            self.graphs.prepare(None, self._inputs(*args, budget, d_factor),
+                                gen)
 
     def _run(self, tokens, ilens, durs, use_dur, gen_state, gen, budget,
              d_factor):
         gen.set_state(gen_state)  # a re-dispatch draws the same dropout
+        if self.graphed:
+            return self.graphs(None, self._inputs(
+                tokens, ilens, durs, use_dur, budget, d_factor), gen)
         if self.mesh is None:
             return self._synthesize(tokens, ilens, durs, use_dur, gen,
                                     budget, d_factor)
@@ -95,12 +139,15 @@ class Synthesizer:
         full[rows] = part
         return self.mesh.all_reduce_(full)
 
-    def _dispatch(self, token_lists, rng, durations=None, d_factor=1.0):
+    def _dispatch(self, token_lists, rng, durations=None, d_factor=1.0,
+                  before_capture=None):
         """Launch one padded batch and start copying its result to the
         host; returns the pending batch for ``_consume``.  On the card the
         mel and olens go to pinned memory by non-blocking copies followed
         by an event, so the host is free to dispatch the next batch before
-        this one is read back."""
+        this one is read back.  ``before_capture``: called first when the
+        batch's bucket has no graph yet (``synth_manifest`` finishes the
+        batch in flight then, so no batch's wall holds a capture)."""
         n = len(token_lists)
         B = self.batch_size
         if n > B:
@@ -138,6 +185,11 @@ class Synthesizer:
             gen = torch.Generator(device=dev)
             gen.manual_seed(int(rng))
         gen_state = gen.get_state()
+        if before_capture is not None and self.graphed and \
+                not self.graphs.captured(None, self._inputs(
+                    *args, budget, d_factor)):
+            before_capture()
+        self._prepare(args, gen, budget, d_factor)
 
         t0 = time.perf_counter()
         out = self._run(*args, gen_state, gen, budget, d_factor)
@@ -164,6 +216,8 @@ class Synthesizer:
                 break  # budget boundary hit exactly; nothing was dropped
             budget = new_budget
             redispatched += 1
+            self._prepare(pend["args"], pend["gen"], budget,
+                          pend["d_factor"])
             t0 = time.perf_counter()
             out = self._run(*pend["args"], pend["gen_state"], pend["gen"],
                             budget, pend["d_factor"])
@@ -233,7 +287,15 @@ class Synthesizer:
         # 1-deep pipeline: batch k+1 is dispatched before batch k is read
         # back, so the device's work overlaps the host's readback and IO;
         # each batch's wall still runs from its dispatch to its readback
+        # (a new bucket's capture waits for the batch in flight)
         pending = None
+
+        def flush():
+            nonlocal pending, total_frames
+            if pending is not None:
+                total_frames += finish(*pending)
+                pending = None
+
         try:
             for k, i in enumerate(range(0, len(utts), self.batch_size)):
                 chunk = utts[i:i + self.batch_size]
@@ -243,12 +305,11 @@ class Synthesizer:
                 if use_gt_durations:
                     durs = [load_durations(u) for u in chunk]
                 disp = self._dispatch([u.tokenids for u in chunk], gen,
-                                      durations=durs, d_factor=d_factor)
-                if pending is not None:
-                    total_frames += finish(*pending)
+                                      durations=durs, d_factor=d_factor,
+                                      before_capture=flush)
+                flush()
                 pending = (chunk, disp)
-            if pending is not None:
-                total_frames += finish(*pending)
+            flush()
         finally:
             if writer:
                 writer.close()

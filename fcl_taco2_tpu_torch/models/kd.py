@@ -30,7 +30,6 @@ from fcl_taco2_tpu_torch.models.taco2_sa import Tacotron2SA
 from fcl_taco2_tpu_torch.ops.masking import (lengths_to_non_pad_mask,
                                              masked_l1, masked_mse,
                                              weighted_l1, weighted_mse)
-from fcl_taco2_tpu_torch.ops.rnn import step_seed
 from fcl_taco2_tpu_torch.utils.initializers import init_linears_
 
 
@@ -82,12 +81,12 @@ def _knowledge_mse(students, teachers, mask, count=None):
 
 
 def teacher_generator(generator):
-    """The teacher's generator of a step: seeded from the student's
-    (itself a function of ``(seed, step)``), apart from its zoneout
-    seeds; the two stand in for JAX's ``random.split(rng)``."""
-    gen = torch.Generator(device=generator.device)
-    gen.manual_seed(step_seed(generator.initial_seed(), 2))
-    return gen
+    """The teacher's generator of a step: the step's own.  The teacher's
+    forward draws first and the student's continues from the state it
+    leaves, so the two draw disjoint parts of one counter-based stream
+    (JAX's ``random.split(rng)``), on the device, with nothing read on the
+    host: a CUDA graph of the KD step replays fresh draws for both."""
+    return generator
 
 
 class KDStudent:

@@ -109,12 +109,46 @@ def _cast_batch(batch, dtype):
 
 
 def _generator(rng, device):
-    """A ``torch.Generator`` from an int seed, or ``rng`` itself."""
+    """A ``torch.Generator`` from an int seed (or a one-element seed
+    tensor, read on the host), or ``rng`` itself."""
     if isinstance(rng, torch.Generator):
         return rng
     gen = torch.Generator(device=device)
-    gen.manual_seed(int(rng))
+    gen.manual_seed(K.seed_value(rng))
     return gen
+
+
+def kernel_seed(rng, device):
+    """The decoder kernels' prenet-dropout seed, a (1,) int32 tensor on
+    ``device``: ``rng`` itself when it is one, else drawn from the
+    generator (or from one seeded with the int) on the device, never
+    read back, so a CUDA graph draws a fresh seed each replay."""
+    if torch.is_tensor(rng):
+        return K.seed_tensor(rng, device)
+    gen = _generator(rng, device)
+    return torch.randint(0, 2 ** 31 - 1, (1,), generator=gen,
+                         device=gen.device).to(torch.int32)
+
+
+def scatter_to_timelines(seg_out, frame_mask, seg_utt, seg_start, B,
+                         frame_budget):
+    """Phoneme frames (P, D, odim) -> per-utterance timelines (B,
+    frame_budget, odim).  Frames past the budget or past their phoneme's
+    duration go to one spare row, sliced off: a scatter of fixed shape
+    (every segment frame is written, the kept ones to distinct rows), so
+    a CUDA graph captures it; equal to selecting the kept frames with a
+    boolean mask."""
+    D = frame_mask.shape[1]
+    d_range = torch.arange(D, dtype=torch.int32, device=seg_out.device)
+    frame_pos = seg_start[:, None] + d_range[None, :]
+    keep = frame_mask & (frame_pos < frame_budget)
+    spare = B * frame_budget
+    tgt = torch.where(keep, seg_utt[:, None] * frame_budget + frame_pos,
+                      spare)
+    before = seg_out.new_zeros(spare + 1, seg_out.shape[-1])
+    before.index_copy_(0, tgt.reshape(-1).long(),
+                       seg_out.reshape(-1, seg_out.shape[-1]))
+    return before[:spare].view(B, frame_budget, seg_out.shape[-1])
 
 
 class Tacotron2SA(nn.Module):
@@ -373,10 +407,12 @@ class Tacotron2SA(nn.Module):
 
     @torch.no_grad()
     def synth_frontend(self, tokens, ilens, durations=None, f0=None,
-                       energy=None, spembs=None, d_factor: float = 1.0):
+                       energy=None, spembs=None, d_factor=1.0):
         """Encoder + duration/pitch/energy predictors + fe-conditioning
         (``taco2_sa.py:321-376``).  Runs in the parameters' dtype (call it
-        on ``compute_model()``).  Returns (hs, d_outs, p_outs, e_outs)."""
+        on ``compute_model()``).  ``d_factor``: a float or a 0-d fp32
+        tensor (a graph's input, as JAX keeps it traced).  Returns (hs,
+        d_outs, p_outs, e_outs)."""
         cfg = self.cfg
         Tmax = tokens.shape[1]
         hs = encoder_apply(self.encoder, cfg, tokens, ilens)
@@ -391,7 +427,7 @@ class Tacotron2SA(nn.Module):
         else:
             d_outs = durations.to(torch.int32)
         # speaking-rate knob for both sources (exact identity at 1.0)
-        d_outs = torch.round(d_outs.float() * torch.tensor(
+        d_outs = torch.round(d_outs.float() * torch.as_tensor(
             d_factor, dtype=torch.float32)).to(torch.int32)
         d_outs = torch.clamp(d_outs, 0, cfg.max_dur).masked_fill(pad_mask, 0)
 
@@ -411,17 +447,20 @@ class Tacotron2SA(nn.Module):
     @torch.no_grad()
     def synthesize(self, tokens, ilens, rng, frame_budget: int,
                    durations=None, f0=None, energy=None, spembs=None,
-                   d_factor: float = 1.0, decoder_backend: str = "auto",
+                   d_factor=1.0, decoder_backend: str = "auto",
                    ragged_decode: bool = True, quantize: str = "none",
                    prequant=None):
         """Batched synthesis on the model's device (``taco2_sa.py:378-494``).
 
         Args:
             tokens: (B, Tmax) int (PAD=0); ilens: (B,) lengths.
-            rng: int seed or ``torch.Generator`` for the prenet dropout.
+            rng: int seed or ``torch.Generator`` for the prenet dropout,
+                or a (1,) int32 tensor: the decoder kernels' seed itself
+                (the scan seeds a generator with it, on the host).
             frame_budget: per-utterance output frame budget (Lmax).
             durations/f0/energy: optional (B, Tmax)/(B, Tmax, 1) overrides.
-            d_factor: multiplies the durations (speaking rate).
+            d_factor: multiplies the durations (speaking rate); a float or
+                a 0-d fp32 tensor.
             decoder_backend: "auto" | "scan" | "pallas" (resident CUDA
                 entry) | "pallas_hbm" (streaming CUDA entry) | "hybrid".
             ragged_decode: sort segments by duration and bound every
@@ -431,12 +470,17 @@ class Tacotron2SA(nn.Module):
                 ``ops.decoder_cuda.prequantize_hbm_weights``.
         Returns dict(mel=(B, frame_budget, odim) f32, olens, d_outs,
         p_outs, e_outs).
+
+        On the kernel routes nothing here reads the device from the host
+        and every shape is static, so a CUDA graph captures the whole call
+        (``infer/synth.py``); the scan and ``hybrid`` read the step bound
+        on the host to cut their loops short.
         """
         m = self.compute_model()
         cfg = self.cfg
         dtype = getattr(torch, cfg.compute_dtype)
         dev = m.device
-        gen = _generator(rng, dev)
+        gen = rng if torch.is_tensor(rng) else _generator(rng, dev)
         B, Tmax = tokens.shape
         D = cfg.max_dur
         P = B * Tmax  # one segment slot per token
@@ -475,14 +519,8 @@ class Tacotron2SA(nn.Module):
                                     step_bound=step_bound, quantize=quantize,
                                     prequant=prequant)
 
-        # scatter phoneme frames into per-utterance timelines; frames past
-        # the budget or past each phoneme's duration are dropped
-        frame_pos = seg_start[:, None] + d_range
-        keep = frame_mask & (frame_pos < frame_budget)
-        tgt = (seg_utt[:, None] * frame_budget + frame_pos)[keep]
-        before = seg_out.new_zeros(B * frame_budget, cfg.odim)
-        before[tgt] = seg_out[keep]
-        before = before.view(B, frame_budget, cfg.odim)
+        before = scatter_to_timelines(seg_out, frame_mask, seg_utt,
+                                      seg_start, B, frame_budget)
 
         seq_mask = lengths_to_non_pad_mask(olens, frame_budget)
         after = apply_postnet_inference(m.decoder, cfg, before,
@@ -498,7 +536,8 @@ class Tacotron2SA(nn.Module):
                         quantize: str = "none", prequant=None):
         """AR-decode a batch of phoneme segments -> (P, max_dur, odim)
         (``taco2_sa.py:496-669``).  Parameters must already be in the
-        compute dtype.
+        compute dtype.  ``generator``: a ``torch.Generator``, or on the
+        kernel routes a (1,) int32 tensor, the kernels' seed itself.
 
         Policy on the card: ``auto`` takes the resident entry
         (``fused_ar_decode``, fp32 weights) for configs whose decoder
@@ -519,66 +558,16 @@ class Tacotron2SA(nn.Module):
         if quantize not in ("none", "int8"):
             raise ValueError(f"quantize must be 'none' or 'int8', "
                              f"got {quantize!r}")
-        pallas_compatible = (cfg.prenet_layers == 2 and cfg.append_position
-                             and cfg.use_concate and cfg.dlayers == 2
-                             and cfg.reduction_factor == 1)
-        if K.fits_l2(cfg, torch.float32):
-            kernel_wdt = torch.float32
-        elif K.fits_l2(cfg, torch.bfloat16):
-            kernel_wdt = torch.bfloat16
-        else:
-            kernel_wdt = None
-        hbm_ok = K.hbm_stream_compatible(cfg) and kernel_wdt is None
-        use_hybrid = False
-        if decoder_backend == "auto":
-            on_cuda = enc_seg.is_cuda
-            use_pallas = on_cuda and pallas_compatible and \
-                kernel_wdt is not None
-            use_hbm = on_cuda and not use_pallas and hbm_ok
-        elif decoder_backend == "pallas_hbm":
-            use_pallas, use_hbm = False, True
-            if not K.hbm_stream_compatible(cfg):
-                raise ValueError(
-                    "decoder_backend='pallas_hbm' requires prenet_layers=2, "
-                    "append_position, use_concate, dlayers=2, "
-                    "reduction_factor=1 and dunits % 256 == 0")
-        elif decoder_backend == "hybrid":
-            use_pallas, use_hbm, use_hybrid = False, False, True
-            if not K.hbm_stream_compatible(cfg):
-                raise ValueError(
-                    "decoder_backend='hybrid' requires the pallas_hbm-"
-                    "compatible topology (prenet_layers=2, "
-                    "append_position, use_concate, dlayers=2, "
-                    "reduction_factor=1, dunits % 256 == 0)")
-            if tile_bounds is None:
-                raise ValueError(
-                    "decoder_backend='hybrid' requires ragged_decode "
-                    "(duration-sorted segments with per-tile bounds)")
-            if P <= K.TILE:
-                use_hybrid, use_hbm = False, True
-        else:
-            use_hbm = False
-            use_pallas = decoder_backend == "pallas"
-            if use_pallas and not pallas_compatible:
-                raise ValueError(
-                    "decoder_backend='pallas' requires prenet_layers=2, "
-                    "append_position, use_concate, dlayers=2 and "
-                    "reduction_factor=1")
-            if use_pallas and kernel_wdt is None:
-                raise ValueError(
-                    "decoder_backend='pallas' but the decoder weights stay "
-                    "L2-resident in neither fp32 nor bf16 (ops/decoder_cuda."
-                    "fits_l2); use decoder_backend='auto', 'pallas_hbm' "
-                    "or 'scan'")
-
+        use_pallas, use_hbm, use_hybrid, kernel_wdt = self._decode_policy(
+            decoder_backend, enc_seg.is_cuda, P, tile_bounds is not None)
         kernel_path = use_pallas or use_hbm or use_hybrid
         if kernel_path:
             dec_params = self.decoder.jax_layout()
-            seed = int(torch.randint(0, 2 ** 31 - 1, (1,),
-                                     generator=generator,
-                                     device=generator.device))
+            seed = kernel_seed(generator, enc_seg.device)
             kw = dict(zoneout=cfg.zoneout_rate, dropout=cfg.dropout_rate)
             stream_wdt = torch.int8 if quantize == "int8" else torch.bfloat16
+        elif torch.is_tensor(generator):
+            generator = _generator(generator, enc_seg.device)
         fmask = frame_mask[..., None].to(dtype)
         if use_pallas:
             if enc_seg.is_cuda:
@@ -613,3 +602,70 @@ class Tacotron2SA(nn.Module):
         return decoder_inference(self.decoder, cfg, enc_seg, flat_dur,
                                  position, frame_mask, generator,
                                  step_bound=step_bound)
+
+    def decode_route(self, decoder_backend="auto", on_cuda=True, P=None):
+        """The decoder route ``decode_segments`` takes: "pallas" (the
+        resident entry), "pallas_hbm" (the streaming entry), "hybrid" or
+        "scan".  The kernel routes read nothing on the host; the scan and
+        ``hybrid`` read their step bound there.  ``P`` (segments) decides
+        whether ``hybrid`` has more than one tile (unknown: it has)."""
+        use_pallas, use_hbm, use_hybrid, _ = self._decode_policy(
+            decoder_backend, on_cuda, K.TILE + 1 if P is None else P, True)
+        return ("pallas" if use_pallas else "pallas_hbm" if use_hbm
+                else "hybrid" if use_hybrid else "scan")
+
+    def _decode_policy(self, decoder_backend, on_cuda, P, ragged):
+        """(use_pallas, use_hbm, use_hybrid, kernel_wdt) of
+        ``decode_segments``; raises where the backend cannot run."""
+        cfg = self.cfg
+        pallas_compatible = (cfg.prenet_layers == 2 and cfg.append_position
+                             and cfg.use_concate and cfg.dlayers == 2
+                             and cfg.reduction_factor == 1)
+        if K.fits_l2(cfg, torch.float32):
+            kernel_wdt = torch.float32
+        elif K.fits_l2(cfg, torch.bfloat16):
+            kernel_wdt = torch.bfloat16
+        else:
+            kernel_wdt = None
+        hbm_ok = K.hbm_stream_compatible(cfg) and kernel_wdt is None
+        use_hybrid = False
+        if decoder_backend == "auto":
+            use_pallas = on_cuda and pallas_compatible and \
+                kernel_wdt is not None
+            use_hbm = on_cuda and not use_pallas and hbm_ok
+        elif decoder_backend == "pallas_hbm":
+            use_pallas, use_hbm = False, True
+            if not K.hbm_stream_compatible(cfg):
+                raise ValueError(
+                    "decoder_backend='pallas_hbm' requires prenet_layers=2, "
+                    "append_position, use_concate, dlayers=2, "
+                    "reduction_factor=1 and dunits % 256 == 0")
+        elif decoder_backend == "hybrid":
+            use_pallas, use_hbm, use_hybrid = False, False, True
+            if not K.hbm_stream_compatible(cfg):
+                raise ValueError(
+                    "decoder_backend='hybrid' requires the pallas_hbm-"
+                    "compatible topology (prenet_layers=2, "
+                    "append_position, use_concate, dlayers=2, "
+                    "reduction_factor=1, dunits % 256 == 0)")
+            if not ragged:
+                raise ValueError(
+                    "decoder_backend='hybrid' requires ragged_decode "
+                    "(duration-sorted segments with per-tile bounds)")
+            if P <= K.TILE:
+                use_hybrid, use_hbm = False, True
+        else:
+            use_hbm = False
+            use_pallas = decoder_backend == "pallas"
+            if use_pallas and not pallas_compatible:
+                raise ValueError(
+                    "decoder_backend='pallas' requires prenet_layers=2, "
+                    "append_position, use_concate, dlayers=2 and "
+                    "reduction_factor=1")
+            if use_pallas and kernel_wdt is None:
+                raise ValueError(
+                    "decoder_backend='pallas' but the decoder weights stay "
+                    "L2-resident in neither fp32 nor bf16 (ops/decoder_cuda."
+                    "fits_l2); use decoder_backend='auto', 'pallas_hbm' "
+                    "or 'scan'")
+        return use_pallas, use_hbm, use_hybrid, kernel_wdt

@@ -25,7 +25,15 @@ counter-based Philox keyed on (seed, row, step, layer, unit); the plain
 versions draw from a ``torch.Generator`` seeded with ``seed``.  The two
 streams differ, so kernel and plain version agree only at dropout 0, and
 the kernel's draws are checked by their statistics
-(``dropout_keep_mask``).
+(``dropout_keep_mask``).  ``seed`` is an int32 tensor of one element, as
+the Pallas kernels' ``seed_ref``: the kernel reads it on the device, so a
+CUDA graph that draws the seed and launches the kernel replays a fresh
+seed each time (an int is taken too, outside a capture).  The plain
+versions read it on the host.
+
+Each wrapper counts its launches (``fn.launches``) through
+``utils/graphs.py::count_launch``: a launch inside a capture is counted by
+the graph, once per replay.
 """
 
 import ctypes
@@ -34,6 +42,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from fcl_taco2_tpu_torch.models.components import prenet_dropout
+from fcl_taco2_tpu_torch.utils.graphs import count_launch
 
 TILE = 128  # rows per ragged step bound; the kernel reads bounds[row // TILE]
 
@@ -166,7 +175,7 @@ def _ar_loop_plain(w, enc_gates, enc_out, position, seed, zoneout, dropout,
     dev = position.device
     H, odim = w["H"], w["odim"]
     gen = torch.Generator(device=dev)
-    gen.manual_seed(int(seed))
+    gen.manual_seed(seed_value(seed))
     row_bound = _row_bounds(bounds, P, D, dev)
     n_steps = int(row_bound.max()) if P else 0
     keep = 1.0 - zoneout
@@ -435,7 +444,8 @@ def pack_decoder_weights(dec_params, idim, weights_dtype, prequant=None,
 _PTR_FIELDS = ("enc", "enc_gates", "enc_out", "pos", "bounds", "w1k",
                "pre_b1", "w2k", "pre_b2", "wx0k", "wx0_pos", "bh0",
                "wh0k", "wx1k", "wh1k", "bx1", "bh1", "wfk", "wx0ek", "bx0",
-               "wfek", "scales", "out", "scratch", "barrier", "trace")
+               "wfek", "scales", "out", "scratch", "barrier", "trace",
+               "seed")
 
 
 class _DecodeArgs(ctypes.Structure):
@@ -444,13 +454,12 @@ class _DecodeArgs(ctypes.Structure):
                 + [(n, ctypes.c_int) for n in
                    ("P", "D", "idim", "odim", "units", "H", "ragged",
                     "resident", "quantized", "units_per_block")]
-                + [("zoneout", ctypes.c_float), ("dropout", ctypes.c_float),
-                   ("seed", ctypes.c_uint)])
+                + [("zoneout", ctypes.c_float), ("dropout", ctypes.c_float)])
 
 
 _INFO = ("grid", "block_threads", "units_per_block", "stationary",
          "smem_bytes", "barriers_per_step", "prologue_barriers", "cluster",
-         "cooperative")
+         "cooperative", "captured")
 
 
 class _LaunchInfo(ctypes.Structure):
@@ -463,7 +472,8 @@ class _LaunchInfo(ctypes.Structure):
 # memory for the whole launch; 0: streamed from global memory each step),
 # smem_bytes (dynamic, a block), barriers_per_step, prologue_barriers,
 # cluster (blocks), cooperative (1: the driver took a cooperative launch
-# with clusters; 0: residency rests on the occupancy check alone).
+# with clusters; 0: residency rests on the occupancy check alone),
+# captured (1: the launch went into a CUDA graph capture).
 last_launch = {}
 
 _WKIND = {(torch.float32, torch.float32): 0,
@@ -511,6 +521,28 @@ def _scratch_bytes(pk, P):
     return n_act * asize + 4 * Pp * Hp * 4
 
 
+def seed_value(seed):
+    """The host value of a seed given as an int or a one-element tensor
+    (the plain versions' reading; a host read)."""
+    return int(seed.reshape(-1)[0]) if torch.is_tensor(seed) else int(seed)
+
+
+def seed_tensor(seed, device):
+    """``seed`` as the kernel takes it: a (1,) int32 tensor on ``device``.
+    A tensor passes through (checked); an int becomes one by a copy from
+    the host, which a CUDA graph capture cannot record."""
+    if torch.is_tensor(seed):
+        if tuple(seed.shape) != (1,) or seed.dtype != torch.int32 \
+                or seed.device != device:
+            raise ValueError(f"seed must be a (1,) int32 tensor on {device}, "
+                             f"got {tuple(seed.shape)} {seed.dtype} on "
+                             f"{seed.device}")
+        return seed
+    s = int(seed) & 0xFFFFFFFF
+    return torch.tensor([s - (1 << 32) if s >= 1 << 31 else s],
+                        dtype=torch.int32, device=device)
+
+
 def _launch(pk, *, resident, tensors, P, D, bounds, zoneout, dropout, seed,
             trace=None):
     """Validate the per-call operands and the pack, allocate the output and
@@ -552,17 +584,18 @@ def _launch(pk, *, resident, tensors, P, D, bounds, zoneout, dropout, seed,
     scratch = torch.empty(_scratch_bytes(pk, P), dtype=torch.uint8,
                           device=dev)
     barrier = torch.zeros(1, dtype=torch.int32, device=dev)
+    seed = seed_tensor(seed, dev)
     ptrs = {n: ops[n].data_ptr() if n in shapes else None
             for n in _PTR_FIELDS}
     ptrs.update(out=out.data_ptr(), scratch=scratch.data_ptr(),
-                barrier=barrier.data_ptr(),
+                barrier=barrier.data_ptr(), seed=seed.data_ptr(),
                 trace=None if trace is None else trace.data_ptr())
     args = _DecodeArgs(**ptrs, P=P, D=D, idim=I, odim=O, units=U, H=H,
                        ragged=int(bounds is not None),
                        resident=int(resident),
                        quantized=int(pk.bdt == torch.int8),
                        units_per_block=pk.ub, zoneout=float(zoneout),
-                       dropout=float(dropout), seed=int(seed) & 0xFFFFFFFF)
+                       dropout=float(dropout))
     info = _LaunchInfo()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().ar_decode_launch(ctypes.byref(args),
@@ -601,7 +634,8 @@ def fused_ar_decode(dec_params, enc_seg, position, seed, *, zoneout=0.1,
         dec_params: decoder weights in the JAX layout.
         enc_seg: (P, idim) per-segment conditioning vectors.
         position: (P, D) position ramps.
-        seed: int for the prenet dropout.
+        seed: the prenet dropout's seed, a (1,) int32 tensor (or an
+            int) read on the device.
         weights_dtype: torch.float32 or torch.bfloat16 for the weight
             matrices (biases, state and accumulation stay fp32).
         bounds: optional (ceil(P/TILE),) int32 per-tile step bounds.
@@ -634,7 +668,7 @@ def fused_ar_decode(dec_params, enc_seg, position, seed, *, zoneout=0.1,
                                 device=enc_seg.device)}
     out = _launch(packed, resident=True, tensors=t, P=P, D=D, bounds=bounds,
                   zoneout=zoneout, dropout=dropout, seed=seed)
-    fused_ar_decode.launches += 1
+    count_launch(fused_ar_decode)
     return out
 
 
@@ -675,7 +709,7 @@ def fused_ar_decode_hbm(dec_params, enc_seg, position, seed, *, zoneout=0.1,
          "enc_out": enc_out.contiguous()}
     out = _launch(packed, resident=False, tensors=t, P=P, D=D, bounds=bounds,
                   zoneout=zoneout, dropout=dropout, seed=seed)
-    fused_ar_decode_hbm.launches += 1
+    count_launch(fused_ar_decode_hbm)
     return out
 
 

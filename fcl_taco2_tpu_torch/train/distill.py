@@ -25,7 +25,10 @@ class KDTrainer(Trainer):
     checkpoint of the teacher written by either package.  ``device``
     defaults to the card and raises when none is present.  The device
     cache serves KD as it serves the teacher's training; the steps stay
-    one a dispatch, as in the JAX package.  ``mesh`` as in ``Trainer``."""
+    one a dispatch, as in the JAX package, each a replay of the KD step's
+    CUDA graph on the card (``train/step.py::TrainStep``: the teacher's
+    forward and the student's step in one graph).  ``mesh`` as in
+    ``Trainer``."""
 
     def __init__(self, kd, tcfg, train_utts, val_utts,
                  teacher_checkpoint: str, device="cuda", mesh=None):

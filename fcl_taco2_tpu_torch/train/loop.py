@@ -15,7 +15,11 @@ it fits in ``device_cache_max_mb`` and each batch is assembled on the
 device from a packed plan vector (``data/device_cache.py``); with
 ``steps_per_dispatch=0`` the trainer then chains 4 steps a dispatch (1
 without the cache), on the card as replays of one CUDA graph of the step
-(``train/step.py::make_chained_train_step``).  Fine-tuning
+(``train/step.py::make_chained_train_step``); an epoch's remainder
+replays the same graph.  Single steps (``--device-cache off``, KD) and
+eval steps are graph replays too, one graph per batch shape, as JAX jits
+them; ``log.jsonl``'s ``capture_s`` and ``graph_pool_bytes`` say what the
+captures cost.  Fine-tuning
 (``enc_init``/``dec_init``, ``freeze_mods``, ``train/finetune.py``), the
 ``preprocess_conf`` transform (``data/transform.py``) and the profiler
 trace of the first epoch (``profile_dir``, ``train/profiler.py``) are
@@ -222,6 +226,9 @@ class Trainer:
             self.chain_step = make_chained_train_step(
                 self.tx, assemble=None if self._dcache is None
                 else self._dcache.assemble)
+            # an epoch's remainder steps take the chain's items one at a
+            # time and replay the chain's graph
+            self.train_step = self.chain_step.step
 
     def _run_train_step(self, ts, batch):
         return self.train_step(ts, batch, step_generator(
@@ -273,7 +280,8 @@ class Trainer:
         """Batches for the loop (``loop.py:294-352``).  With ``chain`` > 1
         the batches go in groups of exactly ``chain`` (tagged "chain": a
         (chain, P) tensor of plan packs with the device cache, else a
-        list of batches) and the epoch's remainder as single batches."""
+        list of batches) and the epoch's remainder as single items of the
+        same kind (a plan pack or a batch)."""
         # phases never overlap, so toggling the shared converter's mode
         # is safe
         self.converter.transform_train = train
@@ -296,13 +304,9 @@ class Trainer:
             items = [one(b) for b in group]
             return ("chain", items if dc is None else np.stack(items))
 
-        def finish(item):
-            kind, x = item
-            if kind == "single" and dc is not None:
-                return kind, dc.assemble(x)
-            return item
-
-        return PrefetchLoader(groups, convert, self.uploader, finish=finish)
+        # with the device cache a remainder is a plan pack: the single
+        # step is the chain's, assembling it inside its graph
+        return PrefetchLoader(groups, convert, self.uploader)
 
     def _flush(self, pending):
         """Move a chunk of packed per-step reports ((n, n_keys) each) to
@@ -369,7 +373,7 @@ class Trainer:
         """Capture the chained step's graph before the epoch's loader and
         trace start, from the epoch's first batch; returns the seconds it
         took (0 once captured, and on the CPU)."""
-        if self.chain_step is None or self.chain_step.graph is not None \
+        if self.chain_step is None or self.chain_step.captured \
                 or self.device.type != "cuda" or len(batches) < chain:
             return 0.0
         first = self._dcache.plan(batches[0]) if self._dcache is not None \
@@ -388,6 +392,7 @@ class Trainer:
         self.loop_stats = []  # per-epoch wall breakdown
         ckpt_writer = AsyncCheckpointWriter(opt_state_dtype=t.ckpt_opt_dtype)
         K = 8  # dispatches' reports moved to the host K at a time
+        captured = 0.0  # capture seconds before this epoch's steps
         for epoch in range(start_epoch, t.epochs):
             ep = {"epoch": epoch + 1, "dispatch_s": 0.0, "fetch_s": 0.0,
                   "first_iter_s": 0.0, "capture_s": 0.0, "steps": 0,
@@ -396,6 +401,7 @@ class Trainer:
             batches = self._epoch_batches(epoch)
             chain = self._spd if self.chain_step is not None else 1
             ep["capture_s"] = self._prepare_chain(ts, batches, chain)
+            captured += ep["capture_s"]
             profile = t.profile_dir is not None and epoch == start_epoch
             rank = self.mesh.rank if self.mesh.size > 1 else None
             with (trace(t.profile_dir, rank) if profile
@@ -444,9 +450,6 @@ class Trainer:
             ep.update({f"loader_{k}": round(v, 4) if k != "batches" else v
                        for k, v in loader.stats.items()})
             ep["train_wall_s"] = time.perf_counter() - t_epoch
-            if self.chain_step is not None and \
-                    self.chain_step.graph is not None:
-                ep["graph_pool_bytes"] = self.chain_step.pool_bytes
             if preempt.is_set():
                 try:
                     ckpt_writer.wait()
@@ -464,6 +467,16 @@ class Trainer:
                 t0 = time.perf_counter()
                 self.evaluate(ts, epoch)
                 ep["eval_s"] = time.perf_counter() - t0
+            # every step's captures of this epoch (the chain's is
+            # _prepare_chain's, before the loader): seconds and pool
+            steps = {id(s.graphs): s for s in (self.chain_step,
+                                               self.train_step,
+                                               self.eval_step)
+                     if getattr(s, "captured", False)}.values()
+            ep["capture_s"] += sum(s.capture_s for s in steps) - captured
+            captured = sum(s.capture_s for s in steps)
+            if steps:
+                ep["graph_pool_bytes"] = sum(s.pool_bytes for s in steps)
             extra = dict(timer.summary())
             extra.update({k: round(v, 4) for k, v in ep.items()
                           if isinstance(v, float)})

@@ -7,15 +7,16 @@ The step is three parts, each a public function so a caller can time them
 apart: ``loss_and_grads`` (forward and backward), ``apply_update`` (the
 optimizer) and the BatchNorm state write-back inside it.
 
-``make_chained_train_step`` (``step.py:70-127``) runs K steps a dispatch.
-On the card its steps are replays of one CUDA graph of the whole step
-(the device cache's batch assembly included, ``data/device_cache.py``),
-captured once over static buffers: the plan pack (or the batch), the
-parameters, the optimizer state and the BatchNorm statistics, all
-updated in place.  The step's draws come from the card's default
-generator, which a graph replay reads at replay time: the loop re-seeds
-it with ``step_seed(seed, step)`` before each replay, so replay k draws
-the masks an eager step k draws.  On the CPU the chain is K eager steps.
+Compiled as in JAX (``step.py:59-188``): on the card every train, KD and
+eval step of one process is a replay of a CUDA graph per batch shape
+(``TrainStep``, ``EvalStep``, ``utils/graphs.py``), captured over static
+buffers: the batch (or the device cache's plan pack, assembled inside
+the graph), the parameters, the optimizer state and the BatchNorm
+statistics, all updated in place.  A replay draws from the step's
+generator at its state (``step_generator(seed, step)``), so replay k
+draws the masks an eager step k draws.  ``make_chained_train_step``
+(``step.py:70-127``) runs K such replays a dispatch.  On the CPU the
+steps run eagerly.
 
 Data parallel (``mesh`` of more than one rank, ``parallel/``): each rank
 runs the step on its share of the global batch, whose losses divide by
@@ -26,16 +27,16 @@ flat all-reduce, before the non-finite guard and the clip, so every rank
 takes the same decisions and applies the same update, and the
 parameters stay equal without a broadcast.  Each rank draws from its own
 generator (``step_generator(..., rank)``).  The chained step stays
-single-process, as in JAX.
+single-process, as in JAX, and the multi-rank steps stay eager: gloo's
+collectives cannot be captured.
 """
-
-import time
 
 import torch
 
 from fcl_taco2_tpu_torch.ops.conv import synced_batch_norm
 from fcl_taco2_tpu_torch.ops.rnn import step_seed
 from fcl_taco2_tpu_torch.train.optim import global_norm
+from fcl_taco2_tpu_torch.utils.graphs import Graphed, say_once
 
 
 def _sum_over_ranks(mesh, grads, report):
@@ -94,48 +95,38 @@ def pack_report(report):
     return keys, torch.stack([report[k].detach().float() for k in keys])
 
 
-def make_train_step(tx, loss_fn=None, mesh=None):
+def make_train_step(tx, loss_fn=None, mesh=None, graphed=True):
     """Returns step(train_state, batch, generator) -> (train_state,
     report); ``train_state.model`` is updated in place.  ``loss_fn``
     replaces ``train_state.model.loss_fn`` (KD).  ``mesh``: the ranks
     of a data-parallel run (``batch`` is then this rank's share of the
-    global batch, ``parallel/distributed.py::make_global_batch``)."""
-
-    def step(ts, batch, generator):
-        report, new_state, grads = loss_and_grads(ts.model, batch,
-                                                  generator, loss_fn, mesh)
-        return apply_update(ts, tx, grads, new_state), report
-
-    return step
+    global batch, ``parallel/distributed.py::make_global_batch``).  On the
+    card each batch shape is one CUDA graph of the whole step (``TrainStep``),
+    as JAX compiles the step per shape; ``graphed=False`` keeps it eager."""
+    return TrainStep(tx, loss_fn, mesh, graphed=graphed)
 
 
-def make_eval_step(loss_fn=None, mesh=None):
+def make_eval_step(loss_fn=None, mesh=None, graphed=True):
     """Eval step: the report only, model state untouched
-    (``step.py:176-188``); with a ``mesh``, summed over its ranks."""
-
-    @torch.no_grad()
-    def step(ts, batch, generator):
-        _, (report, _, _) = (loss_fn or ts.model.loss_fn)(batch, generator,
-                                                          train=False)
-        return _sum_over_ranks(mesh, [], dict(report))[1]
-
-    return step
+    (``step.py:176-188``); with a ``mesh``, summed over its ranks.  On the
+    card a CUDA graph per batch shape (``EvalStep``)."""
+    return EvalStep(loss_fn, mesh, graphed=graphed)
 
 
-def make_kd_train_step(kd, tx, mesh=None):
+def make_kd_train_step(kd, tx, mesh=None, graphed=True):
     """KD step (``step.py:129-159``): the frozen teacher's forward and the
     student's update; ``train_state.model`` is ``kd.student``, so the
     update and ``grad_norm`` cover the student and its ``kd_proj``
     only.  The same as ``make_train_step(tx, kd.loss_fn, mesh)``; the
     name is the JAX package's, for code ported from it."""
-    return make_train_step(tx, kd.loss_fn, mesh)
+    return make_train_step(tx, kd.loss_fn, mesh, graphed=graphed)
 
 
-def make_kd_eval_step(kd, mesh=None):
+def make_kd_eval_step(kd, mesh=None, graphed=True):
     """KD eval step (``step.py:162-174``): teacher and student in eval
     mode, the report only.  The same as ``make_eval_step(kd.loss_fn,
     mesh)``; the name is the JAX package's, for code ported from it."""
-    return make_eval_step(kd.loss_fn, mesh)
+    return make_eval_step(kd.loss_fn, mesh, graphed=graphed)
 
 
 def step_generator(seed, step, device, rank=0):
@@ -161,121 +152,197 @@ def _state_tensors(ts):
     return out
 
 
+def _multi_rank(mesh, what):
+    if mesh is not None and mesh.distributed:
+        say_once(f"{what}: multi-rank steps run eagerly (their "
+                 "collectives are not captured: gloo's cannot be)")
+        return True
+    return False
+
+
+class _GraphStats:
+    """What a step's captures cost: ``captured``, ``capture_s`` (seconds,
+    the warm-ups included) and ``pool_bytes`` (device memory the shared
+    graph pool reserved during them)."""
+
+    graphs = None
+
+    @property
+    def captured(self):
+        return self.graphs is not None and bool(self.graphs.entries)
+
+    @property
+    def capture_s(self):
+        return 0.0 if self.graphs is None else self.graphs.capture_s
+
+    @property
+    def pool_bytes(self):
+        return 0 if self.graphs is None else self.graphs.pool_bytes
+
+
+class TrainStep(_GraphStats):
+    """One optimizer step: ``step(ts, item, generator)`` -> (ts, report).
+
+    ``item``: a ``Batch`` on the device, or with ``assemble``
+    (``DeviceBatchCache.assemble``) a plan pack, assembled inside the
+    step.  On the card (one process) the whole step (assembly, forward,
+    backward, update and the BatchNorm write-back) is a CUDA graph per
+    item shape (``utils/graphs.py``), captured at the first item of that
+    shape after ``WARMUP`` eager steps from a copy of the state that is
+    put back, so the first replay starts from the state it was given.
+    The graph updates the parameters, the optimizer state and the
+    statistics in place; a replay draws from ``generator`` at its state.
+    ``capture_s`` and ``pool_bytes`` sum the captures.  A capture or
+    replay error raises; there is no eager fallback.
+    """
+
+    WARMUP = 3
+
+    def __init__(self, tx, loss_fn=None, mesh=None, assemble=None,
+                 graphed=True):
+        self.tx = tx
+        self.loss_fn = loss_fn
+        self.mesh = mesh
+        self.assemble = assemble
+        self.graphed = graphed and not _multi_rank(mesh, "train step")
+        self.graphs = None
+        self.report_keys = None
+        self._ts = None
+
+    def _report(self, ts, batch, generator):
+        report, new_state, grads = loss_and_grads(ts.model, batch, generator,
+                                                  self.loss_fn, self.mesh)
+        _update_in_place(ts, self.tx, grads, new_state)
+        return report
+
+    def _graph_fn(self, item, generator):
+        report = self._report(self._ts, self._batch(item), generator)
+        self.report_keys, packed = pack_report(report)
+        return packed
+
+    def _batch(self, item):
+        return self.assemble(item) if self.assemble is not None else item
+
+    def _graphs(self, ts):
+        device = next(ts.model.parameters()).device
+        if not self.graphed or device.type != "cuda":
+            return None
+        if self.graphs is None:
+            self.graphs = Graphed(self._graph_fn, device, "train_step",
+                                  warmup=self.WARMUP)
+        self.tx.counters_on(ts.opt_state, device)
+        self._ts = ts
+        return self.graphs
+
+    def __call__(self, ts, item, generator):
+        graphs = self._graphs(ts)
+        if graphs is None:
+            report = self._report(ts, self._batch(item), generator)
+        else:
+            packed = graphs(id(ts.model), item, generator,
+                            restore=_state_tensors(ts))
+            report = dict(zip(self.report_keys, packed))
+        ts.step += 1
+        return ts, report
+
+    def prepare(self, ts, item, generator):
+        """Capture the graph of ``item``'s shape now (on the card; a no-op
+        on the CPU or when captured)."""
+        graphs = self._graphs(ts)
+        if graphs is not None:
+            graphs.prepare(id(ts.model), item, generator,
+                           restore=_state_tensors(ts))
+
+
+class EvalStep(_GraphStats):
+    """The eval forward: ``step(ts, batch, generator)`` -> report, the
+    model untouched; on the card a CUDA graph per batch shape, as
+    ``TrainStep``."""
+
+    def __init__(self, loss_fn=None, mesh=None, graphed=True):
+        self.loss_fn = loss_fn
+        self.mesh = mesh
+        self.graphed = graphed and not _multi_rank(mesh, "eval step")
+        self.graphs = None
+        self.report_keys = None
+        self._model = None
+
+    @torch.no_grad()
+    def _report(self, model, batch, generator):
+        _, (report, _, _) = (self.loss_fn or model.loss_fn)(
+            batch, generator, train=False)
+        return _sum_over_ranks(self.mesh, [], dict(report))[1]
+
+    def _graph_fn(self, batch, generator):
+        self.report_keys, packed = pack_report(
+            self._report(self._model, batch, generator))
+        return packed
+
+    def __call__(self, ts, batch, generator):
+        device = next(ts.model.parameters()).device
+        if not self.graphed or device.type != "cuda":
+            return self._report(ts.model, batch, generator)
+        if self.graphs is None:
+            self.graphs = Graphed(self._graph_fn, device, "eval_step")
+        self._model = ts.model
+        packed = self.graphs(id(ts.model), batch, generator)
+        return dict(zip(self.report_keys, packed))
+
+
 class ChainedTrainStep:
     """``make_chained_train_step``'s product: ``chain(ts, items, seed)``
     runs ``len(items)`` optimizer steps and returns (ts, reports), reports
     a (K, n_keys) fp32 tensor in ``report_keys`` order.
 
     ``items``: with ``assemble`` (``DeviceBatchCache.assemble``) a (K, P)
-    int32 tensor of plan packs on the device; without it, a list of K
-    ``Batch``es on the device.  Step k draws from
-    ``step_seed(seed, ts.step)``, as the single step does.
-
-    On the card the first call (or ``prepare``) captures the graph:
-    ``WARMUP`` eager iterations on a side stream, which PyTorch needs
-    before a capture, run from a copy of the state that is put back
-    afterwards, so the run's first graphed step starts from the state
-    the caller passed.  ``capture_s`` and ``pool_bytes`` (the graph's
-    private memory pool, reserved bytes) record the capture.  A capture
-    or replay error raises; there is no eager fallback.
+    int32 tensor of plan packs on the device (or a list of them); without
+    it, a list of K ``Batch``es on the device.  Step k draws from
+    ``step_generator(seed, ts.step)``, as the single step does.  Each step
+    is a ``TrainStep``: on the card a replay of one CUDA graph of the
+    whole step, the batch assembly included; an epoch's remainder steps
+    (a chain of one) replay the same graph.
     """
 
-    WARMUP = 3
-
     def __init__(self, tx, loss_fn=None, assemble=None):
-        self.tx = tx
-        self.loss_fn = loss_fn
-        self.assemble = assemble
-        self.report_keys = None
-        self.graph = None
-        self.capture_s = 0.0
-        self.pool_bytes = 0
+        self.step = TrainStep(tx, loss_fn, assemble=assemble)
 
-    # ---- the step body, shared by the eager and the captured form ----
+    @property
+    def report_keys(self):
+        return self.step.report_keys
 
-    def _body(self, ts, batch, generator):
-        report, new_state, grads = loss_and_grads(ts.model, batch,
-                                                  generator, self.loss_fn)
-        _update_in_place(ts, self.tx, grads, new_state)
-        keys, packed = pack_report(report)
-        self.report_keys = keys
-        return packed
+    @property
+    def graphs(self):
+        return self.step.graphs
 
-    def _batch(self, item):
-        return self.assemble(item) if self.assemble is not None else item
+    @property
+    def captured(self):
+        return self.step.captured
+
+    @property
+    def capture_s(self):
+        return self.step.capture_s
+
+    @property
+    def pool_bytes(self):
+        return self.step.pool_bytes
 
     def __call__(self, ts, items, seed):
         device = next(ts.model.parameters()).device
-        if device.type != "cuda":
-            reports = []
-            for item in items:
-                reports.append(self._body(
-                    ts, self._batch(item),
-                    step_generator(seed, ts.step, device)))
-                ts.step += 1
-            return ts, torch.stack(reports)
-        if self.graph is None:
-            self.prepare(ts, items[0], seed)
-        gen = torch.cuda.default_generators[device.index or 0]
         reports = []
         for item in items:
-            self._fill(item)
-            gen.manual_seed(step_seed(seed, ts.step))
-            self.graph.replay()
-            reports.append(self.out.clone())  # the next replay rewrites it
-            ts.step += 1
+            ts, report = self.step(ts, item,
+                                   step_generator(seed, ts.step, device))
+            if self.report_keys is None:  # eager: keys of this report
+                self.step.report_keys, _ = pack_report(report)
+            reports.append(torch.stack(
+                [report[k].detach().float() for k in self.report_keys]))
         return ts, torch.stack(reports)
-
-    def _fill(self, item):
-        if self.assemble is not None:
-            self.static_in.copy_(item, non_blocking=True)
-        else:
-            for dst, src in zip(_leaves(self.static_in), _leaves(item)):
-                dst.copy_(src, non_blocking=True)
 
     def prepare(self, ts, item, seed):
         """Capture the graph of one step (on the card; a no-op on the
         CPU), with ``item`` as the warm-up's input."""
         device = next(ts.model.parameters()).device
-        if device.type != "cuda" or self.graph is not None:
-            return
-        from fcl_taco2_tpu_torch.data.loader import _map_batch
-        t0 = time.perf_counter()
-        self.tx.counters_on(ts.opt_state, device)
-        self.static_in = (item.clone() if self.assemble is not None
-                          else _map_batch(torch.clone, item))
-        self._fill(item)
-        gen = torch.cuda.default_generators[device.index or 0]
-        saved = [t.detach().clone() for t in _state_tensors(ts)]
-        side = torch.cuda.Stream(device=device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            for _ in range(self.WARMUP):
-                gen.manual_seed(step_seed(seed, ts.step))
-                self._body(ts, self._batch(self.static_in), gen)
-        torch.cuda.current_stream(device).wait_stream(side)
-        torch.cuda.synchronize(device)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(device)
-        graph = torch.cuda.CUDAGraph()
-        gen.manual_seed(step_seed(seed, ts.step))
-        with torch.cuda.graph(graph):
-            self.out = self._body(ts, self._batch(self.static_in), gen)
-        torch.cuda.synchronize(device)
-        self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
-        with torch.no_grad():  # the warm-up's updates are undone
-            for t, s in zip(_state_tensors(ts), saved):
-                t.copy_(s)
-        del saved
-        self.graph = graph
-        self.capture_s = time.perf_counter() - t0
-
-
-def _leaves(tree):
-    from fcl_taco2_tpu_torch.data.loader import _map_batch
-    out = []
-    _map_batch(out.append, tree)
-    return out
+        self.step.prepare(ts, item, step_generator(seed, ts.step, device))
 
 
 def make_chained_train_step(tx, loss_fn=None, assemble=None):

@@ -17,7 +17,12 @@ Two entries keep the Pallas names, arguments and trim/pad conventions:
 - ``pwg_stream_step``: one chunk of the sample stream with the state
   (aux history, skip accumulator, one ring of past inputs per layer) in
   and out, in the JAX state's layout (``pwg_stream_state``).  Chained
-  steps equal the one-shot call.
+  steps equal the one-shot call.  Its stream position comes as ints or as
+  one (2,) int32 tensor ``(start, W)`` (``stream_pos``), which the kernel
+  reads on the device, as the Pallas kernel reads ``start_ref``: a CUDA
+  graph of a stream step then replays at the position written before the
+  replay.  The one-shot entry's position is static (0 and the shapes'
+  W), like its shapes.
 
 Both launch ``csrc/pwg_stream.cu`` once per call for CUDA tensors and run
 their plain PyTorch versions (``*_plain``, the same tile-by-tile ring
@@ -38,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from fcl_taco2_tpu_torch.utils.device import resolve_device
+from fcl_taco2_tpu_torch.utils.graphs import count_launch
 from fcl_taco2_tpu_torch.vocoder.pwg import (PWGConfig, pwg_generate_chunked,
                                              upsample_mel)
 
@@ -238,13 +244,30 @@ def _check_step(aux, noise, tile):
                          f"{(B, Vh)}")
 
 
+def stream_pos(start, W, device):
+    """The stream position as the kernel reads it: (2,) int32 ``(start,
+    W)`` on ``device``."""
+    return torch.tensor([int(start), int(W)], dtype=torch.int32,
+                        device=device)
+
+
+def _pos_values(start, W):
+    """(start, W) as host ints from ints or a (2,) tensor (a host read)."""
+    if torch.is_tensor(start):
+        if W is not None or tuple(start.shape) != (2,):
+            raise ValueError("a tensor stream position is (2,): (start, W)")
+        return tuple(int(v) for v in start.tolist())
+    return int(start), int(W)
+
+
 @torch.no_grad()
 def pwg_stream_step_plain(packed, cfg: PWGConfig, state, aux, noise, start,
-                          W, tile: int = 1024):
+                          W=None, tile: int = 1024):
     """Plain PyTorch version of ``pwg_stream_step``."""
     _check_step(aux, noise, tile)
+    start, W = _pos_values(start, W)
     return _stream_plain(packed, cfg, state, aux.float(), noise.float(),
-                         int(start), int(W), tile)
+                         start, W, tile)
 
 
 # ----------------------------------------------------------------------
@@ -254,7 +277,7 @@ def pwg_stream_step_plain(packed, cfg: PWGConfig, state, aux, noise, start,
 _PTR_FIELDS = ("noise", "aux", "w1k", "b1", "w2k", "b2", "first_w",
                "first_b", "last1_w", "last1_b", "last2_w", "last2_b",
                "ah_in", "acc_in", "bufs_in", "wav", "ah_out", "acc_out",
-               "bufs_out", "xbuf", "hbuf", "ring_acc")
+               "bufs_out", "xbuf", "hbuf", "ring_acc", "pos")
 _INT_FIELDS = ("B", "N", "n_aux", "n_noise", "start", "W", "A", "K1p", "L",
                "delay", "tile", "ra", "sum_bw")
 # what the last launch reported (csrc/pwg_stream.cu::pwg_stream_launch)
@@ -312,7 +335,9 @@ def _launch(packed, cfg, aux, noise, start, W, N, state):
     """Validate, allocate the output, the scratch and the state out,
     launch.
     aux (B, n_aux, A) covers positions [start, start + n_aux), noise
-    (B, n_noise) likewise; both read as zero past their ends."""
+    (B, n_noise) likewise; both read as zero past their ends.  ``start``
+    may be a (2,) int32 tensor ``(start, W)`` on the card (``W`` None),
+    read by the kernel."""
     C, G, S, A = (cfg.residual_channels, cfg.gate_channels,
                   cfg.skip_channels, cfg.aux_channels)
     L = cfg.layers
@@ -343,6 +368,12 @@ def _launch(packed, cfg, aux, noise, start, W, N, state):
                   "bufs_in": torch.cat([b.to(torch.float32)
                                         for b in state["bufs"]], dim=1)})
     t = {k: _operand(t[k], k, shp, dev) for k, shp in shapes.items()}
+    if torch.is_tensor(start):
+        if W is not None or tuple(start.shape) != (2,) \
+                or start.dtype != torch.int32 or start.device != dev:
+            raise ValueError(f"the stream position must be a (2,) int32 "
+                             f"tensor (start, W) on {dev}")
+        t["pos"], start, W = start, 0, 0
 
     tile = kernel_tile(B, N)
     ra = _pow2_at_least(tile + delay)
@@ -401,7 +432,7 @@ def pwg_generate_streaming(params, cfg: PWGConfig, mel, noise,
     delay = _round8(total_delay(cfg))
     aux = upsample_mel(params, cfg, mel.float())
     wav, _ = _launch(packed, cfg, aux, noise, 0, W, W + delay, None)
-    pwg_generate_streaming.launches += 1
+    count_launch(pwg_generate_streaming)
     return wav[:, delay:delay + W]
 
 
@@ -409,8 +440,8 @@ pwg_generate_streaming.launches = 0
 
 
 @torch.no_grad()
-def pwg_stream_step(packed, cfg: PWGConfig, state, aux, noise, start, W,
-                    tile: int = 1024):
+def pwg_stream_step(packed, cfg: PWGConfig, state, aux, noise, start,
+                    W=None, tile: int = 1024):
     """One streaming-vocoder call over a chunk of the sample stream
     (``pwg_pallas.py:339-422``).
 
@@ -423,7 +454,9 @@ def pwg_stream_step(packed, cfg: PWGConfig, state, aux, noise, start, W,
         noise: (B, Vh) input noise for the same positions (content past
             W is ignored: the kernel masks it).
         start: stream position of aux[:, 0]; W: the stream's real sample
-            count (frames * hop).
+            count (frames * hop); or ``start`` a (2,) int32 tensor
+            ``(start, W)`` (``stream_pos``) and ``W`` None: the kernel
+            reads it on the device (the plain version on the host).
         tile: Vh must be a multiple of it (the Pallas tile); the kernel
             picks its own time tile.
 
@@ -438,7 +471,7 @@ def pwg_stream_step(packed, cfg: PWGConfig, state, aux, noise, start, W,
     _check_step(aux, noise, tile)
     wav, new_state = _launch(packed, cfg, aux, noise, start, W, aux.shape[1],
                              state)
-    pwg_stream_step.launches += 1
+    count_launch(pwg_stream_step)
     return wav, new_state
 
 

@@ -354,3 +354,25 @@ def test_workflow_end_to_end(tmp_path):
     summary = fcl_eval.main(["--feats-scp", os.path.join(out, "feats.scp"),
                              "--json", shard])
     assert summary["n_utts"] == 2 and np.isfinite(summary["mcd"])
+
+
+def test_multispeaker_training(tmp_path):
+    """Multi-speaker training from the CLI
+    (``tests/test_cli.py::test_cli_multispeaker_training`` on the port,
+    which the JAX trainer fails for its validation manifest sharing the
+    training one, ROADMAP §C): the speaker vectors flow manifest ->
+    device cache -> batch -> the trainer's steps, and ``model.json``
+    keeps their width."""
+    from test_data_pipeline import write_corpus
+    corpus = write_corpus(str(tmp_path), n_utts=6, spk_embed_dim=16)
+    exp = os.path.join(str(tmp_path), "exp_spk")
+    fcl_train.main(["--train-json", corpus, "--valid-json", corpus,
+                    "--outdir", exp, "--perform-KD", "False",
+                    "--spk-embed-dim", "16", "--epochs", "1", *TINY])
+    assert os.path.exists(os.path.join(exp, "model.loss.best"))
+    with open(os.path.join(exp, "model.json")) as f:
+        conf = json.load(f)
+    assert conf["model_config"]["spk_embed_dim"] == 16
+    with open(os.path.join(exp, "log.jsonl")) as f:
+        entry = json.loads(f.readline())
+    assert entry["device_cache"] and np.isfinite(entry["main/loss"])
