@@ -64,7 +64,12 @@ prints no result):
    cache batches and 4 graphed KD steps (remat on and off) and KD eval
    steps against eager ones from the same state: losses, reports and
    every parameter and buffer bit-equal; and the graphed bf16 single
-   step's time (the chain's is ``[graph]``'s).  ``scripts/
+   step's time (the chain's is ``[graph]``'s).  Between the two, the
+   paths graphed last (``compiled_routes``), each bit-equal to its eager
+   call with both times: teacher_b16 on the ``scan`` and ``hybrid``
+   routes (dropout 0.5), the scan's loop to ``max_dur`` timed against the
+   loop cut at the batch's bound, ``fcl_vocode``'s bucket, a
+   ``vocode_chunked`` utterance and one preprocessing bucket.  ``scripts/
    torch_compiled_phase.py`` runs this phase alone.
 7. Training (``[train]``), after the serving paths; no decoder or PWG
    kernel may launch in it (the JAX package has no Pallas kernel on the
@@ -121,7 +126,7 @@ prints no result):
    printed), two consecutive single replays drawing different zoneout
    masks (read from the graph's own buffers through
    ``Decoder.mask_taps``) at the zoneout rate; the
-   bf16 step eager against graphed (ms a step over 10 chains of 4 after
+   bf16 step eager against graphed (ms a step over 5 chains of 4 after
    one, min and max, device busy share of one profiled chain, capture
    seconds, graph pool, peak memory); and ``fcl_train`` with no runtime
    flags (the cache is built and 4 steps run a dispatch) against
@@ -179,9 +184,16 @@ prints no result):
    4) or for bf16 (bf16 compute, against one process decoding each
    rank's rows as a batch of 2, the batch of 4 logged beside it);
    BatchNorm at 1e-5; the all-reduced MiB, calls and ms a step are
-   logged.  Then one NCCL rank in this process (a world of one process
-   group, so the same data-parallel path) against the undistributed
-   step.
+   logged, and the ranks' reason for staying eager (gloo).  Then one
+   NCCL rank in this process (a world of one process group, so the same
+   data-parallel path, ``nccl_twins``): the fp32 teacher train and eval
+   steps and the KD step (remat on and off) with its eval step, graphed
+   with their all-reduces inside, against their ``graphed=False`` twins
+   over 4 steps under deterministic algorithms (bit-equal, equal
+   ``Mesh.stats`` calls and bytes a step) and the graphed losses against
+   the undistributed steps (rtol 2e-4); the bf16 teacher and KD steps'
+   ms graphed and eager (``nccl_bf16_timing``); sharded bf16 serving at
+   batch 2 graphed against eager, bit for bit.
 15. One JSON line of the kernels (launches: every main path above, the
    CLIs, ``[quality]``'s decodes and the ranks of ``[parallel]``
    included), the nvidia-smi line,
@@ -1404,10 +1416,182 @@ def compiled_steps(smi, kind, n=4):
     log("[compiled] " + json.dumps({"steps": rows, "device": smi}))
 
 
+def _bit_row(tag, graphed, eager, ms, counts, smi, extra=""):
+    """Log and check one graphed-against-eager case of
+    ``compiled_routes``; returns its row."""
+    bit = _same(graphed, eager)
+    log(f"[compiled] {tag}: graphed vs eager bit-equal {bit}; ms (median "
+        f"of 5 after one, synchronized) graphed {ms['graphed']:.3f} vs "
+        f"eager {ms['eager']:.3f}{extra}; launches {counts} | {smi}")
+    if not bit:
+        raise RuntimeError(f"compiled {tag}: graphed differs from eager")
+    return {"bit_equal": bit, "ms": ms, "launches": counts}
+
+
+def compiled_routes(models, pwg, kind, smi):
+    """The paths graphed since the JAX package's last eager ones were
+    ported, each against its eager call bit for bit: teacher_b16 on the
+    ``scan`` and ``hybrid`` routes (published dropout 0.5, so the replays'
+    prenet draws are checked too), with the scan's extra steps (it runs to
+    the static step count) timed against the loop cut at the bound;
+    ``fcl_vocode``'s bucket (a 200-frame mel, bucket 256); a
+    ``vocode_chunked`` utterance (400 frames, chunks of 64); one
+    preprocessing bucket (4 utterances of 3-4 s).  Returns the launch
+    counts of the graphed calls."""
+    from fcl_taco2_tpu_torch.audio.preprocess import (Frontend,
+                                                      PreprocessConfig)
+    from fcl_taco2_tpu_torch.cli.fcl_vocode import BucketVocoder
+    from fcl_taco2_tpu_torch.infer import Synthesizer
+    from fcl_taco2_tpu_torch.infer.pipeline import vocode_chunked
+    from fcl_taco2_tpu_torch.models.decoder import decoder_inference
+    from fcl_taco2_tpu_torch.ops import decoder_cuda as K
+    from fcl_taco2_tpu_torch.utils.graphs import Graphed
+    from fcl_taco2_tpu_torch.vocoder.pwg_cuda import pack_pwg_weights
+    _, _, toks16, durs16 = protocol()
+    launches = dict.fromkeys(_counters(), 0)
+    out = {}
+
+    def graphed_launches(fn):
+        zero_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        for k, v in counts.items():
+            launches[k] += v
+        return res, counts
+
+    for backend in ("scan", "hybrid"):
+        g = Synthesizer(models["teacher"], batch_size=16,
+                        decoder_backend=backend)
+        e = Synthesizer(models["teacher"], batch_size=16,
+                        decoder_backend=backend)
+        e.graphed = False
+        (mg, st), counts = graphed_launches(
+            lambda: g.synth_batch(toks16, 0, durations=durs16))
+        me, _ = e.synth_batch(toks16, 0, durations=durs16)
+        ms = {n: float(np.median([s.synth_batch(toks16, r, durations=durs16)
+                                  [1]["wall_sec"] * 1e3
+                                  for r in range(6)][1:]))
+              for n, s in (("graphed", g), ("eager", e))}
+        if (counts["fused_ar_decode_hbm"] == 0) != (backend == "scan") or \
+                not g.graphs.entries:
+            raise RuntimeError(f"compiled teacher_b16 {backend}: launches "
+                               f"{counts}, graphs {len(g.graphs.entries)}")
+        out[f"teacher_b16_{backend}"] = _bit_row(
+            f"teacher_b16 {backend} (dropout 0.5, synth_batch)", mg, me, ms,
+            counts, smi)
+        if backend != "scan":
+            continue
+        # the scan's loop to S = max_dur against the loop cut at the
+        # batch's bound (the eager route before it was graphed)
+        m, seen = g.model, {}
+        orig = m.decode_segments
+
+        def spy(*a, **k):
+            seen["a"], seen["k"] = a, k
+            return orig(*a, **k)
+
+        tokens, ilens, dd = _padded(toks16, durs16, 16, g.tok_bucket)
+        m.decode_segments = spy
+        try:
+            m.synthesize(tokens, ilens, 0, st["budget"], durations=dd,
+                         decoder_backend="scan")
+        finally:
+            del m.decode_segments
+        enc, dur, pos, fm, gen = seen["a"]
+        sb = seen["k"]["step_bound"]
+        bound, S = int(sb), fm.shape[1]
+        dec, cfg = m.decoder, m.cfg
+        scan = Graphed(lambda x, gn: decoder_inference(
+            dec, cfg, x[0], x[1], x[2], x[3], gn, step_bound=x[4]), "cuda",
+            "scan_decode")
+        with torch.no_grad():
+            steps = {
+                "graphed_S": _replay_ms(lambda: scan(
+                    None, (enc, dur, pos, fm, sb), gen)),
+                "eager_S": _replay_ms(lambda: decoder_inference(
+                    dec, cfg, enc, dur, pos, fm, gen, step_bound=sb)),
+                "eager_bound": _replay_ms(lambda: decoder_inference(
+                    dec, cfg, enc, dur, pos[:, :bound], fm[:, :bound],
+                    gen))}
+        out["scan_steps"] = {"S": S, "bound": bound, "P": fm.shape[0],
+                             "ms": steps}
+        log(f"[compiled] teacher_b16 scan decode (P {fm.shape[0]}, "
+            f"{enc.dtype}): "
+            f"the loop to S = {S} steps, graphed {steps['graphed_S']:.3f} "
+            f"ms, eager {steps['eager_S']:.3f} ms, against the eager loop "
+            f"cut at the batch's bound of {bound} steps "
+            f"{steps['eager_bound']:.3f} ms (median of 5 after one) | {smi}")
+
+    # fcl_vocode's bucket and a vocode_chunked utterance
+    rng = np.random.default_rng(0)
+    mel = (rng.normal(size=(400, pwg.cfg.aux_channels)) * 0.5).astype(
+        np.float32)
+    packed = pack_pwg_weights(pwg, pwg.cfg)
+    vg = BucketVocoder(pwg, pwg.cfg, packed=packed)
+    ve = BucketVocoder(pwg, pwg.cfg, packed=packed)
+    ve.graphed = False
+
+    def gen0():
+        return torch.Generator(device="cuda").manual_seed(0)
+
+    wg, counts = graphed_launches(lambda: vg(mel[:200], gen0()))
+    we = ve(mel[:200], gen0())
+    ms = {n: _replay_ms(lambda v=v: v(mel[:200], gen0()))
+          for n, v in (("graphed", vg), ("eager", ve))}
+    if counts["pwg_generate_streaming"] == 0:
+        raise RuntimeError(f"compiled fcl_vocode: launches {counts}")
+    out["fcl_vocode"] = _bit_row("fcl_vocode bucket (200 frames -> 256)",
+                                 [wg], [we], ms, counts, smi)
+    noise = torch.randn(400 * pwg.cfg.hop, generator=gen0(),
+                        device="cuda")
+
+    def chunked(graphed):
+        return np.concatenate(list(vocode_chunked(
+            pwg, pwg.cfg, mel, noise, chunk_frames=64, graphed=graphed)))
+
+    cg, counts = graphed_launches(lambda: chunked(True))
+    ms = {n: _replay_ms(lambda f=f: chunked(f))
+          for n, f in (("graphed", True), ("eager", False))}
+    out["vocode_chunked"] = _bit_row(
+        "vocode_chunked (400 frames, chunks of 64, pwg_generate)", [cg],
+        [chunked(False)], ms, counts, smi)
+
+    # one preprocessing bucket
+    pcfg = PreprocessConfig()
+    t = np.arange(88200) / SAMPLE_RATE
+    wavs = [(0.3 * np.sin(2 * np.pi * f * t[:n]) + 0.01 * rng.normal(
+        size=n)).astype(np.float32)
+        for f, n in ((110, 66150), (180, 72000), (220, 80000), (300, 88200))]
+    fg = Frontend(pcfg)
+    fe = Frontend(pcfg)
+    fe.graphed = False
+    if len(list(fg._buckets(wavs))) != 1:
+        raise RuntimeError("compiled frontend: not one bucket")
+    featg, counts = graphed_launches(lambda: fg.process(wavs))
+    feate = fe.process(wavs)
+    ms = {}
+    for n, f in (("graphed", fg), ("eager", fe)):
+        f.bucket_stats.clear()
+        for _ in range(6):
+            f.process(wavs)
+        ms[n] = float(np.median([b["ms"] for b in f.bucket_stats][1:]))
+    out["frontend"] = _bit_row(
+        f"preprocessing bucket ({len(wavs)} rows x "
+        f"{fg.bucket_stats[-1]['samples']} samples: STFT, mel, energy, "
+        f"YIN; device ms between events around the call)",
+        [x for r in featg for x in r], [x for r in feate for x in r], ms,
+        counts, smi)
+    log("[compiled] " + json.dumps({"routes": out, "device": smi}))
+    return launches
+
+
 def phase_compiled(models, pwg, smi, kind):
     """CUDA graphs wherever the JAX package jits: serving, then the
     steps.  Returns the serving calls' launch counts."""
     launches = compiled_serving(models, pwg, kind, smi)
+    for k, v in compiled_routes(models, pwg, kind, smi).items():
+        launches[k] += v
     zero_counts()
     compiled_steps(smi, kind)
     counts = read_counts()
@@ -2127,7 +2311,7 @@ def graph_agreement(smi, utts, classes, models):
             "replay_masks_differ": not same_masks}
 
 
-def graph_timing(smi, kind, utts, classes, models, chains=10, warmup=1):
+def graph_timing(smi, kind, utts, classes, models, chains=5, warmup=1):
     """bf16 at the bench protocol: ms a step over ``chains`` chains of 4
     after ``warmup`` chains, eager (assemble + step, 4 a chain) against
     graphed (4 replays a chain), CUDA events around each chain; the
@@ -2811,10 +2995,12 @@ def phase_parallel(smi, kind, root):
     and in bf16 compute, held to one process's batches of each rank's 2
     rows, and run the synchronized BatchNorm check;
     a fresh 2-rank run resumes the snapshot for 2 steps; all held to one
-    process on the same global batch.  Then one rank over NCCL (a world
-    of one process group, so the same data-parallel path) against the
-    undistributed step.  The ranks' decoder kernel launches are
-    returned."""
+    process on the same global batch.  The gloo ranks stay eager and say
+    why.  Then one rank over NCCL (a world of one process group, so the
+    same data-parallel path), its steps and sharded serving graphed with
+    their all-reduces inside (``nccl_twins``), against their eager twins
+    bit for bit and against the undistributed steps.  The decoder kernel
+    launches of the two gloo ranks and of the NCCL rank are returned."""
     import torch.distributed as dist
     from fcl_taco2_tpu_torch.ops.conv import batch_norm_train
     from fcl_taco2_tpu_torch.ops.masking import lengths_to_non_pad_mask
@@ -2912,25 +3098,259 @@ def phase_parallel(smi, kind, root):
         f"{per['bytes'] / 2 ** 20:.1f} MiB all-reduced in "
         f"{per['calls']:.0f} calls (one gradient bucket, the rest "
         f"BatchNorm's), {per['seconds'] * 1e3:.1f} ms | {smi}")
-    # one rank over NCCL: the same path, its collectives on a world of 1
+    # one rank over NCCL: the same path, its collectives on a world of 1,
+    # graphed with its all-reduces inside each step's graph
+    with open(os.path.join(root, "par_a.json.0.log")) as f:
+        reasons = sorted({line.strip() for line in f if "stay eager" in line})
+    log(f"[parallel] the gloo ranks said: {reasons}")
+    if not reasons or any("nccl" in r.lower() for r in reasons):
+        raise RuntimeError(f"parallel: gloo's eager reason {reasons}")
     initialize(f"localhost:{free_port()}", 1, 0, backend="nccl",
                device="cuda:0")
     try:
         mesh = make_mesh()
-        mesh.timing = True
-        with no_tf32():
-            nccl, _, _, nccl_norm = W.run_training_steps(
-                1, device="cuda", mesh=mesh, width="full")
-        log(f"[parallel] 1 rank over {dist.get_backend()}: "
-            f"{mesh.stats['bytes'] / 2 ** 20:.1f} MiB in "
-            f"{mesh.stats['calls']} all-reduces, "
-            f"{mesh.stats['seconds'] * 1e3:.1f} ms a step | {smi}")
+        with no_tf32(), deterministic() as nondet:
+            twins = nccl_twins(smi, kind, mesh)
+        log(f"[parallel] deterministic algorithms on; ops without a "
+            f"deterministic version: {sorted(nondet) or 'none'}")
+        nccl_bf16_timing(smi, kind, mesh, torch.device("cuda", 0))
     finally:
         dist.destroy_process_group()
-    _close("1-rank NCCL loss vs undistributed", nccl, ref[:1], TOL_PAR)
-    _close("1-rank NCCL grad norm vs undistributed", nccl_norm,
-           ref_norms[:1], TOL_PAR)
+    train = twins["train"]["graphed"]
+    _close("1-rank NCCL graphed losses vs undistributed", train["losses"],
+           ref[:4], TOL_PAR)
+    _close("1-rank NCCL graphed grad norms vs undistributed",
+           train["grad_norms"], ref_norms[:4], TOL_PAR)
+    for k in launches:  # the NCCL rank's serving beside the gloo ranks'
+        launches[k] = list(launches[k]) + [twins["launches"][k]]
     return launches
+
+
+NCCL_TIMED = 5  # steps timed after the compared ones, CUDA events
+
+
+def nccl_twins(smi, kind, mesh, n=4):
+    """One rank over NCCL (``make_mesh()`` on a world of one process
+    group: the data-parallel path, its collectives on the card), each
+    graphed path against its ``graphed=False`` twin from the same state
+    and seeds: ``_mp_worker``'s full-width teacher train and eval steps
+    and its KD step (remat on and off) with the KD eval step, over ``n``
+    steps on the bench batch (losses, grad norms, every parameter and
+    buffer, eval reports bit-equal; ``Mesh.stats`` calls and bytes a step
+    equal, the graphed ones counted per replay), then sharded serving of
+    the bf16 teacher and student at batch 2 (mels bit-equal, calls and
+    bytes a call equal).  Step ms: CUDA events around ``NCCL_TIMED`` more
+    steps.  Returns {"train", "kd_remat_on", "kd_remat_off": {"graphed",
+    "eager": rows}, "serve": ..., "launches": the graphed serving's}."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from fcl_taco2_tpu_torch.infer import Synthesizer
+    from fcl_taco2_tpu_torch.models import Tacotron2SA
+    from fcl_taco2_tpu_torch.models.kd import KDStudent
+    from fcl_taco2_tpu_torch.parallel import _mp_worker as W
+    from fcl_taco2_tpu_torch.train.optim import build_optimizer
+    from fcl_taco2_tpu_torch.train.state import TrainState
+    from fcl_taco2_tpu_torch.train.step import (make_eval_step,
+                                                make_kd_eval_step,
+                                                make_kd_train_step,
+                                                make_train_step,
+                                                step_generator)
+    dev = torch.device("cuda", 0)
+    cfg, tcfg, scfg = W._configs("full")
+    batch = W._upload(mesh, W._bench_batch(), dev)
+
+    def state(model):
+        tx = build_optimizer(lr=W.LR["full"], grad_clip=1.0)
+        names, ps = zip(*model.named_parameters())
+        mesh.broadcast_module_(model)
+        return TrainState(model, tx.init(ps, names), 0, tx), tx
+
+    def teacher(graphed):
+        ts, tx = state(Tacotron2SA(cfg, device=dev, seed=0))
+        return (ts, make_train_step(tx, mesh=mesh, graphed=graphed),
+                make_eval_step(mesh=mesh, graphed=graphed))
+
+    def kd(remat):
+        def make(graphed):
+            k = KDStudent(dataclasses.replace(scfg, remat_decoder=remat),
+                          tcfg, device=dev, seed=0)
+            mesh.broadcast_module_(k.teacher)
+            ts, tx = state(k.student)
+            return (ts, make_kd_train_step(k, tx, mesh, graphed=graphed),
+                    make_kd_eval_step(k, mesh, graphed=graphed))
+        return make
+
+    def gen(step):
+        return step_generator(W.TINY_STEPS_SEED, step, dev, mesh.rank)
+
+    def per_call(fn, calls):
+        before = dict(mesh.stats)
+        out = [fn() for _ in range(calls)]
+        torch.cuda.synchronize()
+        return out, {k: (mesh.stats[k] - before[k]) / calls
+                     for k in ("calls", "bytes")}
+
+    def run(make, graphed):
+        ts, step, evals = make(graphed)
+        step.prepare(ts, batch, gen(0))  # the capture: before the count
+        holder = [ts]
+
+        def one():
+            holder[0], rep = step(holder[0], batch, gen(holder[0].step))
+            return rep
+        reps, per_step = per_call(one, n)
+        row = {"losses": [float(r["loss"]) for r in reps],
+               "grad_norms": [float(r["grad_norm"]) for r in reps],
+               "per_step": per_step,
+               "state": {k: v.detach().clone() for k, v in
+                         holder[0].model.state_dict().items()}}
+        def ev():
+            return evals(holder[0], batch, step_generator(7, 0, dev))
+        ev()  # the capture: before the count
+        evs, row["per_eval"] = per_call(ev, 2)
+        row["eval"] = [{k: float(v) for k, v in e.items()} for e in evs]
+        times = []
+        for _ in range(NCCL_TIMED):
+            e0, e1 = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+            e0.record()
+            one()
+            e1.record()
+            e1.synchronize()
+            times.append(e0.elapsed_time(e1))
+        row["ms"] = float(np.median(times))
+        row["capture_s"] = step.capture_s
+        return row
+
+    out = {}
+    for name, make in (("train", teacher), ("kd_remat_on", kd(True)),
+                       ("kd_remat_off", kd(False))):
+        eager, graphed = run(make, False), run(make, True)
+        bit = (eager["losses"] == graphed["losses"]
+               and eager["grad_norms"] == graphed["grad_norms"]
+               and eager["eval"] == graphed["eval"]
+               and eager["state"].keys() == graphed["state"].keys()
+               and all(torch.equal(eager["state"][k], graphed["state"][k])
+                       for k in eager["state"]))
+        same_stats = (eager["per_step"] == graphed["per_step"]
+                      and eager["per_eval"] == graphed["per_eval"])
+        for r in (eager, graphed):
+            del r["state"], r["eval"]
+        out[name] = {"graphed": graphed, "eager": eager, "bit_equal": bit}
+        log(f"[parallel] 1 rank over {dist.get_backend()}, {name}: {n} "
+            f"graphed steps (all-reduces captured) vs their graphed=False "
+            f"twin: losses, grad norms, every parameter and buffer and the "
+            f"eval reports bit-equal {bit} (losses "
+            f"{graphed['losses'][0]:.4f} -> {graphed['losses'][-1]:.4f}); "
+            f"Mesh.stats a step graphed {graphed['per_step']} vs eager "
+            f"{eager['per_step']}, an eval {graphed['per_eval']} vs "
+            f"{eager['per_eval']}; step ms (CUDA events, median of "
+            f"{NCCL_TIMED}) graphed {graphed['ms']:.2f} vs eager "
+            f"{eager['ms']:.2f}; capture {graphed['capture_s']:.2f} s on "
+            f"{kind} | {smi}")
+        if not (bit and same_stats):
+            raise RuntimeError(f"parallel NCCL {name}: graphed differs from "
+                               f"eager (bit-equal {bit}, stats {same_stats})")
+    toks, durs, _, _ = W.serve_requests("full")
+    models = W._serve_models("full", None, dev)
+    launches = dict.fromkeys(_counters(), 0)
+    for name in ("teacher_bf16", "student_bf16"):
+        g = Synthesizer(models[name], batch_size=2, device=dev, mesh=mesh)
+        e = Synthesizer(models[name], batch_size=2, device=dev, mesh=mesh)
+        e.graphed = False
+        zero_counts()
+        g.synth_batch(toks[:2], W.SERVE_SEED, durations=durs[:2])
+        torch.cuda.synchronize()
+        for k, v in read_counts().items():
+            launches[k] += v
+        rows = {}
+        for tag, s_ in (("graphed", g), ("eager", e)):
+            res, per = per_call(lambda: s_.synth_batch(
+                toks[:2], W.SERVE_SEED, durations=durs[:2]), 6)
+            rows[tag] = {"mels": res[0][0], "per_call": per,
+                         "ms": float(np.median([r[1]["wall_sec"] * 1e3
+                                                for r in res[1:]]))}
+        bit = _same(rows["graphed"]["mels"], rows["eager"]["mels"])
+        same_stats = rows["graphed"]["per_call"] == rows["eager"]["per_call"]
+        log(f"[parallel] 1 rank over {dist.get_backend()}, sharded "
+            f"{name} serving (batch 2, durations given): graphed (the "
+            f"gather's all-reduce captured) vs eager mels bit-equal {bit}; "
+            f"Mesh.stats a call {rows['graphed']['per_call']} vs "
+            f"{rows['eager']['per_call']}; synth_batch ms (median of 5 "
+            f"after one) graphed {rows['graphed']['ms']:.3f} vs eager "
+            f"{rows['eager']['ms']:.3f}; graphs {len(g.graphs.entries)} on "
+            f"{kind} | {smi}")
+        if not (bit and same_stats and g.graphs.entries):
+            raise RuntimeError(f"parallel NCCL serving {name}: graphed "
+                               f"differs from eager")
+        out[f"serve_{name}"] = {k: {"per_call": v["per_call"], "ms": v["ms"]}
+                                for k, v in rows.items()}
+    out["launches"] = launches
+    log("[parallel] " + json.dumps({"nccl": {k: v for k, v in out.items()
+                                             if k != "launches"},
+                                    "device": smi}))
+    return out
+
+
+def nccl_bf16_timing(smi, kind, mesh, dev, timed=4):
+    """The steps a user of ``fcl_train --n-devices`` runs, on the NCCL
+    mesh: FCL-taco2-T (bf16, published dropouts, classes 8,16,32,50) and
+    the KD step (remat on and off) on the bench batch, graphed and eager
+    (``graphed=False``), TF32 as the run leaves it: ms a step by CUDA
+    events, median of ``timed`` after the capture (graphed) or one step
+    (eager), beside ``[train]``'s and ``[kd]``'s single-process steps."""
+    import torch.distributed as dist
+    from fcl_taco2_tpu_torch.models import (Tacotron2SA, student_config,
+                                            teacher_config)
+    from fcl_taco2_tpu_torch.models.kd import KDStudent
+    from fcl_taco2_tpu_torch.parallel import _mp_worker as W
+    from fcl_taco2_tpu_torch.train.optim import build_optimizer
+    from fcl_taco2_tpu_torch.train.state import TrainState
+    from fcl_taco2_tpu_torch.train.step import (make_kd_train_step,
+                                                make_train_step,
+                                                step_generator)
+    kw = dict(odim=ODIM, duration_classes=DURATION_CLASSES)
+    batch = W._upload(mesh, W._bench_batch(), dev)
+    rows = {}
+    for name in ("teacher", "kd_remat_on", "kd_remat_off"):
+        for graphed in (False, True):
+            tx = build_optimizer(name="adam", lr=1e-3, grad_clip=1.0)
+            if name == "teacher":
+                model = Tacotron2SA(teacher_config(IDIM, **kw), device=dev,
+                                    seed=0)
+                step = make_train_step(tx, mesh=mesh, graphed=graphed)
+            else:
+                scfg = student_config(IDIM, remat_decoder=name.endswith(
+                    "on"), **kw)
+                kd = KDStudent(scfg, teacher_config(IDIM, **kw), device=dev,
+                               seed=0)
+                model = kd.student
+                step = make_kd_train_step(kd, tx, mesh, graphed=graphed)
+            names, ps = zip(*model.named_parameters())
+            ts = TrainState(model, tx.init(ps, names), 0, tx)
+            step.prepare(ts, batch, step_generator(0, 0, dev))
+            if not graphed:
+                ts, _ = step(ts, batch, step_generator(0, ts.step, dev))
+            times = []
+            for _ in range(timed):
+                e0, e1 = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                e0.record()
+                ts, _ = step(ts, batch, step_generator(0, ts.step, dev))
+                e1.record()
+                e1.synchronize()
+                times.append(e0.elapsed_time(e1))
+            rows.setdefault(name, {})["graphed" if graphed else "eager"] = {
+                "ms": float(np.median(times)), "capture_s": step.capture_s}
+            del model, step, ts
+        r = rows[name]
+        log(f"[parallel] 1 rank over {dist.get_backend()}, {name} bf16 "
+            f"step on the bench batch (B=16, published dropouts): graphed "
+            f"{r['graphed']['ms']:.2f} ms vs eager {r['eager']['ms']:.2f} "
+            f"ms (CUDA events, median of {timed}); capture "
+            f"{r['graphed']['capture_s']:.2f} s on {kind} | {smi}")
+    return rows
 
 
 def speaking_student(student, root):

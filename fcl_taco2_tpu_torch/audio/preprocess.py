@@ -37,8 +37,9 @@ import torch
 from fcl_taco2_tpu_torch.audio.textgrid import get_tier, read_textgrid
 from fcl_taco2_tpu_torch.ops.f0 import yin_f0
 from fcl_taco2_tpu_torch.ops.stft import (energy_from_mag, mel_filterbank,
-                                          mel_from_mag, stft_mag)
+                                          mel_from_mag, stft_mag, stft_window)
 from fcl_taco2_tpu_torch.utils.device import resolve_device
+from fcl_taco2_tpu_torch.utils.graphs import Graphed
 
 SIL_PHONES = ("sil", "sp", "spn")
 
@@ -146,9 +147,13 @@ class Frontend:
     buffer), one call of the feature math and one readback (the three
     features packed in one device buffer, copied to pinned memory without
     a sync); the host prepares the next bucket while the device works, and
-    at most two buckets are in flight.  ``bucket_stats`` lists each
-    bucket's rows, samples a row and, on the card, its device ms (CUDA
-    events around the feature math)."""
+    at most two buckets are in flight.  On the card the feature math of a
+    bucket shape ``(rows, samples)`` is one CUDA graph (``utils/graphs.py``;
+    STFT, mel product, energy and YIN), as JAX jits it per bucket
+    (``audio/preprocess.py:133-164``); ``graphed = False`` runs it eagerly.
+    ``bucket_stats`` lists each bucket's rows, samples a row and, on the
+    card, its device ms (CUDA events on the two sides of the replay, the
+    upload into the graph's buffer included)."""
 
     def __init__(self, cfg: PreprocessConfig, device="cuda"):
         self.cfg = cfg
@@ -156,7 +161,10 @@ class Frontend:
         self.basis = torch.from_numpy(mel_filterbank(
             cfg.set_fs, cfg.n_fft, cfg.n_mels, cfg.fmin, cfg.fmax)).to(
                 self.device)
+        self.window = stft_window(cfg.n_fft, cfg.win_length, self.device)
         self.bucket_stats = []
+        self.graphs = Graphed(self._bucket, self.device, "frontend")
+        self.graphed = self.device.type == "cuda"
 
     def features(self, x_stft, x_raw):
         """(R, L + n_fft) per-utterance reflect-padded rows and (R, L) raw
@@ -168,12 +176,21 @@ class Frontend:
         would corrupt the last ~2 frames); the YIN rows are the
         zero-bucketed raw wavs, reflect-padded inside ``yin_f0``."""
         cfg = self.cfg
-        mag = stft_mag(x_stft, cfg.n_fft, cfg.n_shift,
-                       cfg.win_length or cfg.n_fft, center=False)
+        mag = stft_mag(x_stft, cfg.n_fft, cfg.n_shift, window=self.window,
+                       center=False)
         mel = mel_from_mag(mag, self.basis)
         en = energy_from_mag(mag)
         f0 = yin_f0(x_raw, cfg.set_fs, cfg.n_shift, device=self.device)
         return mel, f0, en
+
+    def _bucket(self, inputs, gen):
+        """One bucket's packed rows -> its packed features (R, T*M + 2T):
+        the graph's body."""
+        rows, R, max_len = inputs
+        Ls = max_len + 2 * (self.cfg.n_fft // 2)
+        mel, f0, en = self.features(rows[:R * Ls].view(R, Ls),
+                                    rows[R * Ls:].view(R, max_len))
+        return torch.cat([mel.reshape(R, -1), f0, en], dim=1)
 
     def _buckets(self, wavs):
         """Greedy length-bucketed batching: rows padded to the bucket's
@@ -208,20 +225,25 @@ class Frontend:
             w = wavs[j]
             batch_stft[r, :len(w) + 2 * pad] = np.pad(w, pad, mode="reflect")
             batch_raw[r, :len(w)] = w
-        dev = host.to(self.device, non_blocking=True)
+        inputs = (host, R, max_len)
+        if self.graphed:
+            self.graphs.prepare(None, inputs)  # a new shape: capture first
         events = None
         if on_cuda:
             events = (torch.cuda.Event(enable_timing=True),
                       torch.cuda.Event(enable_timing=True))
             events[0].record()
-        mel, f0, en = self.features(dev[:R * Ls].view(R, Ls),
-                                    dev[R * Ls:].view(R, max_len))
-        T = mel.shape[1]
-        packed = torch.cat([mel.reshape(R, -1), f0, en], dim=1)
+        if self.graphed:
+            packed = self.graphs(None, inputs)
+        else:
+            packed = self._bucket(
+                (host.to(self.device, non_blocking=True), R, max_len), None)
+        if on_cuda:
+            events[1].record()
+        T = 1 + max_len // cfg.n_shift
         out = torch.empty(packed.shape, dtype=torch.float32,
                           pin_memory=on_cuda)
         if on_cuda:
-            events[1].record()
             out.copy_(packed, non_blocking=True)
             done = torch.cuda.Event()
             done.record()

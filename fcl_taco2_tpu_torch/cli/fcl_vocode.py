@@ -7,9 +7,12 @@ plus ``--device``.
         --outdir WAVS [--checkpoint PWG.pkl] [--device cpu]
 
 On the card each utterance is one launch of the streaming PWG kernel
-(``vocoder/pwg_cuda.py``); on the CPU the exact chunked conv graph runs.
-Without ``--checkpoint`` the vocoder has seeded random weights (smoke runs
-only).  Raises when no card is present unless ``--device cpu`` is given.
+(``vocoder/pwg_cuda.py``), and its vocode (the noise draw, the upsampler
+and the kernel) is one CUDA graph per ``FRAME_BUCKET`` length
+(``BucketVocoder``), as JAX jits it per bucket (``fcl_vocode.py:60-79``);
+on the CPU the exact chunked conv graph runs eagerly.  Without
+``--checkpoint`` the vocoder has seeded random weights (smoke runs only).
+Raises when no card is present unless ``--device cpu`` is given.
 """
 
 import argparse
@@ -31,6 +34,16 @@ def write_wav(path, x, sr):
         w.writeframes(pcm.tobytes())
 
 
+def _bucketed(mel):
+    """(T, aux) mel -> (1, Tb, aux) fp32 numpy, zero-padded to a multiple
+    ``Tb`` of ``FRAME_BUCKET`` frames (``fcl_vocode.py:66-70``)."""
+    T = mel.shape[0]
+    mel_p = np.zeros((1, -(-T // FRAME_BUCKET) * FRAME_BUCKET, mel.shape[1]),
+                     np.float32)
+    mel_p[0, :T] = mel
+    return mel_p
+
+
 def vocode_utterance(pwg, cfg, mel, noise, backend="auto", packed=None):
     """One utterance's mel (T, aux) -> wav (T * hop,) fp32 numpy
     (``fcl_vocode.py:66-79``): the mel is zero-padded to a multiple of
@@ -41,14 +54,46 @@ def vocode_utterance(pwg, cfg, mel, noise, backend="auto", packed=None):
     from fcl_taco2_tpu_torch.vocoder.pwg_cuda import vocode
 
     dev = pwg.device
-    T = mel.shape[0]
-    Tb = -(-T // FRAME_BUCKET) * FRAME_BUCKET
-    mel_p = torch.zeros(1, Tb, mel.shape[1], device=dev)
-    mel_p[0, :T] = torch.as_tensor(np.asarray(mel, np.float32), device=dev)
+    mel_p = torch.from_numpy(_bucketed(mel)).to(dev)
     noise = torch.as_tensor(noise, dtype=torch.float32, device=dev)
-    noise = noise.reshape(-1)[:Tb * cfg.hop][None]
+    noise = noise.reshape(-1)[:mel_p.shape[1] * cfg.hop][None]
     wav = vocode(pwg, cfg, mel_p, noise, backend=backend, packed=packed)
-    return wav[0, :T * cfg.hop].cpu().numpy()
+    return wav[0, :mel.shape[0] * cfg.hop].cpu().numpy()
+
+
+class BucketVocoder:
+    """``vocode_utterance`` with the noise drawn from a generator: on the
+    card one CUDA graph per padded length (``utils/graphs.py``), whose
+    replay draws ``Tb * hop`` samples of noise from the caller's generator
+    at its state, as the eager call draws them; eagerly on the CPU.
+    ``graphed = False`` keeps the card eager."""
+
+    def __init__(self, pwg, cfg, backend="auto", packed=None):
+        from fcl_taco2_tpu_torch.utils.graphs import Graphed
+        self.pwg, self.cfg = pwg, cfg
+        self.backend, self.packed = backend, packed
+        self.graphs = Graphed(self._body, pwg.device, "vocode")
+        self.graphed = pwg.device.type == "cuda"
+
+    def _body(self, mel_p, gen):
+        import torch
+
+        from fcl_taco2_tpu_torch.vocoder.pwg_cuda import vocode
+        noise = torch.randn(mel_p.shape[1] * self.cfg.hop, generator=gen,
+                            device=gen.device)
+        return vocode(self.pwg, self.cfg, mel_p, noise[None],
+                      backend=self.backend, packed=self.packed)
+
+    def __call__(self, mel, gen):
+        """(T, aux) mel -> (T * hop,) fp32 numpy wav, as
+        ``vocode_utterance``."""
+        import torch
+        mel_p = torch.from_numpy(_bucketed(mel))
+        if self.graphed:
+            wav = self.graphs(None, mel_p, gen)
+        else:
+            wav = self._body(mel_p.to(self.pwg.device), gen)
+        return wav[0, :mel.shape[0] * self.cfg.hop].cpu().numpy()
 
 
 def main(argv=None):
@@ -84,7 +129,9 @@ def main(argv=None):
     else:
         print("WARNING: no --checkpoint; using random weights (noise out)")
         pwg = ParallelWaveGAN(cfg, device=args.device, seed=args.seed)
-    packed = pack_pwg_weights(pwg, cfg)  # once, for every utterance
+    # the operands packed once, for every utterance
+    vocoder = BucketVocoder(pwg, cfg, backend=args.backend,
+                            packed=pack_pwg_weights(pwg, cfg))
     gen = torch.Generator(device=pwg.device)
     gen.manual_seed(args.seed)
 
@@ -92,11 +139,7 @@ def main(argv=None):
     with open(args.feats_scp) as f:
         entries = [line.split() for line in f.read().splitlines()]
     for uttid, pointer in entries:
-        mel = read_ark_matrix(pointer)
-        Tb = -(-mel.shape[0] // FRAME_BUCKET) * FRAME_BUCKET
-        noise = torch.randn(Tb * cfg.hop, generator=gen, device=pwg.device)
-        wav = vocode_utterance(pwg, cfg, mel, noise, backend=args.backend,
-                               packed=packed)
+        wav = vocoder(read_ark_matrix(pointer), gen)
         write_wav(os.path.join(args.outdir, f"{uttid}.wav"), wav,
                   args.sample_rate)
     print(f"vocoded {len(entries)} utts -> {args.outdir}")

@@ -21,8 +21,6 @@ import time
 
 import torch
 
-from fcl_taco2_tpu_torch.ops.masking import GlobalCounts
-
 
 class PrefetchLoader:
     """Iterate device-ready batches with background convert + transfer.
@@ -109,9 +107,9 @@ class PrefetchLoader:
 
 def _map_batch(fn, tree):
     """Apply ``fn`` to every array of a tree: a ``Batch`` (and its
-    classes), an array, or a tuple / list of them; strings (tags), None
-    and a share's host-side ``GlobalCounts`` pass through."""
-    if tree is None or isinstance(tree, (str, GlobalCounts)):
+    classes; a share's ``counts`` vector too), an array, or a tuple / list
+    of them; strings (tags) and None pass through."""
+    if tree is None or isinstance(tree, str):
         return tree
     if hasattr(tree, "_asdict"):  # Batch, SegClass
         return type(tree)(*[_map_batch(fn, x) for x in tree])

@@ -3,12 +3,13 @@
 
 ``TTSPipeline.tts_batch`` runs synthesize and the vocoder as one device
 pipeline; on the card the vocoder is the streaming kernel
-(``vocoder/pwg_cuda.py``), and the seed draw, the noise draw and
+(``vocoder/pwg_cuda.py``), and the decode's draws, the noise draw and
 ``synth_vocode`` (the body of JAX's jitted ``fn``, pipeline.py:58-84) are
 one CUDA graph per ``(B, Tmax, budget)`` (``utils/graphs.py``), captured
 by the call's untimed warm-up.  ``vocode_chunked`` vocodes a mel stream in
 chunks with receptive-field context, edge-exact against the whole
-utterance.
+utterance; on the card each chunk shape is one CUDA graph, as JAX jits
+its ``pwg_generate`` (pipeline.py:127).
 """
 
 import copy
@@ -21,7 +22,7 @@ import torch
 from fcl_taco2_tpu_torch.models.taco2_sa import _generator
 from fcl_taco2_tpu_torch.ops.decoder_cuda import maybe_prequantize
 from fcl_taco2_tpu_torch.utils.device import resolve_device
-from fcl_taco2_tpu_torch.utils.graphs import Graphed, say_once
+from fcl_taco2_tpu_torch.utils.graphs import Graphed
 from fcl_taco2_tpu_torch.vocoder.pwg import PWGConfig, pwg_generate
 from fcl_taco2_tpu_torch.vocoder.pwg_cuda import pack_pwg_weights, vocode
 
@@ -77,10 +78,6 @@ class TTSPipeline:
         self._seen = set()
         self.graphs = Graphed(self._graph_body, self.device, "tts_batch")
         self.graphed = self.device.type == "cuda"
-        if self.graphed and self.model.decode_route() == "scan":
-            self.graphed = False
-            say_once("TTSPipeline: this config decodes with the scan, which "
-                     "reads its step bound on the host; running eagerly")
 
     def synth_vocode(self, tokens, ilens, rng, budget, noise,
                      durations=None):
@@ -104,22 +101,21 @@ class TTSPipeline:
         return wav.float(), out["olens"] * hop, out["olens"]
 
     def _graph_body(self, inputs, gen):
-        """The seed draw, the noise draw and ``synth_vocode``: the decode's
-        seed stays on the device (the kernels read it there)."""
+        """The noise draw and ``synth_vocode``, whose decode draws from
+        ``gen`` after it (the kernels' seed, kept on the device, or the
+        scan's prenet masks)."""
         tokens, ilens, durs, budget = inputs
-        seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=gen,
-                             device=gen.device).to(torch.int32)
         noise = torch.randn(tokens.shape[0], budget * self.pwg_cfg.hop,
                             generator=gen, device=gen.device)
-        return self.synth_vocode(tokens, ilens, seed, budget, noise,
+        return self.synth_vocode(tokens, ilens, gen, budget, noise,
                                  durations=durs)
 
     def tts_batch(self, token_lists: List[np.ndarray], rng,
                   frame_per_token=16,
                   durations: Optional[List[np.ndarray]] = None):
         """Batched text->wav; returns (wavs, stats with RTF).  ``rng``: int
-        seed or ``torch.Generator`` on the device; the vocoder's noise is
-        drawn from it on the device after the decode's seed.
+        seed or ``torch.Generator`` on the device; the vocoder's noise and
+        then the decode's dropout are drawn from it on the device.
         ``durations``: optional per-utterance frame counts (the port's
         addition, as ``Synthesizer.synth_batch`` takes them); the budget
         stays ``Tmax * frame_per_token`` and the whole budget is vocoded,
@@ -170,24 +166,30 @@ class TTSPipeline:
 
 @torch.no_grad()
 def vocode_chunked(pwg, pwg_cfg: PWGConfig, mel, noise, chunk_frames=64,
-                   context_frames=None):
+                   context_frames=None, graphed=True):
     """Vocode a (T, n_mels) mel in chunks with receptive-field context.
 
     Yields wav chunks of chunk_frames*hop samples (numpy); concatenated
     output matches full-utterance vocoding in the interior of each chunk.
     ``mel`` and ``noise`` are numpy or tensors; they run on ``pwg``'s
-    device."""
+    device.  On the card each chunk shape is one CUDA graph of
+    ``pwg_generate`` (the interior chunks share one), made for the call as
+    JAX jits it for the call (pipeline.py:127); ``graphed=False`` runs the
+    chunks eagerly."""
     hop = pwg_cfg.hop
     if context_frames is None:
         context_frames = -(-pwg_receptive_field(pwg_cfg) // hop) + 1
     dev = pwg.device
     mel = torch.as_tensor(mel, dtype=torch.float32, device=dev)
     noise = torch.as_tensor(noise, dtype=torch.float32, device=dev)
+    graphs = Graphed(lambda x, _: pwg_generate(pwg, pwg_cfg, x[0], x[1]),
+                     dev, "vocode_chunked")
     T = mel.shape[0]
     for start in range(0, T, chunk_frames):
         end = min(start + chunk_frames, T)
         a = max(0, start - context_frames)
         b = min(T, end + context_frames)
-        wav = pwg_generate(pwg, pwg_cfg, mel[a:b][None],
-                           noise[a * hop:b * hop][None])[0]
+        inputs = (mel[a:b][None], noise[a * hop:b * hop][None])
+        wav = (graphs(None, inputs) if graphed
+               else graphs.fn(inputs, None))[0]
         yield wav[(start - a) * hop:(end - a) * hop].cpu().numpy()

@@ -29,8 +29,8 @@ their windows at device offsets and pass the vocoder its stream position
 as a device tensor, so a replay runs at the position written before it;
 the decode's kernel seed and the vocoder noise are drawn inside the
 stages from the stream's generator, in the host's fixed order, so a
-graphed stream and an eager one draw the same bits.  A decode on the scan
-route stays eager (it reads its step bound on the host) and says so once.
+graphed stream and an eager one draw the same bits.  Every decoder route
+is graphed (the scan's loop runs to the static step count).
 """
 
 import copy
@@ -44,7 +44,7 @@ from fcl_taco2_tpu_torch.ops.conv import conv1d
 from fcl_taco2_tpu_torch.ops.decoder_cuda import (maybe_prequantize,
                                                   tile_step_bounds)
 from fcl_taco2_tpu_torch.utils.device import resolve_device
-from fcl_taco2_tpu_torch.utils.graphs import Graphed, say_once
+from fcl_taco2_tpu_torch.utils.graphs import Graphed
 from fcl_taco2_tpu_torch.vocoder.pwg import PWGConfig, _smooth
 from fcl_taco2_tpu_torch.vocoder.pwg_cuda import (_round8, pack_pwg_weights,
                                                   pwg_stream_state,
@@ -126,14 +126,7 @@ class StreamTTS:
                   "vocode": self._vocode_step}
         self.graphs = {k: Graphed(fn, self.device, f"stream.{k}")
                        for k, fn in stages.items()}
-        self.eager = set()
-        if self.device.type != "cuda":
-            self.eager = set(stages)
-        elif self.model.decode_route(decoder_backend) in ("scan", "hybrid"):
-            self.eager.add("decode")
-            say_once(f"StreamTTS: decoder_backend={decoder_backend!r} "
-                     "decodes with the scan, which reads its step bound "
-                     "on the host; the decode stage runs eagerly")
+        self.eager = set() if self.device.type == "cuda" else set(stages)
 
     def _stage(self, name, inputs, gen):
         """Run a stage: a graph replay on the card, eagerly otherwise."""

@@ -13,10 +13,11 @@ Compiled as in JAX (``synth.py:111-171``): on the card the whole
 use_dur)`` (``utils/graphs.py``), captured before the batch's timed
 window starts, as JAX's compile is; ``d_factor`` is an input, not part of
 the key.  A replay draws from the caller's generator at its state, so the
-exact re-dispatch from the saved state draws the same dropout.  The scan
-and ``hybrid`` decoder routes and sharded serving stay eager (each says
-why once): the first two read their step bound on the host, and gloo's
-collectives cannot be captured.
+exact re-dispatch from the saved state draws the same dropout.  Every
+decoder route is graphed (the scan and ``hybrid`` run their loops to the
+static step count, ``models/decoder.py``).  Sharded serving over NCCL is
+graphed with its gather's all-reduce inside each rank's graph; over gloo,
+whose collectives cannot be captured, it stays eager (said once).
 
 Sharded serving (``mesh``, ``synth.py:92-164``): every rank gets the same
 utterances, runs the whole ``synthesize`` on its contiguous share of the
@@ -40,8 +41,9 @@ import torch
 from fcl_taco2_tpu_torch.infer.ark import ArkScpWriter
 from fcl_taco2_tpu_torch.ops.decoder_cuda import maybe_prequantize
 from fcl_taco2_tpu_torch.ops.rnn import step_seed
+from fcl_taco2_tpu_torch.parallel.mesh import capture_plan
 from fcl_taco2_tpu_torch.utils.device import resolve_device
-from fcl_taco2_tpu_torch.utils.graphs import Graphed, say_once
+from fcl_taco2_tpu_torch.utils.graphs import Graphed
 
 
 def _round_up(x, mult):
@@ -77,24 +79,16 @@ class Synthesizer:
         self.tok_bucket = tok_bucket
         self.frame_per_token = frame_per_token
         self.frame_bucket = frame_bucket
-        self.graphs = Graphed(self._graph_body, self.device, "synthesize")
-        self.graphed = self.device.type == "cuda"
-        route = self.model.decode_route(decoder_backend) if self.graphed \
-            else None
-        if self.graphed and self.mesh is not None:
-            self.graphed = False
-            say_once("Synthesizer: sharded serving runs eagerly (gloo's "
-                     "collectives cannot be captured in a CUDA graph)")
-        elif route in ("scan", "hybrid"):
-            self.graphed = False
-            say_once(f"Synthesizer: decoder_backend={decoder_backend!r} "
-                     f"runs the {route} decode eagerly (it reads its step "
-                     "bound on the host to cut its loop short)")
+        ok, mesh = capture_plan(self.mesh, "Synthesizer (sharded serving)") \
+            if self.device.type == "cuda" else (False, None)
+        self.graphs = Graphed(self._graph_body, self.device, "synthesize",
+                              mesh=mesh)
+        self.graphed = ok
 
     def _graph_body(self, inputs, gen):
         tokens, ilens, durs, d_factor, use_dur, budget = inputs
-        return self._synthesize(tokens, ilens, durs, use_dur, gen, budget,
-                                d_factor)
+        return self._sharded(tokens, ilens, durs, use_dur, gen, budget,
+                             d_factor)
 
     def _inputs(self, tokens, ilens, durs, use_dur, budget, d_factor):
         return (tokens, ilens, durs,
@@ -114,6 +108,12 @@ class Synthesizer:
         if self.graphed:
             return self.graphs(None, self._inputs(
                 tokens, ilens, durs, use_dur, budget, d_factor), gen)
+        return self._sharded(tokens, ilens, durs, use_dur, gen, budget,
+                             d_factor)
+
+    def _sharded(self, tokens, ilens, durs, use_dur, gen, budget, d_factor):
+        """``synthesize`` of the batch; on a mesh of this rank's rows, the
+        outputs gathered from every rank."""
         if self.mesh is None:
             return self._synthesize(tokens, ilens, durs, use_dur, gen,
                                     budget, d_factor)

@@ -102,19 +102,46 @@ def _unfold_r(outs_steps, P, S, odim, r):
     return seg.transpose(2, 3).reshape(P, S * r, odim)
 
 
+def _prenet_draws(decoder, cfg, S, P, device, generator):
+    """The prenet dropout's uniform draws for all ``S`` steps up front, one
+    (S, P, units) tensor a layer, as JAX splits ``S`` keys up front
+    (``decoder.py:413``): the generator's state after a decode does not
+    depend on how many steps its bound lets run."""
+    if decoder.prenet is None or cfg.dropout_rate <= 0.0:
+        return None
+    return [torch.rand((S, P, lay.out_features), generator=generator,
+                       device=device) for lay in decoder.prenet.layers]
+
+
+def _prenet_step(decoder, x, draws, s, rate):
+    """The prenet at step ``s`` with its dropout masks from ``draws``
+    (``components.py::prenet_dropout``'s rule: keep below 1 - rate)."""
+    for i, layer in enumerate(decoder.prenet.layers):
+        x = F.relu(layer(x))
+        if draws is not None:
+            x = torch.where(draws[i][s] < 1.0 - rate, x / (1.0 - rate),
+                            torch.zeros_like(x))
+    return x
+
+
 def decoder_inference(decoder, cfg, enc_seg, seg_dur, position, frame_mask,
                       generator, step_bound=None):
     """Autoregressive synthesis over the phoneme batch, eval mode
     (``decoder.py:389-461``).  Prenet dropout stays active and draws from
-    ``generator``.  ``step_bound`` (the batch's max duration in frames)
-    stops the loop after ceil(step_bound / r) steps; later frames stay
-    zero.  Returns seg_out (P, D, odim) before the postnet."""
+    ``generator``, every step's masks up front.  ``step_bound`` (the
+    batch's max duration in frames, a tensor on the device): the steps
+    from ceil(step_bound / r) on come back exactly zero, as JAX's traced
+    bound leaves them.  The loop runs to the static ``S = max_dur / r``
+    whatever the bound, so nothing is read on the host and a CUDA graph
+    captures it (``infer/synth.py``).  Returns seg_out (P, D, odim)
+    before the postnet."""
     del seg_dur  # durations reach the loop through frame_mask/step_bound
     P, D = frame_mask.shape
     r = cfg.reduction_factor
     S = D // r
     dtype = enc_seg.dtype
     odim = cfg.odim
+    draws = _prenet_draws(decoder, cfg, S, P, enc_seg.device, generator)
 
     # hoisted step-invariant GEMMs: enc's layer-0 gate contribution and
     # enc's feat_out half
@@ -123,15 +150,12 @@ def decoder_inference(decoder, cfg, enc_seg, seg_dur, position, frame_mask,
     wf_z, wf_enc = _split_feat_out(decoder, cfg)
     enc_out = F.linear(enc_seg, wf_enc) if wf_enc is not None else None
 
-    n_steps = S
-    if step_bound is not None:
-        n_steps = min((int(step_bound) + r - 1) // r, S)
     carry = [enc_seg.new_zeros(P, cfg.dunits) for _ in range(2 * cfg.dlayers)]
     prev = enc_seg.new_zeros(P, odim)
     outs = enc_seg.new_zeros(S, P, decoder.feat_out.weight.shape[0])
-    for s in range(n_steps):
-        x = prev if decoder.prenet is None else C.prenet_apply(
-            decoder.prenet, prev, generator, cfg.dropout_rate)
+    for s in range(S):
+        x = prev if decoder.prenet is None else _prenet_step(
+            decoder, prev, draws, s, cfg.dropout_rate)
         xproj = enc_gates + F.linear(x, w_pre)
         if cfg.append_position:
             xproj = xproj + position[:, s, None] * w_pos
@@ -151,6 +175,11 @@ def decoder_inference(decoder, cfg, enc_seg, seg_dur, position, frame_mask,
         outs[s] = out_t
         # AR feedback: last sub-frame of the group (decoder_sa.py:617)
         prev = out_t if r == 1 else out_t.reshape(P, odim, r)[..., -1]
+    if step_bound is not None:
+        n_steps = torch.clamp(torch.div(step_bound + r - 1, r,
+                                        rounding_mode="floor"), max=S)
+        live = torch.arange(S, device=outs.device) < n_steps
+        outs = torch.where(live[:, None, None], outs, torch.zeros_like(outs))
     seg_out = _unfold_r(outs, P, S, odim, r)
     return seg_out * frame_mask[..., None].to(dtype)
 

@@ -27,7 +27,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from fcl_taco2_tpu_torch.models.taco2_sa import Tacotron2SA
-from fcl_taco2_tpu_torch.ops.masking import (lengths_to_non_pad_mask,
+from fcl_taco2_tpu_torch.ops.masking import (N_VALID, TOKENS, count_frames,
+                                             lengths_to_non_pad_mask,
                                              masked_l1, masked_mse,
                                              weighted_l1, weighted_mse)
 from fcl_taco2_tpu_torch.utils.initializers import init_linears_
@@ -152,8 +153,8 @@ class KDStudent:
         out_mask = lengths_to_non_pad_mask(batch.olens, Lmax)[..., None]
         # a rank's share of a global batch divides by the global counts
         g = batch.counts
-        n_in = None if g is None else g.tokens
-        n_out = None if g is None else g.frames()
+        n_in = None if g is None else g[TOKENS]
+        n_out = None if g is None else count_frames(g)
         terms = {}
 
         if self.distill_output:
@@ -165,7 +166,7 @@ class KDStudent:
                 # reference (…_kd_student.py:72-80); the knowledge terms
                 # stay masked means (kd.py:141-155)
                 n_valid = torch.sum(batch.olens > 0).float() \
-                    if g is None else g.n_valid
+                    if g is None else g[N_VALID]
                 terms["output_l1_loss"] = (
                     weighted_l1(sa, ta, out_mask, n_valid)
                     + weighted_l1(sb, tb, out_mask, n_valid))

@@ -22,7 +22,9 @@ from fcl_taco2_tpu_torch.models.decoder import (
     decoder_teacher_forced, decoder_teacher_forced_classed)
 from fcl_taco2_tpu_torch.models.encoder import Encoder, encoder_apply
 from fcl_taco2_tpu_torch.ops import decoder_cuda as K
-from fcl_taco2_tpu_torch.ops.masking import (lengths_to_non_pad_mask,
+from fcl_taco2_tpu_torch.ops.masking import (N_UTTS, N_VALID, TOKENS,
+                                             count_frames,
+                                             lengths_to_non_pad_mask,
                                              lengths_to_pad_mask, masked_l1,
                                              masked_mse, weighted_l1,
                                              weighted_mse)
@@ -91,7 +93,8 @@ class Batch(NamedTuple):
     spembs: Any = None  # optional (B, spk_embed_dim)
     seg_classes: Any = None  # optional tuple of SegClass
     # a rank's share of a global batch: the global batch's denominators
-    # (ops/masking.py::GlobalCounts, host numbers; parallel/distributed.py)
+    # (ops/masking.py::global_counts, one float32 vector;
+    # parallel/distributed.py)
     counts: Any = None
 
 
@@ -357,15 +360,16 @@ class Tacotron2SA(nn.Module):
                 olens_r = batch.olens - batch.olens % cfg.reduction_factor
                 out_mask = out_mask & lengths_to_non_pad_mask(
                     olens_r, batch.mel.shape[1])[..., None]
-            n_out = None if g is None else g.frames(cfg.reduction_factor)
+            n_out = None if g is None else count_frames(
+                g, cfg.reduction_factor)
         else:
             out_mask = None  # plain means over the padded buffers
-            n_out = None if g is None else g.n_utts
+            n_out = None if g is None else g[N_UTTS]
         in_mask = ~pad_mask
-        n_in = None if g is None else g.tokens
+        n_in = None if g is None else g[TOKENS]
         if cfg.use_weighted_masking:
             n_valid = torch.sum(batch.olens > 0).float() if g is None \
-                else g.n_valid
+                else g[N_VALID]
             l1 = weighted_l1(after, mel32, out_mask, n_valid) + \
                 weighted_l1(before, mel32, out_mask, n_valid)
             mse = weighted_mse(after, mel32, out_mask, n_valid) + \
@@ -394,7 +398,7 @@ class Tacotron2SA(nn.Module):
             else:
                 fe_mask = in_mask[..., None] if cfg.use_masking else None
                 n_fe = n_in if cfg.use_masking \
-                    else None if g is None else g.n_utts
+                    else None if g is None else g[N_UTTS]
                 pitch = masked_mse(p_outs.float(), f0, fe_mask, n_fe)
                 energy = masked_mse(e_outs.float(), en, fe_mask, n_fe)
             loss = loss + pitch + energy
@@ -471,10 +475,11 @@ class Tacotron2SA(nn.Module):
         Returns dict(mel=(B, frame_budget, odim) f32, olens, d_outs,
         p_outs, e_outs).
 
-        On the kernel routes nothing here reads the device from the host
-        and every shape is static, so a CUDA graph captures the whole call
-        (``infer/synth.py``); the scan and ``hybrid`` read the step bound
-        on the host to cut their loops short.
+        Nothing here reads the device from the host and every shape is
+        static, on every decoder route (the scan and ``hybrid`` run their
+        loops to the static step count, frames past the bound zero), so a
+        CUDA graph captures the whole call (``infer/synth.py``), given a
+        generator (an int or a seed tensor seeds one on the host).
         """
         m = self.compute_model()
         cfg = self.cfg
@@ -606,9 +611,8 @@ class Tacotron2SA(nn.Module):
     def decode_route(self, decoder_backend="auto", on_cuda=True, P=None):
         """The decoder route ``decode_segments`` takes: "pallas" (the
         resident entry), "pallas_hbm" (the streaming entry), "hybrid" or
-        "scan".  The kernel routes read nothing on the host; the scan and
-        ``hybrid`` read their step bound there.  ``P`` (segments) decides
-        whether ``hybrid`` has more than one tile (unknown: it has)."""
+        "scan".  ``P`` (segments) decides whether ``hybrid`` has more than
+        one tile (unknown: it has)."""
         use_pallas, use_hbm, use_hybrid, _ = self._decode_policy(
             decoder_backend, on_cuda, K.TILE + 1 if P is None else P, True)
         return ("pallas" if use_pallas else "pallas_hbm" if use_hbm

@@ -3,34 +3,43 @@
 
 On a rank of a data-parallel run (``parallel/``) a loss sees only its
 share of the global batch; the reductions then take the global batch's
-counts (``GlobalCounts``, carried by the share as ``Batch.counts``) as
+counts (``global_counts``, carried by the share as ``Batch.counts``) as
 their denominators, so each rank's result is its local sum over the
 global denominator and the ranks' results sum to the global batch's, as
 in JAX, where the loss is one program over the global batch.  Without
 counts they divide by their own, the single-process run unchanged.
 """
 
-import dataclasses
-
+import numpy as np
 import torch
 
+# the entries of a share's counts vector (``global_counts``); every
+# utterance's frame count follows from OLENS on
+N_UTTS, N_VALID, TOKENS, OLENS = 0, 1, 2, 3
 
-@dataclasses.dataclass(frozen=True)
-class GlobalCounts:
-    """The global batch's denominators, as host numbers
-    (``parallel/distributed.py::make_global_batch``): every rank holds the
-    whole global batch on the host, so no collective makes them."""
 
-    n_utts: int     # utterances on the batch axis, padding rows included
-    n_valid: int    # utterances with frames (olens > 0)
-    tokens: int     # valid token positions: the token mask's count
-    olens: tuple    # every utterance's frame count
+def global_counts(olens, ilens):
+    """The global batch's denominators as one float32 vector, made on the
+    host where a rank's share is cut (``parallel/distributed.py::
+    batch_share``: every rank holds the whole global batch there, so no
+    collective makes them): the utterances on the batch axis (padding rows
+    included), those with frames (olens > 0), the valid tokens, then every
+    utterance's frame count.  A tensor on the device, its values are
+    inputs of a CUDA graph, not part of its key: one graph serves every
+    batch of one shape."""
+    olens = np.asarray(olens)
+    head = [len(olens), int((olens > 0).sum()), int(np.asarray(ilens).sum())]
+    return np.concatenate([head, olens]).astype(np.float32)
 
-    def frames(self, reduction_factor=1):
-        """The frame mask's count, each utterance's frames trimmed to a
-        multiple of ``reduction_factor`` as the mel loss trims them."""
-        r = reduction_factor
-        return sum(o - o % r for o in self.olens)
+
+def count_frames(counts, reduction_factor=1):
+    """The frame mask's global count (a 0-d tensor), each utterance's
+    frames trimmed to a multiple of ``reduction_factor`` as the mel loss
+    trims them."""
+    olens = counts[OLENS:]
+    if reduction_factor > 1:
+        olens = olens - torch.remainder(olens, reduction_factor)
+    return torch.sum(olens)
 
 
 def lengths_to_non_pad_mask(lengths, max_len):
@@ -50,18 +59,20 @@ def masked_mean(values, mask, count=None):
     broadcasts against ``values`` and the denominator counts the broadcast
     selection (``masking.py:24-35``: ``masked_select(...).mean()``).
     ``count``: the number of True entries of ``mask`` (before the
-    broadcast) over the global batch, for a rank's share of it."""
+    broadcast) over the global batch, a 0-d tensor, for a rank's share of
+    it."""
     mask_f = torch.broadcast_to(mask, values.shape).to(values.dtype)
     total = torch.sum(values * mask_f)
     if count is None:
         return total / torch.clamp(torch.sum(mask_f), min=1.0)
-    return total / max(count * (values.numel() // mask.numel()), 1)
+    return total / torch.clamp(count * (values.numel() // mask.numel()),
+                               min=1.0)
 
 
 def plain_mean(values, n_utts=None):
     """The unmasked mean over the padded buffer; with ``n_utts`` (the
-    global batch's utterances, for a rank's share of it) the denominator
-    is the global batch's padded size."""
+    global batch's utterances, a 0-d tensor, for a rank's share of it)
+    the denominator is the global batch's padded size."""
     if n_utts is None:
         return torch.mean(values)
     return torch.sum(values) / (values.numel() // values.shape[0] * n_utts)
@@ -72,16 +83,13 @@ def weighted_masked_sum(err, mask, n_valid_utts):
     element weighs ``mask / frames of its utterance``, divided by
     ``n_valid_utts * feat_dim``, then summed.  ``mask`` is (B, T) or
     (B, T, 1), never pre-broadcast over features (the per-utterance count
-    is a frame count).  ``n_valid_utts``: a tensor, or the global batch's
-    count as a number."""
+    is a frame count).  ``n_valid_utts``: a 0-d tensor, this batch's
+    count or the global batch's."""
     mask_f = mask.to(err.dtype)
     per_utt_frames = torch.sum(mask_f, dim=1, keepdim=True)
     feat = err.shape[-1] if err.dim() == 3 else 1
     w = mask_f / torch.clamp(per_utt_frames, min=1.0)
-    if torch.is_tensor(n_valid_utts):
-        n_valid_utts = torch.clamp(n_valid_utts, min=1.0).to(err.dtype)
-    else:  # the global batch's count, a host number
-        n_valid_utts = max(float(n_valid_utts), 1.0)
+    n_valid_utts = torch.clamp(n_valid_utts, min=1.0).to(err.dtype)
     w = w / (n_valid_utts * feat)
     return torch.sum(err * w)
 

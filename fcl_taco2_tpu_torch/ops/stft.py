@@ -98,18 +98,28 @@ def frame_signal(x, frame_length, hop, center=True):
     return x.unfold(-1, frame_length, hop)
 
 
-def stft_mag(x, n_fft=1024, hop=256, win_length=None, center=True):
-    """|STFT| with librosa conventions: (..., N) -> (..., T, 1+n_fft//2).
-
-    T = 1 + len(x)//hop for center=True (espnet stft, preprocess.py:71)."""
+def stft_window(n_fft=1024, win_length=None, device="cpu"):
+    """librosa's fp64 Hann window, zero-padded to ``n_fft``, on
+    ``device``."""
     win_length = win_length or n_fft
     win = hann_window(win_length, np.float64)
     if win_length < n_fft:  # librosa pads the window to n_fft
         lpad = (n_fft - win_length) // 2
         win = np.pad(win, (lpad, n_fft - win_length - lpad))
-    win = torch.from_numpy(win).to(x.device)
+    return torch.from_numpy(win).to(device)
+
+
+def stft_mag(x, n_fft=1024, hop=256, win_length=None, center=True,
+             window=None):
+    """|STFT| with librosa conventions: (..., N) -> (..., T, 1+n_fft//2).
+
+    T = 1 + len(x)//hop for center=True (espnet stft, preprocess.py:71).
+    ``window``: ``stft_window``'s, already on ``x``'s device (a CUDA graph
+    copies nothing from the host)."""
+    if window is None:
+        window = stft_window(n_fft, win_length, x.device)
     frames = frame_signal(x, n_fft, hop, center)
-    spec = torch.fft.rfft(frames.double() * win, n=n_fft, dim=-1)
+    spec = torch.fft.rfft(frames.double() * window, n=n_fft, dim=-1)
     return spec.to(torch.complex64).abs()
 
 

@@ -539,7 +539,9 @@ def main(argv=None):
     t0 = time.perf_counter()
 
     def dp(key, m, **extra):
-        m.timing = True  # synchronized, so the seconds are the card's too
+        # synchronized, so the seconds are the card's too; a graphed step
+        # (NCCL) records its all-reduces in its graph, and cannot
+        m.timing = not m.captures_collectives
         before = dict(m.stats)
         losses, checksum, mid, norms = run_training_steps(
             args.steps, params=params, mesh=m, lr=args.lr, **kw, **extra)

@@ -26,7 +26,7 @@ import torch
 import torch.distributed as dist
 
 from fcl_taco2_tpu_torch.models.taco2_sa import SegClass
-from fcl_taco2_tpu_torch.ops.masking import GlobalCounts
+from fcl_taco2_tpu_torch.ops.masking import global_counts
 
 _LOCAL_HOSTS = ("localhost", "127.0.0.1", "::1")
 
@@ -73,7 +73,11 @@ def initialize(coordinator_address: Optional[str] = None,
     (the default on the CPU; it also carries all_reduce and broadcast of
     CUDA tensors, through the host, for ranks that share a card).
     ``device``: this rank's device, made current when it is a CUDA one
-    with an index."""
+    with an index.  Over NCCL the steps capture their collectives in CUDA
+    graphs, so NCCL's asynchronous error handling is off
+    (``TORCH_NCCL_ASYNC_ERROR_HANDLING=0`` unless the environment sets it),
+    as PyTorch's CUDA-graph notes require before the process group is
+    made."""
     from_env = coordinator_address is None and num_processes is None
     if from_env and not (os.environ.get("MASTER_ADDR")
                          or os.environ.get("WORLD_SIZE")):
@@ -82,6 +86,7 @@ def initialize(coordinator_address: Optional[str] = None,
     backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
     if backend == "nccl":
         _check_nccl(dev, num_processes, coordinator_address)
+        os.environ.setdefault("TORCH_NCCL_ASYNC_ERROR_HANDLING", "0")
     if dev.type == "cuda" and dev.index is not None:
         torch.cuda.set_device(dev)
     if from_env:
@@ -128,7 +133,7 @@ def batch_share(batch, rank, n_ranks):
 
     The share keeps the global ``Tmax`` and ``Lmax`` (the unmasked means
     divide by the padded global size) and carries ``counts``, the global
-    batch's denominators (``ops/masking.py::GlobalCounts``).  Its plan
+    batch's denominators (``ops/masking.py::global_counts``).  Its plan
     holds the global plan's segments of its own utterances, in the
     global plan's classes (segments are utterance-major within a class,
     ``ops/regroup.py``, so they form one contiguous run): ``seg_utt``
@@ -142,11 +147,7 @@ def batch_share(batch, rank, n_ranks):
                          f"{n_ranks} ranks")
     b = B // n_ranks
     lo, hi = rank * b, rank * b + b
-    olens = np.asarray(batch.olens)
-    counts = GlobalCounts(
-        n_utts=B, n_valid=int((olens > 0).sum()),
-        tokens=int(np.asarray(batch.ilens).sum()),
-        olens=tuple(int(o) for o in olens))
+    counts = global_counts(batch.olens, batch.ilens)
     flat = batch.seg_classes is None
     classes = (SegClass(batch.seg_utt, batch.seg_tok, batch.seg_start,
                         batch.frame_mask, batch.position),) if flat \

@@ -34,12 +34,20 @@ What has no counterpart in a one-process-a-card port:
 is a host (the ``n_slices`` help text of ``cli/fcl_train.py``), the data
 group the ranks of one host, and a sum runs within the data group first,
 then across replicas.
+
+Compiled, as JAX compiles the all-reduce into each step's program: over
+NCCL (``captures_collectives``) the steps and sharded serving capture
+their all-reduces in their CUDA graphs (``utils/graphs.py``); gloo's
+collectives run on the host and cannot be captured, so over gloo those
+paths stay eager.
 """
 
 import time
 
 import torch
 import torch.distributed as dist
+
+from fcl_taco2_tpu_torch.utils.graphs import capturing, say_once, tally
 
 DATA_AXIS = "data"        # the ranks of one host
 REPLICA_AXIS = "replica"  # one rank of each host
@@ -54,9 +62,12 @@ class Mesh:
     ``distributed``: the mesh has process groups to reduce over, so it
     runs the data-parallel path (shares with global counts, synchronized
     BatchNorm, summed gradients); a world of one process group does too.
-    ``stats`` accumulates
-    the bytes and seconds of every ``all_reduce_`` (the seconds only when
-    ``timing`` is set: it synchronizes the card).
+    ``stats`` accumulates the calls, bytes and seconds of every
+    ``all_reduce_``: inside a CUDA graph the calls and bytes once per
+    replay, as kernel launches are counted; the seconds only when
+    ``timing`` is set, which synchronizes the card and so is refused
+    inside a capture (time a graphed step with CUDA events around its
+    replay).
     """
 
     def __init__(self, shape, axis_names, rank=0, groups=()):
@@ -74,6 +85,31 @@ class Mesh:
     def distributed(self):
         return bool(self.groups)
 
+    @property
+    def captures_collectives(self):
+        """The mesh reduces over NCCL, whose collectives a CUDA graph
+        captures: its steps and sharded serving run as graphs."""
+        return self.distributed and dist.get_backend() == "nccl"
+
+    def check_same(self, value, what):
+        """Raise unless every rank passes the same int64 ``value`` (one
+        eager all-gather over the world): the ranks are about to capture
+        collectives, and a rank that captured another graph would leave
+        the others waiting in one."""
+        if not self.groups:
+            return
+        dev = torch.device("cuda", torch.cuda.current_device()) \
+            if dist.get_backend() == "nccl" else torch.device("cpu")
+        mine = torch.tensor([value], dtype=torch.int64, device=dev)
+        every = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
+        dist.all_gather(every, mine)
+        values = [int(v) for v in every]
+        if len(set(values)) > 1:
+            raise RuntimeError(
+                f"rank {self.rank}: the ranks would capture different CUDA "
+                f"graphs ({what}; digests by rank {values}); every rank "
+                "must step on shares of one shape")
+
     def __repr__(self):
         return (f"Mesh(shape={self.shape}, axis_names={self.axis_names}, "
                 f"rank={self.rank})")
@@ -84,16 +120,24 @@ class Mesh:
         ``t``."""
         if not self.groups:
             return t
-        if self.timing and t.is_cuda:
+        captured = capturing()
+        if self.timing and captured:
+            raise RuntimeError(
+                "Mesh.timing synchronizes the card, which a CUDA graph "
+                "capture forbids: turn it off and time the graphed step "
+                "with CUDA events around its replay")
+        sync = self.timing and t.is_cuda
+        if sync:
             torch.cuda.synchronize(t.device)
         t0 = time.perf_counter()
         for g in self.groups:
             dist.all_reduce(t, group=g)
-        if self.timing and t.is_cuda:
+        if sync:
             torch.cuda.synchronize(t.device)
-        self.stats["seconds"] += time.perf_counter() - t0
-        self.stats["bytes"] += t.numel() * t.element_size()
-        self.stats["calls"] += 1
+        if not captured:
+            self.stats["seconds"] += time.perf_counter() - t0
+        tally(self.stats, "bytes", t.numel() * t.element_size())
+        tally(self.stats, "calls", 1)
         return t
 
     def all_reduce_list_(self, tensors):
@@ -125,6 +169,20 @@ class Mesh:
         """A module's parameters and buffers from rank ``src``."""
         return self.broadcast_(list(module.parameters())
                                + list(module.buffers()), src)
+
+
+def capture_plan(mesh, what):
+    """How ``what`` (a step, sharded serving) on ``mesh`` runs on the card:
+    (graphed, the mesh whose collectives its graphs capture, or None for
+    one process).  Over gloo it stays eager, and says why once."""
+    if mesh is None or not mesh.distributed:
+        return True, None
+    if mesh.captures_collectives:
+        return True, mesh
+    say_once(f"{what}: multi-rank runs over gloo stay eager (gloo's "
+             "collectives run on the host and cannot be captured in a CUDA "
+             "graph)")
+    return False, None
 
 
 @torch.no_grad()

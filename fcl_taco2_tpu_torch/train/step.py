@@ -26,17 +26,22 @@ gradients and the report values are then summed over the ranks in one
 flat all-reduce, before the non-finite guard and the clip, so every rank
 takes the same decisions and applies the same update, and the
 parameters stay equal without a broadcast.  Each rank draws from its own
-generator (``step_generator(..., rank)``).  The chained step stays
-single-process, as in JAX, and the multi-rank steps stay eager: gloo's
-collectives cannot be captured.
+generator (``step_generator(..., rank)``).  Over NCCL a multi-rank step is
+a CUDA graph too, its all-reduces (the gradient bucket, the reports, the
+synchronized BatchNorm's) captured inside it, as JAX compiles them into
+the step's program (``step.py:58-67``); the ranks check that they capture
+the same batch shape (``utils/graphs.py``).  Over gloo, whose collectives
+run on the host, multi-rank steps stay eager.  The chained step stays
+single-process, as in JAX.
 """
 
 import torch
 
 from fcl_taco2_tpu_torch.ops.conv import synced_batch_norm
 from fcl_taco2_tpu_torch.ops.rnn import step_seed
+from fcl_taco2_tpu_torch.parallel.mesh import capture_plan
 from fcl_taco2_tpu_torch.train.optim import global_norm
-from fcl_taco2_tpu_torch.utils.graphs import Graphed, say_once
+from fcl_taco2_tpu_torch.utils.graphs import Graphed
 
 
 def _sum_over_ranks(mesh, grads, report):
@@ -152,14 +157,6 @@ def _state_tensors(ts):
     return out
 
 
-def _multi_rank(mesh, what):
-    if mesh is not None and mesh.distributed:
-        say_once(f"{what}: multi-rank steps run eagerly (their "
-                 "collectives are not captured: gloo's cannot be)")
-        return True
-    return False
-
-
 class _GraphStats:
     """What a step's captures cost: ``captured``, ``capture_s`` (seconds,
     the warm-ups included) and ``pool_bytes`` (device memory the shared
@@ -204,7 +201,8 @@ class TrainStep(_GraphStats):
         self.loss_fn = loss_fn
         self.mesh = mesh
         self.assemble = assemble
-        self.graphed = graphed and not _multi_rank(mesh, "train step")
+        ok, self._graph_mesh = capture_plan(mesh, "train step")
+        self.graphed = graphed and ok
         self.graphs = None
         self.report_keys = None
         self._ts = None
@@ -229,7 +227,7 @@ class TrainStep(_GraphStats):
             return None
         if self.graphs is None:
             self.graphs = Graphed(self._graph_fn, device, "train_step",
-                                  warmup=self.WARMUP)
+                                  warmup=self.WARMUP, mesh=self._graph_mesh)
         self.tx.counters_on(ts.opt_state, device)
         self._ts = ts
         return self.graphs
@@ -262,7 +260,8 @@ class EvalStep(_GraphStats):
     def __init__(self, loss_fn=None, mesh=None, graphed=True):
         self.loss_fn = loss_fn
         self.mesh = mesh
-        self.graphed = graphed and not _multi_rank(mesh, "eval step")
+        ok, self._graph_mesh = capture_plan(mesh, "eval step")
+        self.graphed = graphed and ok
         self.graphs = None
         self.report_keys = None
         self._model = None
@@ -283,7 +282,8 @@ class EvalStep(_GraphStats):
         if not self.graphed or device.type != "cuda":
             return self._report(ts.model, batch, generator)
         if self.graphs is None:
-            self.graphs = Graphed(self._graph_fn, device, "eval_step")
+            self.graphs = Graphed(self._graph_fn, device, "eval_step",
+                                  mesh=self._graph_mesh)
         self._model = ts.model
         packed = self.graphs(id(ts.model), batch, generator)
         return dict(zip(self.report_keys, packed))

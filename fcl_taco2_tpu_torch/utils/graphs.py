@@ -30,31 +30,61 @@ raises.  On the CPU the function runs eagerly.
 Launch counts: the kernel wrappers count a launch through
 ``count_launch``.  Inside a capture nothing runs, so the capture records
 which wrapper launched and how often, and every replay adds that to the
-wrappers' ``launches``.
+wrappers' ``launches``.  ``tally`` does the same for any counter (the
+mesh's all-reduce calls and bytes, ``parallel/mesh.py``).
+
+Collectives: a function whose ``mesh`` (``parallel/mesh.py``) reduces over
+NCCL captures its all-reduces with it; each rank replays its own graph,
+and the ranks' graphs meet in the captured collectives.  So every rank
+must capture the same keys at the same step: before a capture the ranks
+compare a digest of the key (one eager all-gather, ``Mesh.check_same``),
+and a mismatch raises instead of leaving a rank waiting in a collective.
 """
 
 import gc
+import hashlib
 import time
 
 import torch
 from torch.utils import _pytree as pytree
 
 _recording = None  # {wrapper: launches} of the capture in progress
+_tallies = None    # [(counter, key, n)] of the capture in progress
 _pools = {}        # device index -> (the shared pool, its keeper graph)
 _said = set()      # reasons printed once
+
+
+def capturing():
+    """True while the current CUDA stream is being captured."""
+    return torch.cuda.is_available() and \
+        torch.cuda.is_current_stream_capturing()
+
+
+def _outside_graphed(what):
+    return RuntimeError(f"{what} was captured outside utils/graphs.py::"
+                        "Graphed, which alone counts a graph's work")
 
 
 def count_launch(fn):
     """Count one launch of the kernel wrapper ``fn`` on the card: now, or,
     inside a capture, once per replay of the graph."""
-    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+    if capturing():
         if _recording is None:
-            raise RuntimeError(
-                f"{fn.__name__} was captured outside utils/graphs.py::"
-                "Graphed, which alone counts a graph's launches")
+            raise _outside_graphed(fn.__name__)
         _recording[fn] = _recording.get(fn, 0) + 1
     else:
         fn.launches += 1
+
+
+def tally(counter, key, n):
+    """Add ``n`` to ``counter[key]`` now, or, inside a capture, once per
+    replay of the graph (as ``count_launch``)."""
+    if capturing():
+        if _tallies is None:
+            raise _outside_graphed(f"a tally of {key!r}")
+        _tallies.append((counter, key, n))
+    else:
+        counter[key] += n
 
 
 def say_once(reason):
@@ -94,15 +124,24 @@ def pool_reserved_bytes(device):
 
 
 class _Entry:
-    def __init__(self, graph, statics, out, launches, capture_s,
+    def __init__(self, graph, statics, out, launches, tallies, capture_s,
                  pool_bytes):
         self.graph = graph
         self.statics = statics        # the leaves; tensors are the buffers
         self.out = out
         self.launches = launches
+        self.tallies = tallies
         self.capture_s = capture_s
         self.pool_bytes = pool_bytes
         self.replays = 0
+
+    def count_replay(self):
+        """Add one replay's launches and tallies to their counters."""
+        self.replays += 1
+        for fn, n in self.launches.items():
+            fn.launches += n
+        for counter, key, n in self.tallies:
+            counter[key] += n
 
 
 def _signature(leaf):
@@ -111,16 +150,28 @@ def _signature(leaf):
     return leaf
 
 
+def key_digest(full):
+    """An int64 digest of a static key's tree structure, shapes, dtypes
+    and static leaves (not the caller's part, which may name objects of
+    this process), equal on every rank that captures the same graph."""
+    _, spec, sigs = full
+    raw = hashlib.sha256(repr((spec, sigs)).encode()).digest()
+    return int.from_bytes(raw[:8], "little", signed=True)
+
+
 class Graphed:
     """``fn(inputs, generator)`` as CUDA graphs on ``device``, one per
     static key; see the module docstring.  ``name`` labels the captures
-    in ``stats``; ``warmup`` eager runs precede each capture."""
+    in ``stats``; ``warmup`` eager runs precede each capture.  ``mesh``:
+    the ranks whose collectives the function captures; they check that
+    they capture the same key before each capture."""
 
-    def __init__(self, fn, device, name, warmup=2):
+    def __init__(self, fn, device, name, warmup=2, mesh=None):
         self.fn = fn
         self.device = torch.device(device)
         self.name = name
         self.warmup = warmup
+        self.mesh = mesh
         self.entries = {}
         self._gen = None
 
@@ -147,9 +198,7 @@ class Graphed:
         entry.graph.replay()
         if generator is not None:
             generator.set_state(gen.get_state())
-        entry.replays += 1
-        for fn, n in entry.launches.items():
-            fn.launches += n
+        entry.count_replay()
         return pytree.tree_map(
             lambda t: t.clone() if torch.is_tensor(t) else t, entry.out)
 
@@ -161,11 +210,14 @@ class Graphed:
     def prepare(self, key, inputs, generator=None, restore=()):
         """Capture ``key``'s graph unless it exists; returns (its entry,
         the inputs' leaves)."""
-        global _recording
+        global _recording, _tallies
         full, leaves, spec = self._key(key, inputs)
         entry = self.entries.get(full)
         if entry is not None:
             return entry, leaves
+        if self.mesh is not None:
+            self.mesh.check_same(key_digest(full),
+                                 f"{self.name}'s graph key {full[2]}")
         t0 = time.perf_counter()
         dev = self.device
         statics = [x.detach().to(dev, copy=True) if torch.is_tensor(x)
@@ -193,7 +245,7 @@ class Graphed:
         gc.collect()
         collecting = gc.isenabled()
         gc.disable()
-        _recording = {}
+        _recording, _tallies = {}, []
         try:
             handle = pool(dev)
             torch.cuda.empty_cache()  # as the capture does first
@@ -204,12 +256,12 @@ class Graphed:
             with torch.cuda.graph(graph, pool=handle):
                 out = self.fn(args, gen)
             torch.cuda.synchronize(dev)
-            launches = _recording
+            launches, tallies = _recording, _tallies
         finally:
-            _recording = None
+            _recording = _tallies = None
             if collecting:
                 gc.enable()
-        entry = _Entry(graph, statics, out, launches,
+        entry = _Entry(graph, statics, out, launches, tallies,
                        time.perf_counter() - t0,
                        torch.cuda.memory_reserved(dev) - reserved)
         self.entries[full] = entry

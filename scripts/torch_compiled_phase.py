@@ -7,7 +7,9 @@ against their plain versions with the main path's device scalars
 (``[kernels]``, ``[dropout]``, ``[pwg]``; ``--no-kernels`` builds the PWG
 weights without them), then ``[compiled]``
 (``chip_smoke.py::phase_compiled``): serving, text -> wav and the stream
-as CUDA graph replays against their eager calls bit for bit, and the
+as CUDA graph replays against their eager calls bit for bit, then the
+``scan`` and ``hybrid`` routes, ``fcl_vocode``'s bucket, a
+``vocode_chunked`` utterance and one preprocessing bucket likewise, and the
 graphed train, KD and eval steps against eager ones under deterministic
 algorithms, with the times beside each.  Exits non-zero if a check fails.
 """

@@ -5,9 +5,10 @@
 Runs the smoke script's device and build phases, then ``[parallel]``
 (``chip_smoke.py::phase_parallel``: 2 gloo ranks sharing card 0 train,
 distil, serve sharded and resume, held to one process, then one NCCL
-rank) in a temporary directory, and prints the ranks' decoder-kernel
-launches and the wall seconds.  About 1.5 minutes of the card where the
-whole smoke script takes about 7.
+rank whose graphed train, KD and eval steps and sharded serving are held
+to their eager twins bit for bit) in a temporary directory, and prints
+the decoder-kernel launches of the two gloo ranks and the NCCL rank and
+the wall seconds.
 """
 
 import os
@@ -31,7 +32,7 @@ def main():
     with tempfile.TemporaryDirectory() as root:
         launches = C.timed_phase("parallel", C.phase_parallel, smi, kind,
                                  root)
-    print(f"launches by rank {launches}; {time.perf_counter() - t0:.1f} s "
+    print(f"launches (gloo rank 0, rank 1, the NCCL rank) {launches}; {time.perf_counter() - t0:.1f} s "
           f"| {smi}", flush=True)
 
 

@@ -9,8 +9,8 @@ jits), checked on the CPU.
   ``aten.index_put`` with boolean indices).  The kernel entries are
   stubs that check their shapes and that the seed and the stream
   position are tensors (the plain versions read them on the host, as
-  CPU oracles may).  The scan and ``hybrid`` routes read their step bound
-  on the host: that read is expected, and they stay eager on the card.
+  CPU oracles may).  The scan and ``hybrid`` routes run their loops to the
+  static step count, so they read nothing on the host either.
   (On the CPU ``.tolist()`` and ``.numpy()`` bypass the dispatcher; on
   the card a capture refuses any read-back itself.)
 - The fixed-shape scatter equals the boolean-mask scatter it replaced,
@@ -32,7 +32,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 import fcl_taco2_tpu.ops.decoder_pallas as dp
 from fcl_taco2_tpu.models.kd import KDStudent as JaxKD
@@ -56,8 +55,8 @@ from fcl_taco2_tpu_torch.utils.params import (params_to_numpy,
 from fcl_taco2_tpu_torch.vocoder import pwg_cuda as PC
 
 from helpers import synthetic_batch, tiny_config, with_duration_classes
-from torch_port_helpers import (NO_DROPOUT, max_rel_err, port_batch,
-                                port_config, port_grads_as_jax,
+from torch_port_helpers import (NO_DROPOUT, CaptureSafe, max_rel_err,
+                                port_batch, port_config, port_grads_as_jax,
                                 segment_inputs)
 
 KEEP_SIGMAS = 4.0  # a keep rate's limit, in standard errors of its mean
@@ -71,28 +70,6 @@ def one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
-
-
-class HostRead(RuntimeError):
-    pass
-
-
-class CaptureSafe(TorchDispatchMode):
-    """Raises ``HostRead`` on an op a CUDA graph capture cannot hold."""
-
-    READS = {"_local_scalar_dense", "is_nonzero", "nonzero", "masked_select",
-             "item"}
-    INDEXED = {"index", "index_put", "index_put_", "_index_put_impl_"}
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        name = func.overloadpacket.__name__
-        if name in self.READS:
-            raise HostRead(name)
-        if name in self.INDEXED and any(
-                t is not None and t.dtype in (torch.bool, torch.uint8)
-                for t in args[1]):
-            raise HostRead(f"{name} with a boolean index")
-        return func(*args, **(kwargs or {}))
 
 
 # ---------------------------------------------------------------------------
@@ -171,24 +148,19 @@ ROUTES = {"pallas": dict(), "pallas_hbm": dict(dunits=256),
 @pytest.mark.parametrize("route", sorted(ROUTES))
 def test_synthesize_is_capture_safe(route, stub_kernels):
     """``synthesize`` at tiny widths (P = 144 > one 128-row tile) as the
-    card's graph runs it: kernel routes read nothing on the host; the
-    scan and hybrid read their step bound (expected: they stay eager)."""
+    card's graph runs it: no route reads anything on the host (the scan
+    and hybrid run to the static step count)."""
     m = _model(**ROUTES[route])
     tokens, ilens, dur = _serving_batch(m.cfg)
     gen = torch.Generator().manual_seed(0)
-    run = functools.partial(
-        m.synthesize, tokens, ilens, gen, 64, durations=dur,
-        d_factor=torch.tensor(1.0), decoder_backend=route)
     assert m.decode_route(route) == route
-    if route in ("scan", "hybrid"):
-        with pytest.raises(HostRead, match="_local_scalar_dense"):
-            with CaptureSafe():
-                run()
-        return
     with CaptureSafe():
-        out = run()
+        out = m.synthesize(tokens, ilens, gen, 64, durations=dur,
+                           d_factor=torch.tensor(1.0), decoder_backend=route)
     assert out["mel"].shape == (2, 64, m.cfg.odim)
-    assert stub_kernels["hbm" if route == "pallas_hbm" else "resident"]
+    if route != "scan":
+        assert stub_kernels["hbm" if route in ("pallas_hbm", "hybrid")
+                            else "resident"]
 
 
 def test_synth_vocode_is_capture_safe(stub_kernels, monkeypatch):

@@ -40,6 +40,27 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert not bad, bad
 
 
+
+def test_port_shell_scripts_name_no_jax_path():
+    """The port's shell scripts (``scripts/torch_*.sh``) run only the
+    port: every ``python -m`` names a module of ``fcl_taco2_tpu_torch``,
+    and nothing names JAX, the JAX package or its CLI shims (``cli/``)."""
+    import re
+    shells = sorted((REPO / "scripts").glob("torch_*.sh"))
+    assert {"torch_teacher_model_training.sh",
+            "torch_student_model_training.sh",
+            "torch_inference.sh"} <= {f.name for f in shells}
+    bad = []
+    for f in shells:
+        text = f.read_text()
+        bad += [(f.name, m) for m in re.findall(r"python3?\s+-m\s+(\S+)",
+                                                text)
+                if not m.startswith("fcl_taco2_tpu_torch.")]
+        for pat in (r"\bjax\b", r"fcl_taco2_tpu(?!_torch)", r"\bcli/fcl_"):
+            bad += [(f.name, x) for x in re.findall(pat, text)]
+    assert not bad, bad
+
+
 def test_entry_points_default_to_the_card(monkeypatch):
     from fcl_taco2_tpu_torch.infer import Synthesizer
     from fcl_taco2_tpu_torch.models import Tacotron2SA

@@ -34,7 +34,7 @@ from fcl_taco2_tpu_torch.models.components import maybe_dropout
 from fcl_taco2_tpu_torch.models.kd import KDStudent
 from fcl_taco2_tpu_torch.models.taco2_sa import Tacotron2SA
 from fcl_taco2_tpu_torch.ops.conv import batch_norm_train
-from fcl_taco2_tpu_torch.ops.masking import lengths_to_non_pad_mask
+from fcl_taco2_tpu_torch.ops.masking import N_UTTS, lengths_to_non_pad_mask
 from fcl_taco2_tpu_torch.ops.regroup import (gather_segments, scatter_frames,
                                              scatter_frames_classed)
 from fcl_taco2_tpu_torch.parallel import _mp_worker as worker
@@ -350,7 +350,7 @@ def test_batch_share_keeps_the_global_plan(classes, n_ranks):
     caps = None
     for r in range(n_ranks):
         s = D.batch_share(g, r, n_ranks)
-        assert s.counts.n_utts == 8 and s.mel.shape[1] == g.mel.shape[1]
+        assert s.counts[N_UTTS] == 8 and s.mel.shape[1] == g.mel.shape[1]
         assert s.tokens.shape == (b, g.tokens.shape[1])
         sc = BatchUploader("cpu")(s)
         mel = sc.mel

@@ -5,6 +5,8 @@ import dataclasses
 
 import numpy as np
 import jax
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from fcl_taco2_tpu_torch.models.config import ModelConfig as PortConfig
 from fcl_taco2_tpu_torch.models.decoder import Decoder
@@ -129,3 +131,25 @@ def port_state_as_jax(model, new_state=None):
     sd = dict(model.named_buffers())
     sd.update(new_state or {})
     return params_to_numpy(sd)[1]
+
+
+class HostRead(RuntimeError):
+    pass
+
+
+class CaptureSafe(TorchDispatchMode):
+    """Raises ``HostRead`` on an op a CUDA graph capture cannot hold."""
+
+    READS = {"_local_scalar_dense", "is_nonzero", "nonzero", "masked_select",
+             "item"}
+    INDEXED = {"index", "index_put", "index_put_", "_index_put_impl_"}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func.overloadpacket.__name__
+        if name in self.READS:
+            raise HostRead(name)
+        if name in self.INDEXED and any(
+                t is not None and t.dtype in (torch.bool, torch.uint8)
+                for t in args[1]):
+            raise HostRead(f"{name} with a boolean index")
+        return func(*args, **(kwargs or {}))
