@@ -26,8 +26,10 @@ prints no result):
    kernel alone at B=16, Tm=1536 (no plain version: minutes);
    ``pwg_stream_step`` chained in Vh=4096 chunks over the B=1 utterance,
    each step against its plain version and the chain bit-equal to the
-   one-shot kernel.  Each launch's grid, block tiles and grid barriers are
-   logged; bounds at the TF32 tensor cores (3 passes) beside fp32.
+   one-shot kernel; a step timed alone and ten back to back.  Each
+   launch's grid, block tiles and grid barriers are logged, and the
+   card's clocks (NVML) beside each kernel's time; bounds at the TF32
+   tensor cores (3 passes) beside fp32.
 6. Main paths, with the headline benchmark's protocol (bench.py: idim 70,
    odim 80, 96 phonemes, Poisson(8) durations clipped to [1, 50], seed 0,
    durations given), seeded full-width weights, bf16 compute.  Text ->
@@ -71,6 +73,18 @@ prints no result):
    loop cut at the batch's bound, ``fcl_vocode``'s bucket, a
    ``vocode_chunked`` utterance and one preprocessing bucket.  ``scripts/
    torch_compiled_phase.py`` runs this phase alone.
+6c. The bench scripts (``[bench]``, after ``[compiled]``): each card
+   script, loaded from its file, and its ``smoke()``
+   (``scripts/torch_bench.py``, ``torch_bench_kd``,
+   ``torch_bench_stream``, ``torch_bench_train_loop``, ``torch_bench_pwg``,
+   ``torch_bench_decoder``, ``torch_train_roofline``: their measurement
+   functions at full width, one reading each, as ``--smoke`` runs them);
+   every row must name this card and its power limit and every timing in
+   it (median, min, max) be finite and positive, and the launch counters,
+   zeroed before the first script, must show all four kernels launched by
+   the bench paths.  The timers are ``fcl_taco2_tpu_torch/utils/
+   timing.py``'s and the bench batch ``utils/bench_protocol.py``'s,
+   which this script imports too.
 7. Training (``[train]``), after the serving paths; no decoder or PWG
    kernel may launch in it (the JAX package has no Pallas kernel on the
    training path): the hand-built decoder backward against autograd
@@ -213,13 +227,14 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from fcl_taco2_tpu_torch.utils.bench_protocol import tf32, train_batch
+from fcl_taco2_tpu_torch.utils.timing import (TF32_PASSES, bound_ms, busy_ms,
+                                              clocks, device_busy_ms,
+                                              device_events, host_median_ms,
+                                              median_ms, timed, top_kernels)
+
 IDIM, ODIM = 70, 80
 N_PHONES, MEAN_DUR, MAX_DUR = 96, 8, 50
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
-PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12,
-            torch.int8: 989e12,  # int8 codes are multiplied as bf16
-            "tf32": 495e12}      # dense TF32 tensor cores
-TF32_PASSES = 3  # fp32 products on tensor cores: 3xTF32 for fp32 accuracy
 TOL_F32 = 1e-4
 TOL_F32_WHY = ("fp32 products in another summation order than the "
                "plain version's GEMMs, carried through up to 50 AR steps")
@@ -240,21 +255,6 @@ SAMPLE_RATE = 22050
 
 def log(*a):
     print(*a, flush=True)
-
-
-def median_ms(fn, reps, warmup=1):
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
 
 
 def durations(rng, n):
@@ -305,13 +305,6 @@ def work(cfg, P, bounds, D, wdt, resident, bdt):
     if resident:
         ops += 2 * P * (I * G + I * O)
     return w_bytes + act_bytes, ops
-
-
-def bound_ms(nbytes, ops, wdt):
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / PEAK_OPS[wdt]
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
 
 
 def phase_device():
@@ -422,6 +415,7 @@ def phase_kernels(models):
                 else (TOL_BF16, TOL_BF16_WHY)
             ms = median_ms(alone, 5)
             call_ms = median_ms(call, 5)
+            clk = clocks()
             plain_ms = median_ms(lambda: plain(dp, enc, pos, 0, **kw), 3)
         # int8 streams codes; the resident weights stay bf16
         rdt = torch.bfloat16 if wdt == torch.int8 else wdt
@@ -445,7 +439,8 @@ def phase_kernels(models):
                    units_per_block=info["units_per_block"],
                    smem_bytes=info["smem_bytes"],
                    barriers_per_step=info["barriers_per_step"],
-                   steps=steps, us_per_step=1e3 * ms / max(steps, 1))
+                   steps=steps, us_per_step=1e3 * ms / max(steps, 1),
+                   clocks=clk)
         rows.append(row)
         log(f"[kernel] {name} P={P} ragged={ragged} "
             f"weights={row['weights']}: max_abs_err={err:.3e} (tol {tol:g}: "
@@ -704,15 +699,6 @@ def phase_import(models, kind):
     return counts
 
 
-def _timed(fn):
-    """(fn(), its host-clock ms), the device synchronized on both sides."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    return out, 1e3 * (time.perf_counter() - t0)
-
-
 def breakdown(synth, tokens, ilens, dd, budget, tag, kind):
     """Host-clock split of one synthesize call, each stage synchronized:
     frontend (synth_frontend: encoder + predictors), decode
@@ -724,7 +710,7 @@ def breakdown(synth, tokens, ilens, dd, budget, tag, kind):
         orig = getattr(m, name)
 
         def timed_stage(*a, **k):
-            out, ms = _timed(lambda: orig(*a, **k))
+            out, ms = timed(lambda: orig(*a, **k))
             stage_ms[name].append(ms)
             return out
         setattr(m, name, timed_stage)
@@ -736,7 +722,7 @@ def breakdown(synth, tokens, ilens, dd, budget, tag, kind):
         for _ in range(4):
             for ms in stage_ms.values():
                 ms.clear()
-            _, total = _timed(lambda: m.synthesize(
+            _, total = timed(lambda: m.synthesize(
                 tokens, ilens, 0, budget, durations=dd,
                 quantize=synth.quantize, prequant=synth.prequant))
             rows.append((total, stage_ms["synth_frontend"][0],
@@ -810,7 +796,8 @@ def phase_pwg_kernels():
         info = dict(PC.last_launch)
         del aux
         call_ms = median_ms(call, 5)
-        row = dict(ms=k_ms, call_ms=call_ms, grid=info["grid"],
+        row = dict(ms=k_ms, call_ms=call_ms, clocks=clocks(),
+                   grid=info["grid"],
                    block_rows=info["block_rows"],
                    block_tiles=info["block_tiles"],
                    barriers=info["barriers"],
@@ -881,12 +868,19 @@ def phase_pwg_kernels():
     exact = torch.equal(chain, oneshot)
     err = max(errs)
     st_mid, args = mid
-    ms = median_ms(lambda: PC.pwg_stream_step(packed, cfg, st_mid, *args),
-                   10)
+    def step():
+        return PC.pwg_stream_step(packed, cfg, st_mid, *args)
+    ms = median_ms(step, 10)
     info = dict(PC.last_launch)
+    # ten calls between two events: the host's launch gaps overlap the
+    # card's work, where a single call's events also time its launch
+    ms_back_to_back = median_ms(lambda: [step() for _ in range(10)], 5) / 10
+    clk = clocks()
     plain_ms = median_ms(
         lambda: PC.pwg_stream_step_plain(packed, cfg, st_mid, *args), 3)
-    rows["step"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+    rows["step"] = dict(max_abs_err=err, ms=ms,
+                        ms_back_to_back=ms_back_to_back, clocks=clk,
+                        plain_ms=plain_ms,
                         grid=info["grid"], block_rows=info["block_rows"],
                         block_tiles=info["block_tiles"],
                         barriers=info["barriers"],
@@ -894,7 +888,8 @@ def phase_pwg_kernels():
     log(f"[pwg] pwg_stream_step Vh={Vh} x {n} steps: max_abs_err vs plain "
         f"(wav and state, every step) {err:.3e} (tol {TOL_PWG:g}: "
         f"{TOL_PWG_WHY}); chain vs one-shot kernel {chain_err:.3e} "
-        f"(bit-exact: {exact}); kernel {ms:.3f} ms a step, plain "
+        f"(bit-exact: {exact}); kernel {ms:.3f} ms a step "
+        f"({ms_back_to_back:.3f} back to back; clocks {clk}), plain "
         f"{plain_ms:.3f} ms, bound {rows['step']['bound_ms']:.4f} ms "
         f"(operations, tf32 x3; fp32 CUDA cores "
         f"{rows['step']['bound_fp32_ms']:.4f} ms); grid {info['grid']} "
@@ -958,12 +953,12 @@ def phase_tts(models, pwg, kind):
                                 device="cuda").manual_seed(0))
         rows = []
         for _ in range(4):
-            out, syn_ms = _timed(lambda: pipe.model.synthesize(
+            out, syn_ms = timed(lambda: pipe.model.synthesize(
                 tokens, ilens, 0, budget, durations=dd,
                 quantize=pipe.quantize, prequant=pipe.prequant))
             mel = out["mel"].to(pipe.pwg_dtype).float()
             nzr = noise.to(pipe.pwg_dtype).float()
-            wav, voc_ms = _timed(lambda: vocode(pipe.pwg, pipe.pwg_cfg, mel,
+            wav, voc_ms = timed(lambda: vocode(pipe.pwg, pipe.pwg_cfg, mel,
                                                 nzr, packed=pipe.packed))
             rows.append((syn_ms, voc_ms))
         syn_ms, voc_ms = np.median(np.array(rows[1:]), axis=0)
@@ -1073,12 +1068,6 @@ def _same(a, b):
                                     for x, y in zip(a, b))
 
 
-def _replay_ms(fn, reps=5):
-    """Median host ms of ``fn()`` synchronized, after one warm-up."""
-    fn()
-    return float(np.median([_timed(fn)[1] for _ in range(reps)]))
-
-
 def graphed_split(synth, tokens, ilens, dd, budget):
     """A batch's synthesize split as graphs: the frontend alone, the
     decode alone (``decode_segments`` on the operands an eager call
@@ -1108,10 +1097,11 @@ def graphed_split(synth, tokens, ilens, dd, budget):
                                     tile_bounds=x[4], step_bound=x[5], **kw),
                   "cuda", "split.decode")
     args = (tokens, ilens, dd, torch.tensor(1.0), True, budget)
-    ms = {"frontend": _replay_ms(lambda: fe(None, (tokens, ilens, dd), gen)),
-          "decode": _replay_ms(lambda: dec(None, (enc, dur, pos, fm, tb,
-                                                  sb), gen)),
-          "total": _replay_ms(lambda: synth.graphs(None, args, gen))}
+    ms = {"frontend": host_median_ms(
+              lambda: fe(None, (tokens, ilens, dd), gen)),
+          "decode": host_median_ms(
+              lambda: dec(None, (enc, dur, pos, fm, tb, sb), gen)),
+          "total": host_median_ms(lambda: synth.graphs(None, args, gen))}
     ms["rest"] = ms["total"] - ms["frontend"] - ms["decode"]
     return ms
 
@@ -1124,7 +1114,7 @@ def eager_split(synth, tokens, ilens, dd, budget):
 
     def wrap(name):
         def timed_stage(*a, **k):
-            out, stage[name] = _timed(lambda: orig[name](*a, **k))
+            out, stage[name] = timed(lambda: orig[name](*a, **k))
             return out
         setattr(m, name, timed_stage)
 
@@ -1133,7 +1123,7 @@ def eager_split(synth, tokens, ilens, dd, budget):
     rows = []
     try:
         for _ in range(4):
-            _, total = _timed(lambda: m.synthesize(
+            _, total = timed(lambda: m.synthesize(
                 tokens, ilens, 0, budget, durations=dd,
                 quantize=synth.quantize, prequant=synth.prequant))
             rows.append((total, stage["synth_frontend"],
@@ -1369,7 +1359,7 @@ def compiled_steps(smi, kind, n=4):
         if not (bit and rows[name]["eval_bit_equal"]):
             raise RuntimeError(f"compiled {name}: graphed differs from eager")
 
-    with tempfile.TemporaryDirectory() as root, no_tf32(), \
+    with tempfile.TemporaryDirectory() as root, tf32(False), \
             deterministic() as nondet:
         utts = graph_corpus(os.path.join(root, "corpus"), 48)
         models = graph_models()
@@ -1507,11 +1497,11 @@ def compiled_routes(models, pwg, kind, smi):
             "scan_decode")
         with torch.no_grad():
             steps = {
-                "graphed_S": _replay_ms(lambda: scan(
+                "graphed_S": host_median_ms(lambda: scan(
                     None, (enc, dur, pos, fm, sb), gen)),
-                "eager_S": _replay_ms(lambda: decoder_inference(
+                "eager_S": host_median_ms(lambda: decoder_inference(
                     dec, cfg, enc, dur, pos, fm, gen, step_bound=sb)),
-                "eager_bound": _replay_ms(lambda: decoder_inference(
+                "eager_bound": host_median_ms(lambda: decoder_inference(
                     dec, cfg, enc, dur, pos[:, :bound], fm[:, :bound],
                     gen))}
         out["scan_steps"] = {"S": S, "bound": bound, "P": fm.shape[0],
@@ -1537,7 +1527,7 @@ def compiled_routes(models, pwg, kind, smi):
 
     wg, counts = graphed_launches(lambda: vg(mel[:200], gen0()))
     we = ve(mel[:200], gen0())
-    ms = {n: _replay_ms(lambda v=v: v(mel[:200], gen0()))
+    ms = {n: host_median_ms(lambda v=v: v(mel[:200], gen0()))
           for n, v in (("graphed", vg), ("eager", ve))}
     if counts["pwg_generate_streaming"] == 0:
         raise RuntimeError(f"compiled fcl_vocode: launches {counts}")
@@ -1551,7 +1541,7 @@ def compiled_routes(models, pwg, kind, smi):
             pwg, pwg.cfg, mel, noise, chunk_frames=64, graphed=graphed)))
 
     cg, counts = graphed_launches(lambda: chunked(True))
-    ms = {n: _replay_ms(lambda f=f: chunked(f))
+    ms = {n: host_median_ms(lambda f=f: chunked(f))
           for n, f in (("graphed", True), ("eager", False))}
     out["vocode_chunked"] = _bit_row(
         "vocode_chunked (400 frames, chunks of 64, pwg_generate)", [cg],
@@ -1600,6 +1590,59 @@ def phase_compiled(models, pwg, smi, kind):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# [bench]: the bench scripts' measurements, once each
+# ---------------------------------------------------------------------------
+
+BENCH_SCRIPTS = ("torch_bench", "torch_bench_kd", "torch_bench_stream",
+                 "torch_bench_train_loop", "torch_bench_pwg",
+                 "torch_bench_decoder", "torch_train_roofline")
+
+
+def _spreads(x):
+    """Every timing spread (a dict with median, min, max and n) in x."""
+    if isinstance(x, dict):
+        if {"median", "min", "max", "n"} <= set(x):
+            yield x
+            return
+        for v in x.values():
+            yield from _spreads(v)
+    elif isinstance(x, list):
+        for v in x:
+            yield from _spreads(v)
+
+
+def phase_bench(smi, kind):
+    """Each card bench script's ``smoke()`` (its measurement functions at
+    full width, one reading each, as ``--smoke`` runs them): every row
+    names this card and its power limit, and every timing in it is finite
+    and positive; the bench paths together launch all four kernels.
+    Returns the launch counts."""
+    zero_counts()
+    for name in BENCH_SCRIPTS:
+        t0 = time.perf_counter()
+        rows = bench_script(name).smoke()
+        for row in rows:
+            spreads = list(_spreads(row))
+            bad = [s for s in spreads for k in ("median", "min", "max")
+                   if not (np.isfinite(s[k]) and s[k] > 0)]
+            if row.get("card") != smi or not spreads or bad:
+                raise RuntimeError(f"[bench] {name}: row {row.get('name')} "
+                                   f"card {row.get('card')!r} (want {smi!r}),"
+                                   f" {len(spreads)} timings, bad {bad}")
+        log(f"[bench] {name}.smoke() on {kind}: {len(rows)} rows in "
+            f"{time.perf_counter() - t0:.1f} s: " + "; ".join(
+                f"{r.get('name')} {next(_spreads(r))['median']:.4g}"
+                for r in rows))
+    counts = read_counts()
+    log(f"[bench] launches {counts}")
+    missing = [k for k, v in counts.items() if v == 0]
+    if missing:
+        raise RuntimeError(f"[bench]: the bench paths did not launch "
+                           f"{missing}")
+    return counts
+
+
 TRAIN_DEVICE = "cuda"  # the [train] phase's device
 TRAIN_B = 16                      # bench.py:335, the teacher's batch
 DURATION_CLASSES = (8, 16, 32, 50)  # bench.py:339, the CLI default
@@ -1621,63 +1664,16 @@ NO_DROPOUT = dict(dropout_rate=0.0, zoneout_rate=0.0,
                   energy_embed_dropout_rate=0.0)
 
 
-class no_tf32:
-    """TF32 off for matmuls and cuDNN convs inside the block (fp32
-    comparisons), the previous switches restored after it."""
-
-    def __enter__(self):
-        self.prev = (torch.backends.cuda.matmul.allow_tf32,
-                     torch.backends.cudnn.allow_tf32)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-
-    def __exit__(self, *exc):
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = self.prev
-
-
-def train_batch(B, duration_classes, device, seed=0):
-    """``bench.py::_train_batch`` without JAX: B utterances of 96 phonemes,
-    Poisson(8) durations clipped to [1, 50], random mel / f0 / energy,
-    seed 0; the classed plan when ``duration_classes`` is given (caps
-    bucketed by 64), else the single-class plan with B*96 segments.
-    Returns (Batch on ``device``, olens)."""
-    from fcl_taco2_tpu_torch.data.loader import BatchUploader
-    from fcl_taco2_tpu_torch.models.taco2_sa import Batch, SegClass
-    from fcl_taco2_tpu_torch.ops.regroup import (build_classed_plan,
-                                                 build_plan,
-                                                 duration_class_caps)
-    rng = np.random.default_rng(seed)
-    Tmax = N_PHONES
-    dur = np.clip(rng.poisson(MEAN_DUR, (B, Tmax)), 1,
-                  MAX_DUR).astype(np.int32)
-    olens = dur.sum(1).astype(np.int32)
-    Lmax = int(np.ceil(olens.max() / 64) * 64)
-    common = dict(
-        tokens=rng.integers(1, IDIM, (B, Tmax)).astype(np.int32),
-        ilens=np.full(B, Tmax, np.int32),
-        mel=rng.normal(size=(B, Lmax, ODIM)).astype(np.float32),
-        olens=olens, durations=dur,
-        f0=rng.normal(size=(B, Tmax, 1)).astype(np.float32),
-        energy=rng.normal(size=(B, Tmax, 1)).astype(np.float32))
-    if duration_classes:
-        caps = duration_class_caps(list(dur), duration_classes, B,
-                                   cap_bucket=64)
-        plan = build_classed_plan(dur, olens, duration_classes, caps, Lmax)
-        batch = Batch(
-            seg_utt=None, seg_tok=None, seg_start=None, frame_mask=None,
-            position=None, utt_gather=plan.utt_gather,
-            utt_mask=plan.utt_mask,
-            seg_classes=tuple(SegClass(c.seg_utt, c.seg_tok, c.seg_start,
-                                       c.frame_mask, c.position)
-                              for c in plan.classes), **common)
-    else:
-        plan = build_plan(dur, olens, MAX_DUR, B * Tmax, Lmax)
-        batch = Batch(seg_utt=plan.seg_utt, seg_tok=plan.seg_tok,
-                      seg_start=plan.seg_start, frame_mask=plan.frame_mask,
-                      position=plan.position, utt_gather=plan.utt_gather,
-                      utt_mask=plan.utt_mask, **common)
-    return BatchUploader(device)(batch), olens
+def bench_script(name):
+    """The module of ``scripts/<name>.py`` (a bench script), loaded from
+    its file."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "scripts", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def train_vjp_check(smi):
@@ -1692,7 +1688,7 @@ def train_vjp_check(smi):
     for classes in (DURATION_CLASSES, ()):
         batch, _ = train_batch(1, classes, TRAIN_DEVICE)
         out = {}
-        with no_tf32():
+        with tf32(False):
             for custom in (True, False):
                 model.cfg = cfg.replace(decoder_custom_vjp=custom,
                                         duration_classes=classes)
@@ -1777,10 +1773,10 @@ def train_step_timing(smi, kind, classes, warmup=3, reps=10,
     params = list(model.parameters())
     for _ in range(3):
         gen = step_generator(0, ts.step, TRAIN_DEVICE)
-        (loss, (_, new_state, _)), fwd = _timed(
+        (loss, (_, new_state, _)), fwd = timed(
             lambda: loss_fn(batch, gen))
-        grads, bwd = _timed(lambda: torch.autograd.grad(loss, params))
-        _, opt = _timed(lambda: apply_update(ts, tx, list(grads), new_state))
+        grads, bwd = timed(lambda: torch.autograd.grad(loss, params))
+        _, opt = timed(lambda: apply_update(ts, tx, list(grads), new_state))
         split.append((fwd, bwd, opt))
     fwd, bwd, opt = np.median(np.array(split), axis=0)
     ms = float(np.median(times))
@@ -1811,80 +1807,6 @@ def train_step_timing(smi, kind, classes, warmup=3, reps=10,
         row.update(capture_s=step.capture_s,
                    graph_pool_mib=step.pool_bytes / 2 ** 20)
     return row
-
-
-def device_events(fn):
-    """(name, start ns, end ns) of every device event (kernels, copies)
-    in a ``torch.profiler`` trace of one ``fn()`` call.  The trace's raw
-    events are read directly: building the profiler's event tree for the
-    CPU ops of a few eager steps takes tens of seconds."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [(e.name(), e.start_ns(), e.end_ns())
-            for e in prof.profiler.kineto_results.events()
-            if e.device_type() == DeviceType.CUDA]
-
-
-def busy_ms(events):
-    """The union of the events' intervals in ms; None without events."""
-    busy, end = 0, None
-    for _, a, b in sorted(events, key=lambda e: e[1]):
-        if end is None or a > end:
-            busy += b - a
-            end = b
-        elif b > end:
-            busy += b - end
-            end = b
-    return busy / 1e6 if busy > 0 else None
-
-
-def kernel_label(name):
-    """A short label of a CUDA kernel's name: the kernel and the last op
-    named in its template arguments (``elementwise_kernel:MulFunctor``,
-    ``vectorized_elementwise_kernel:CUDAFunctor_add``); a name without
-    such parts cut to 60 characters."""
-    import re
-    parts = [t for t in re.findall(r"\w*(?:Functor|_kernel|Kernel|gemm)\w*",
-                                   name)
-             if not t.startswith("gpu_kernel_impl")]
-    if not parts:
-        return name[:60]
-    label = parts[0] if len(parts) == 1 else f"{parts[0]}:{parts[-1]}"
-    return label[:60]
-
-
-def kernel_class(label):
-    """elementwise, gemm or other."""
-    if "elementwise" in label or "Functor" in label:
-        return "elementwise"
-    if any(k in label for k in ("gemm", "nvjet", "cutlass", "Kernel2")):
-        return "gemm"
-    return "other"
-
-
-def top_kernels(events, n=10):
-    """The ``n`` kernel labels with the most device time: (label, ms,
-    count), and the device ms and count of each kernel class."""
-    by, classes = {}, {}
-    for name, a, b in events:
-        label = kernel_label(name)
-        for table, key in ((by, label), (classes, kernel_class(label))):
-            ms, k = table.get(key, (0.0, 0))
-            table[key] = (ms + (b - a) / 1e6, k + 1)
-    top = [(label, ms, k) for label, (ms, k) in
-           sorted(by.items(), key=lambda kv: -kv[1][0])[:n]]
-    return top, classes
-
-
-def device_busy_ms(fn):
-    """Device busy time of one ``fn()`` call: the union of the device
-    events' intervals; None where the trace holds no device event."""
-    return busy_ms(device_events(fn))
 
 
 def _busy_text(busy, ms):
@@ -2037,7 +1959,7 @@ def kd_vjp_check(smi):
     for classes in (DURATION_CLASSES, ()):
         batch, _ = train_batch(1, classes, TRAIN_DEVICE)
         out = {}
-        with no_tf32():
+        with tf32(False):
             for path, over in (("autograd", dict(decoder_custom_vjp=False)),
                                ("hand-built", {}),
                                ("remat", dict(remat_decoder=True))):
@@ -2250,7 +2172,7 @@ def graph_agreement(smi, utts, classes, models):
     dc, packs, [(ts_e, tx_e), (ts_g, tx_g)] = graph_setup(cfg, utts, 8,
                                                           models)
     tag = "classed" if classes else "single-class"
-    with no_tf32(), deterministic() as nondet:
+    with tf32(False), deterministic() as nondet:
         step = make_train_step(tx_e, graphed=False)
         eager = []
         for j in range(8):
@@ -2467,12 +2389,12 @@ def phase_graph(smi, kind):
     with tempfile.TemporaryDirectory() as root:
         utts = graph_corpus(os.path.join(root, "corpus"), 48)
         models = graph_models()
-        agree = [timed(graph_agreement, smi, utts, c, models)
+        agree = [logged(graph_agreement, smi, utts, c, models)
                  for c in (DURATION_CLASSES, ())]
-        timing = [timed(graph_timing, smi, kind, utts, c, models)
+        timing = [logged(graph_timing, smi, kind, utts, c, models)
                   for c in (DURATION_CLASSES, ())]
         del models
-        cli = timed(graph_cli_check, smi, root)
+        cli = logged(graph_cli_check, smi, root)
     torch.cuda.synchronize()
     counts = read_counts()
     log(f"[graph] kernel launches during the phase {counts} (the training "
@@ -3009,7 +2931,7 @@ def phase_parallel(smi, kind, root):
                                                           initialize)
     from fcl_taco2_tpu_torch.parallel.mesh import make_mesh
     torch.cuda.empty_cache()
-    with no_tf32():
+    with tf32(False):
         t0 = time.perf_counter()
         ref, ref_sum, ref_mid, ref_norms = W.run_training_steps(
             4, checksum_steps=(2, 3), device="cuda", width="full")
@@ -3109,7 +3031,7 @@ def phase_parallel(smi, kind, root):
                device="cuda:0")
     try:
         mesh = make_mesh()
-        with no_tf32(), deterministic() as nondet:
+        with tf32(False), deterministic() as nondet:
             twins = nccl_twins(smi, kind, mesh)
         log(f"[parallel] deterministic algorithms on; ops without a "
             f"deterministic version: {sorted(nondet) or 'none'}")
@@ -3543,7 +3465,7 @@ def _padded(toks, durs, B, bucket):
     return tokens.cuda(), ilens.cuda(), dd.cuda()
 
 
-def timed(fn, *args):
+def logged(fn, *args):
     """``fn(*args)``, its wall seconds logged under the function's name."""
     t0 = time.perf_counter()
     out = fn(*args)
@@ -3589,6 +3511,8 @@ def main():
                             kind).items():
         launches[k] += v
     del models
+    for k, v in timed_phase("bench", phase_bench, smi, kind).items():
+        launches[k] += v
     timed_phase("train", phase_train, smi, kind)
     timed_phase("graph", phase_graph, smi, kind)
     with tempfile.TemporaryDirectory() as root:

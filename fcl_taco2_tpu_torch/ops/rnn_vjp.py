@@ -29,6 +29,10 @@ packed i, f, g, o.  The weights tuple is ``(w_pre (4H, u), w_pos (4H,) or
 None, wf_z (W, H), layers)`` with ``layers[0] = (wh0, bh0)`` (layer 0's
 input projection is folded into ``enc_gates`` and the prenet term by the
 caller) and ``layers[i > 0] = (wx, wh, bx, bh)``.
+
+The hand-built scan's forward and backward each run inside a
+``record_function`` range (``SCAN_RANGES``), so a profiler trace of an
+eager step can split the device time by the kernels they launch.
 """
 
 from typing import NamedTuple
@@ -36,6 +40,9 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
+from torch.profiler import record_function
+
+SCAN_RANGES = ("rnn_vjp.scan_fwd", "rnn_vjp.scan_bwd")
 
 
 class ScanSpec(NamedTuple):
@@ -151,7 +158,17 @@ class _ZoneoutLSTMScan(torch.autograd.Function):
     (dh, dc) plus post-loop weight GEMMs (``rnn_vjp.py:147-311``)."""
 
     @staticmethod
-    def forward(ctx, spec, keep, enc_gates, enc_out, prenet_steps,
+    def forward(ctx, *args):
+        with record_function(SCAN_RANGES[0]):
+            return _ZoneoutLSTMScan._forward(ctx, *args)
+
+    @staticmethod
+    def backward(ctx, *cotangents):
+        with record_function(SCAN_RANGES[1]):
+            return _ZoneoutLSTMScan._backward(ctx, *cotangents)
+
+    @staticmethod
+    def _forward(ctx, spec, keep, enc_gates, enc_out, prenet_steps,
                 pos_steps, w_pre, w_pos, wf_z, *layer_flat):
         L, H = spec.dlayers, spec.dunits
         S, P = prenet_steps.shape[0], enc_gates.shape[0]
@@ -185,7 +202,7 @@ class _ZoneoutLSTMScan(torch.autograd.Function):
         return outs
 
     @staticmethod
-    def backward(ctx, douts, *dcapture):
+    def _backward(ctx, douts, *dcapture):
         spec = ctx.spec
         L, H = spec.dlayers, spec.dunits
         keep_all, *saved = ctx.saved_tensors

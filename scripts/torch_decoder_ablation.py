@@ -40,6 +40,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 from fcl_taco2_tpu_torch.ops import decoder_cuda as K  # noqa: E402
 from fcl_taco2_tpu_torch.utils import cuda_build as CB  # noqa: E402
+from fcl_taco2_tpu_torch.utils.timing import median_ms  # noqa: E402
 
 LSTM_UNR = "  constexpr int UNR = sizeof(AT) == 4 ? 2 : 4;\n  constexpr int NT"
 ROW_UNR = "  constexpr int UNR = sizeof(AT) == 4 ? 2 : 4;\n  for (int n0"
@@ -123,20 +124,6 @@ def use_library(path):
                                      ctypes.POINTER(K._LaunchInfo)]
     lib.ar_decode_launch.restype = ctypes.c_int
     K._lib = lambda: lib
-
-
-def median_ms(fn, reps=10):
-    fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return sorted(times)[len(times) // 2]
 
 
 def case(model, P, ragged, wdt, seed=0):
@@ -243,7 +230,7 @@ def main():
             got = launch()
             torch.cuda.synchronize()
             err = float(((got - want) * fm[..., None]).abs().max())
-            ms = median_ms(launch)
+            ms = median_ms(launch, 10)
             print(f"[ablation] {n:12s} {label}: {ms:.3f} ms kernel alone, "
                   f"max_abs_err vs plain {err:.3e}; {K.last_launch}",
                   flush=True)

@@ -28,6 +28,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke as C  # noqa: E402
+from fcl_taco2_tpu_torch.utils.bench_protocol import tf32  # noqa: E402
 
 
 def err_over_limit(got, want):
@@ -44,7 +45,7 @@ def main():
               "halves swapped": np.r_[B // 2:B, 0:B // 2],
               "reversed": np.arange(B)[::-1]}
     ref = {}
-    with C.no_tf32():
+    with tf32(False):
         for lr in (1e-3, 1e-4):
             for name, order in orders.items():
                 losses, _, _, norms = W.run_training_steps(

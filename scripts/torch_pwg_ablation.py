@@ -35,6 +35,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 from fcl_taco2_tpu_torch.utils import cuda_build as CB  # noqa: E402
 from fcl_taco2_tpu_torch.vocoder import pwg_cuda as PC  # noqa: E402
+from fcl_taco2_tpu_torch.utils.timing import median_ms  # noqa: E402
 from fcl_taco2_tpu_torch.vocoder.pwg import (ParallelWaveGAN,  # noqa: E402
                                              PWGConfig, upsample_mel)
 
@@ -85,20 +86,6 @@ def use_library(path):
         ctypes.POINTER(ctypes.c_int * len(PC._INFO))]
     lib.pwg_stream_launch.restype = ctypes.c_int
     PC._lib = lambda: lib
-
-
-def median_ms(fn, reps):
-    fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return sorted(times)[len(times) // 2]
 
 
 def inputs(pwg, cfg, B, Tm):
