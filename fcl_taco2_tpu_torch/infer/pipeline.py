@@ -10,6 +10,13 @@ by the call's untimed warm-up.  ``vocode_chunked`` vocodes a mel stream in
 chunks with receptive-field context, edge-exact against the whole
 utterance; on the card each chunk shape is one CUDA graph, as JAX jits
 its ``pwg_generate`` (pipeline.py:127).
+
+Spans (``utils/spans.py``): the vocoder's call is ``serve.vocoder`` (the
+model's own are ``Tacotron2SA.synthesize``'s); ``tts_batch``'s host
+phases are ``serve.prepare`` (padding, the copies to the card),
+``serve.launch`` (the graph's call: its input copies, the replay, the
+outputs' clones) and ``serve.readback`` (the copy to the host, the
+per-utterance slices).
 """
 
 import copy
@@ -23,6 +30,7 @@ from fcl_taco2_tpu_torch.models.taco2_sa import _generator
 from fcl_taco2_tpu_torch.ops.decoder_cuda import maybe_prequantize
 from fcl_taco2_tpu_torch.utils.device import resolve_device
 from fcl_taco2_tpu_torch.utils.graphs import Graphed
+from fcl_taco2_tpu_torch.utils.spans import span
 from fcl_taco2_tpu_torch.vocoder.pwg import PWGConfig, pwg_generate
 from fcl_taco2_tpu_torch.vocoder.pwg_cuda import pack_pwg_weights, vocode
 
@@ -97,7 +105,9 @@ class TTSPipeline:
         dt = self.pwg_dtype
         mel = out["mel"].to(dt).float()
         noise = noise.to(self.device).to(dt).float()
-        wav = vocode(self.pwg, self.pwg_cfg, mel, noise, packed=self.packed)
+        with span("serve.vocoder"):
+            wav = vocode(self.pwg, self.pwg_cfg, mel, noise,
+                         packed=self.packed)
         return wav.float(), out["olens"] * hop, out["olens"]
 
     def _graph_body(self, inputs, gen):
@@ -120,25 +130,27 @@ class TTSPipeline:
         addition, as ``Synthesizer.synth_batch`` takes them); the budget
         stays ``Tmax * frame_per_token`` and the whole budget is vocoded,
         as in the JAX pipeline."""
-        B = len(token_lists)
-        Tmax = max(len(t) for t in token_lists)
-        Tmax = (Tmax + 15) // 16 * 16
-        budget = ((Tmax * frame_per_token) + 255) // 256 * 256
-        tokens = np.zeros((B, Tmax), np.int64)
-        ilens = np.zeros(B, np.int64)
-        durs = np.zeros((B, Tmax), np.int32)
-        for i, t in enumerate(token_lists):
-            tokens[i, :len(t)] = t
-            ilens[i] = len(t)
-            if durations is not None:
-                durs[i, :len(t)] = durations[i]
-        dev = self.device
-        tokens = torch.from_numpy(tokens).to(dev)
-        ilens = torch.from_numpy(ilens).to(dev)
-        durs = None if durations is None else torch.from_numpy(durs).to(dev)
-        gen = _generator(rng, dev)
-        state = gen.get_state()
-        inputs = (tokens, ilens, durs, budget)
+        with span("serve.prepare"):
+            B = len(token_lists)
+            Tmax = max(len(t) for t in token_lists)
+            Tmax = (Tmax + 15) // 16 * 16
+            budget = ((Tmax * frame_per_token) + 255) // 256 * 256
+            tokens = np.zeros((B, Tmax), np.int64)
+            ilens = np.zeros(B, np.int64)
+            durs = np.zeros((B, Tmax), np.int32)
+            for i, t in enumerate(token_lists):
+                tokens[i, :len(t)] = t
+                ilens[i] = len(t)
+                if durations is not None:
+                    durs[i, :len(t)] = durations[i]
+            dev = self.device
+            tokens = torch.from_numpy(tokens).to(dev)
+            ilens = torch.from_numpy(ilens).to(dev)
+            durs = None if durations is None \
+                else torch.from_numpy(durs).to(dev)
+            gen = _generator(rng, dev)
+            state = gen.get_state()
+            inputs = (tokens, ilens, durs, budget)
 
         def run():
             gen.set_state(state)  # the warm-up and the timed call agree
@@ -153,11 +165,13 @@ class TTSPipeline:
             self._seen.add(key)
             run()
         t0 = time.perf_counter()
-        wav, wav_lens, olens = run()
-        wav = wav.cpu().numpy()  # waits for the device
-        wav_lens = wav_lens.cpu().numpy()
-        wall = time.perf_counter() - t0
-        wavs = [wav[i, :wav_lens[i]] for i in range(B)]
+        with span("serve.launch"):
+            wav, wav_lens, olens = run()
+        with span("serve.readback"):
+            wav = wav.cpu().numpy()  # waits for the device
+            wav_lens = wav_lens.cpu().numpy()
+            wall = time.perf_counter() - t0
+            wavs = [wav[i, :wav_lens[i]] for i in range(B)]
         audio_sec = float(wav_lens.sum()) / self.sample_rate
         return wavs, {"wall_sec": wall, "audio_sec": audio_sec,
                       "rtf_x": audio_sec / wall if wall > 0 else float("inf"),

@@ -28,6 +28,11 @@ rows (exact: every other rank adds zeros), because gloo, which carries
 ranks that share one card, reduces and broadcasts CUDA tensors but
 gathers none.  The prenet dropout's generator is the same on every rank,
 as JAX replicates the key.
+
+Host spans (``utils/spans.py``): ``serve.prepare`` (padding, the copies
+to the card), ``serve.launch`` (the graph's call) and ``serve.readback``
+(starting the copy to the host; waiting for it and slicing); the graph's
+own are ``Tacotron2SA.synthesize``'s.
 """
 
 import math
@@ -44,6 +49,7 @@ from fcl_taco2_tpu_torch.ops.rnn import step_seed
 from fcl_taco2_tpu_torch.parallel.mesh import capture_plan
 from fcl_taco2_tpu_torch.utils.device import resolve_device
 from fcl_taco2_tpu_torch.utils.graphs import Graphed
+from fcl_taco2_tpu_torch.utils.spans import span
 
 
 def _round_up(x, mult):
@@ -167,18 +173,19 @@ class Synthesizer:
             budget = _round_up(
                 int(math.ceil(Tmax * self.frame_per_token
                               * max(d_factor, 1.0))), self.frame_bucket)
-        tokens = np.zeros((B, Tmax), np.int64)
-        ilens = np.zeros(B, np.int64)
-        durs = np.zeros((B, Tmax), np.int32)
-        for i, t in enumerate(token_lists):
-            tokens[i, :len(t)] = t
-            ilens[i] = len(t)
-            if durations is not None:
-                durs[i, :len(t)] = durations[i]
-        dev = self.device
-        args = (torch.from_numpy(tokens).to(dev),
-                torch.from_numpy(ilens).to(dev),
-                torch.from_numpy(durs).to(dev), durations is not None)
+        with span("serve.prepare"):
+            tokens = np.zeros((B, Tmax), np.int64)
+            ilens = np.zeros(B, np.int64)
+            durs = np.zeros((B, Tmax), np.int32)
+            for i, t in enumerate(token_lists):
+                tokens[i, :len(t)] = t
+                ilens[i] = len(t)
+                if durations is not None:
+                    durs[i, :len(t)] = durations[i]
+            dev = self.device
+            args = (torch.from_numpy(tokens).to(dev),
+                    torch.from_numpy(ilens).to(dev),
+                    torch.from_numpy(durs).to(dev), durations is not None)
         if isinstance(rng, torch.Generator):
             gen = rng
         else:
@@ -192,8 +199,11 @@ class Synthesizer:
         self._prepare(args, gen, budget, d_factor)
 
         t0 = time.perf_counter()
-        out = self._run(*args, gen_state, gen, budget, d_factor)
-        return {"out": out, "host": _start_readback(out), "t0": t0, "n": n,
+        with span("serve.launch"):
+            out = self._run(*args, gen_state, gen, budget, d_factor)
+        with span("serve.readback"):
+            host = _start_readback(out)
+        return {"out": out, "host": host, "t0": t0, "n": n,
                 "budget": budget, "args": args, "gen": gen,
                 "gen_state": gen_state, "d_factor": d_factor,
                 "predicted": durations is None}
@@ -202,8 +212,9 @@ class Synthesizer:
         """Wait for a pending batch's copy; returns (mels, stats).  The
         wall clock runs from its dispatch to the end of its readback."""
         n, budget = pend["n"], pend["budget"]
-        mel, olens = _finish_readback(pend["host"])
-        wall = time.perf_counter() - pend["t0"]
+        with span("serve.readback"):
+            mel, olens = _finish_readback(pend["host"])
+            wall = time.perf_counter() - pend["t0"]
 
         # never return truncated mels: when predicted durations overrun
         # the heuristic budget, the exact need is known from d_outs, so
@@ -224,7 +235,8 @@ class Synthesizer:
             mel, olens = _finish_readback(_start_readback(out))
             wall = time.perf_counter() - t0
 
-        mels = [mel[i, :olens[i]] for i in range(n)]
+        with span("serve.readback"):
+            mels = [mel[i, :olens[i]] for i in range(n)]
         total_frames = int(olens[:n].sum())
         fps = total_frames / wall if wall > 0 else float("inf")
         return mels, {"frames_per_sec": fps, "wall_sec": wall,

@@ -32,6 +32,7 @@ from fcl_taco2_tpu_torch.ops.regroup import (gather_segments,
                                              gather_token_vectors)
 from fcl_taco2_tpu_torch.utils.device import resolve_device
 from fcl_taco2_tpu_torch.utils.initializers import init_tacotron2sa_
+from fcl_taco2_tpu_torch.utils.spans import span
 
 
 def _concat_spemb(hs, spembs):
@@ -479,7 +480,11 @@ class Tacotron2SA(nn.Module):
         static, on every decoder route (the scan and ``hybrid`` run their
         loops to the static step count, frames past the bound zero), so a
         CUDA graph captures the whole call (``infer/synth.py``), given a
-        generator (an int or a seed tensor seeds one on the host).
+        generator (an int or a seed tensor seeds one on the host).  Its
+        spans (``utils/spans.py``): ``serve.frontend`` (encoder,
+        predictors, the segment plan, the token gather),
+        ``serve.decoder`` (``decode_segments``, every route) and
+        ``serve.postnet`` (the scatter, the postnet and the mask).
         """
         m = self.compute_model()
         cfg = self.cfg
@@ -490,47 +495,50 @@ class Tacotron2SA(nn.Module):
         D = cfg.max_dur
         P = B * Tmax  # one segment slot per token
 
-        hs, d_outs, p_outs, e_outs = m.synth_frontend(
-            tokens, ilens, durations=durations, f0=f0, energy=energy,
-            spembs=spembs, d_factor=d_factor)
+        with span("serve.frontend"):
+            hs, d_outs, p_outs, e_outs = m.synth_frontend(
+                tokens, ilens, durations=durations, f0=f0, energy=energy,
+                spembs=spembs, d_factor=d_factor)
 
-        # ---- device-side segment plan from durations ----
-        flat_dur = d_outs.reshape(P)
-        slots = torch.arange(P, dtype=torch.int64, device=dev)
-        seg_utt, seg_tok = slots // Tmax, slots % Tmax
-        csum = torch.cumsum(d_outs, dim=1, dtype=torch.int32)
-        seg_start = (csum - d_outs).reshape(P)
-        olens = torch.clamp(csum[:, -1], max=frame_budget)
-        tile_bounds = step_bound = None
-        if ragged_decode:
-            # duration-sorted slot order: every later use of a segment is
-            # index-driven, so permuting the index vectors relabels slots
-            order = torch.argsort(-flat_dur, stable=True)
-            flat_dur, seg_utt = flat_dur[order], seg_utt[order]
-            seg_tok, seg_start = seg_tok[order], seg_start[order]
-            tile_bounds = K.tile_step_bounds(flat_dur)
-            step_bound = flat_dur.max()
-        d_range = torch.arange(D, dtype=torch.int32, device=dev)[None, :]
-        frame_mask = d_range < flat_dur[:, None]
-        position = torch.where(
-            frame_mask,
-            d_range.float() / torch.clamp(flat_dur[:, None], min=1).float(),
-            0.0).to(dtype)
+            # ---- device-side segment plan from durations ----
+            flat_dur = d_outs.reshape(P)
+            slots = torch.arange(P, dtype=torch.int64, device=dev)
+            seg_utt, seg_tok = slots // Tmax, slots % Tmax
+            csum = torch.cumsum(d_outs, dim=1, dtype=torch.int32)
+            seg_start = (csum - d_outs).reshape(P)
+            olens = torch.clamp(csum[:, -1], max=frame_budget)
+            tile_bounds = step_bound = None
+            if ragged_decode:
+                # duration-sorted slot order: every later use of a segment
+                # is index-driven, so permuting the index vectors relabels
+                # slots
+                order = torch.argsort(-flat_dur, stable=True)
+                flat_dur, seg_utt = flat_dur[order], seg_utt[order]
+                seg_tok, seg_start = seg_tok[order], seg_start[order]
+                tile_bounds = K.tile_step_bounds(flat_dur)
+                step_bound = flat_dur.max()
+            d_range = torch.arange(D, dtype=torch.int32, device=dev)[None, :]
+            frame_mask = d_range < flat_dur[:, None]
+            position = torch.where(
+                frame_mask,
+                d_range.float()
+                / torch.clamp(flat_dur[:, None], min=1).float(),
+                0.0).to(dtype)
 
-        enc_seg = gather_token_vectors(hs, seg_utt, seg_tok)
-        seg_out = m.decode_segments(enc_seg, flat_dur, position, frame_mask,
-                                    gen, decoder_backend=decoder_backend,
-                                    tile_bounds=tile_bounds,
-                                    step_bound=step_bound, quantize=quantize,
-                                    prequant=prequant)
+            enc_seg = gather_token_vectors(hs, seg_utt, seg_tok)
+        with span("serve.decoder"):
+            seg_out = m.decode_segments(
+                enc_seg, flat_dur, position, frame_mask, gen,
+                decoder_backend=decoder_backend, tile_bounds=tile_bounds,
+                step_bound=step_bound, quantize=quantize, prequant=prequant)
 
-        before = scatter_to_timelines(seg_out, frame_mask, seg_utt,
-                                      seg_start, B, frame_budget)
-
-        seq_mask = lengths_to_non_pad_mask(olens, frame_budget)
-        after = apply_postnet_inference(m.decoder, cfg, before,
-                                        seq_mask=seq_mask)
-        after = after * seq_mask[..., None].to(after.dtype)
+        with span("serve.postnet"):
+            before = scatter_to_timelines(seg_out, frame_mask, seg_utt,
+                                          seg_start, B, frame_budget)
+            seq_mask = lengths_to_non_pad_mask(olens, frame_budget)
+            after = apply_postnet_inference(m.decoder, cfg, before,
+                                            seq_mask=seq_mask)
+            after = after * seq_mask[..., None].to(after.dtype)
         return {"mel": after.float(), "olens": olens, "d_outs": d_outs,
                 "p_outs": p_outs, "e_outs": e_outs}
 

@@ -14,12 +14,18 @@ device does the gathers:
 Zero-duration phonemes are dropped; segments are utterance-major then
 token order, so the concatenated segments of an utterance are its frames
 in order.
+
+The backward of the gathers of ``gather_token_vectors`` and
+``scatter_frames[_classed]`` (autograd's own indexing backward) is the
+span ``regroup.bwd`` (``utils/spans.py::backward_span``).
 """
 
 from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from fcl_taco2_tpu_torch.utils.spans import backward_span
 
 
 class RegroupPlan(NamedTuple):
@@ -276,10 +282,17 @@ def duration_class_caps(per_utt_durations, class_durs, batch_size,
 
 # ----- device-side gathers (plan fields arrive as tensors) -----
 
+def _gather(x, *indices):
+    """``x[indices]``, whose backward is the span ``regroup.bwd``."""
+    bs = backward_span("regroup.bwd")
+    (x,) = bs.inputs(x)
+    return bs.outputs(x[indices])[0]
+
+
 def gather_token_vectors(hs, seg_utt, seg_tok):
     """(B, Tmax, C) token vectors -> (P, C) per-segment encoder vectors
     (``regroup.py:290-295``)."""
-    return hs[seg_utt, seg_tok]
+    return _gather(hs, seg_utt, seg_tok)
 
 
 def gather_segments(ys, seg_utt, seg_start, frame_mask):
@@ -296,7 +309,7 @@ def scatter_frames(seg_out, utt_gather, utt_mask):
     """(P, D, C) phoneme-major frames -> (B, Lmax, C) utterance-major
     (``regroup.py:310-319``)."""
     P, D, C = seg_out.shape
-    out = seg_out.reshape(P * D, C)[utt_gather]  # (B, Lmax, C)
+    out = _gather(seg_out.reshape(P * D, C), utt_gather)  # (B, Lmax, C)
     return out * utt_mask[..., None].to(seg_out.dtype)
 
 
@@ -307,5 +320,5 @@ def scatter_frames_classed(seg_outs, utt_gather, utt_mask):
     C = seg_outs[0].shape[-1]
     flat = torch.cat([s.reshape(s.shape[0] * s.shape[1], C)
                       for s in seg_outs], dim=0)
-    out = flat[utt_gather]
+    out = _gather(flat, utt_gather)
     return out * utt_mask[..., None].to(flat.dtype)

@@ -30,9 +30,12 @@ None, wf_z (W, H), layers)`` with ``layers[0] = (wh0, bh0)`` (layer 0's
 input projection is folded into ``enc_gates`` and the prenet term by the
 caller) and ``layers[i > 0] = (wx, wh, bx, bh)``.
 
-The hand-built scan's forward and backward each run inside a
-``record_function`` range (``SCAN_RANGES``), so a profiler trace of an
-eager step can split the device time by the kernels they launch.
+Both scans' forward and backward each run inside a span
+(``SCAN_RANGES``, ``utils/spans.py``): a profiler trace of an eager step
+splits the device time by the ranges' launches, and a graphed step's
+marks split each replay.  The plain scan's backward is spanned by
+``backward_span`` at its inputs and outputs; with ``remat`` the
+recomputed steps run inside it.
 """
 
 from typing import NamedTuple
@@ -40,9 +43,10 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
-from torch.profiler import record_function
 
-SCAN_RANGES = ("rnn_vjp.scan_fwd", "rnn_vjp.scan_bwd")
+from fcl_taco2_tpu_torch.utils.spans import backward_span, span
+
+SCAN_RANGES = ("scan.fwd", "scan.bwd")
 
 
 class ScanSpec(NamedTuple):
@@ -124,8 +128,22 @@ def scan_plain(spec, weights, enc_gates, enc_out, prenet_steps, pos_steps,
     of its inputs, so the recomputation blends with the same masks.
     Returns outs (S, P, W), and with ``spec.capture_kd`` also
     the h of layers 0 and 1, (S, P, H) each."""
+    with span(SCAN_RANGES[0]):
+        return _scan_plain(spec, weights, enc_gates, enc_out, prenet_steps,
+                           pos_steps, keep, remat)
+
+
+def _scan_plain(spec, weights, enc_gates, enc_out, prenet_steps, pos_steps,
+                keep, remat):
     L, H = spec.dlayers, spec.dunits
     S, P = prenet_steps.shape[0], enc_gates.shape[0]
+    bwd = backward_span(SCAN_RANGES[1])
+    w_pre, w_pos, wf_z, layers = weights
+    flat = [t for layer in layers for t in layer]
+    enc_gates, enc_out, prenet_steps, pos_steps, w_pre, w_pos, wf_z, \
+        *flat = bwd.inputs(enc_gates, enc_out, prenet_steps, pos_steps,
+                           w_pre, w_pos, wf_z, *flat)
+    weights = (w_pre, w_pos, wf_z, _unflatten_layers(flat))
 
     def step(keep_s, prenet_t, pos_t, *carry):
         hs, cs, _ = step_forward(spec, weights, enc_gates, carry[:L],
@@ -149,8 +167,9 @@ def scan_plain(spec, weights, enc_gates, enc_out, prenet_steps, pos_steps,
             h_steps[i].append(carry[i])
     outs = _feat_out(spec, torch.stack(h_steps[L - 1]), weights[2], enc_out)
     if spec.capture_kd:
-        return outs, torch.stack(h_steps[0]), torch.stack(h_steps[1])
-    return outs
+        return bwd.outputs(outs, torch.stack(h_steps[0]),
+                           torch.stack(h_steps[1]))
+    return bwd.outputs(outs)[0]
 
 
 class _ZoneoutLSTMScan(torch.autograd.Function):
@@ -159,12 +178,12 @@ class _ZoneoutLSTMScan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, *args):
-        with record_function(SCAN_RANGES[0]):
+        with span(SCAN_RANGES[0]):
             return _ZoneoutLSTMScan._forward(ctx, *args)
 
     @staticmethod
     def backward(ctx, *cotangents):
-        with record_function(SCAN_RANGES[1]):
+        with span(SCAN_RANGES[1]):
             return _ZoneoutLSTMScan._backward(ctx, *cotangents)
 
     @staticmethod

@@ -33,6 +33,12 @@ the step's program (``step.py:58-67``); the ranks check that they capture
 the same batch shape (``utils/graphs.py``).  Over gloo, whose collectives
 run on the host, multi-rank steps stay eager.  The chained step stays
 single-process, as in JAX.
+
+Spans (``utils/spans.py``): ``train.forward`` (the batch's assembly and
+the loss's forward, a KD teacher's included), ``train.backward``
+(``torch.autograd.grad``) and ``train.optim`` (clip, the optimizer and
+the BatchNorm write-back); the scans and the regroup gathers open their
+own inside them (``scan.fwd``, ``scan.bwd``, ``regroup.bwd``).
 """
 
 import torch
@@ -42,6 +48,7 @@ from fcl_taco2_tpu_torch.ops.rnn import step_seed
 from fcl_taco2_tpu_torch.parallel.mesh import capture_plan
 from fcl_taco2_tpu_torch.train.optim import global_norm
 from fcl_taco2_tpu_torch.utils.graphs import Graphed
+from fcl_taco2_tpu_torch.utils.spans import span
 
 
 def _sum_over_ranks(mesh, grads, report):
@@ -67,8 +74,11 @@ def loss_and_grads(model, batch, generator, loss_fn=None, mesh=None):
     params = list(model.parameters())
     loss_fn = loss_fn or model.loss_fn
     with synced_batch_norm(mesh):
-        loss, (report, new_state, _) = loss_fn(batch, generator, train=True)
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        with span("train.forward"):
+            loss, (report, new_state, _) = loss_fn(batch, generator,
+                                                   train=True)
+        with span("train.backward"):
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(params, grads)]
     grads, report = _sum_over_ranks(mesh, grads, dict(report))
@@ -78,10 +88,11 @@ def loss_and_grads(model, batch, generator, loss_fn=None, mesh=None):
 
 @torch.no_grad()
 def _update_in_place(ts, tx, grads, new_state):
-    tx.update(list(ts.model.parameters()), grads, ts.opt_state)
-    buffers = dict(ts.model.named_buffers())
-    for name, value in new_state.items():
-        buffers[name].copy_(value)
+    with span("train.optim"):
+        tx.update(list(ts.model.parameters()), grads, ts.opt_state)
+        buffers = dict(ts.model.named_buffers())
+        for name, value in new_state.items():
+            buffers[name].copy_(value)
 
 
 def apply_update(ts, tx, grads, new_state):
@@ -219,7 +230,10 @@ class TrainStep(_GraphStats):
         return packed
 
     def _batch(self, item):
-        return self.assemble(item) if self.assemble is not None else item
+        if self.assemble is None:
+            return item
+        with span("train.forward"):
+            return self.assemble(item)
 
     def _graphs(self, ts):
         device = next(ts.model.parameters()).device

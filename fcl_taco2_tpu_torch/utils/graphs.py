@@ -33,6 +33,16 @@ which wrapper launched and how often, and every replay adds that to the
 wrappers' ``launches``.  ``tally`` does the same for any counter (the
 mesh's all-reduce calls and bytes, ``parallel/mesh.py``).
 
+Spans and replays (``utils/spans.py``): every capture opens and closes
+with a span mark and records the marks of the spans its function enters,
+so each replay splits its own device time by span.  Each replay's host
+time inside ``graph.replay()`` adds to ``launch_ns``, except a key's
+first replay (the graph's upload), kept apart as ``upload_ns``, and a
+replay under a profiler, which is only counted (``traced``) and leaves
+the spans' slots as they were: CUPTI slows a traced launch and replay,
+so the counters hold untraced replays only.  ``stats()`` gives them,
+and the spans' device ns, for every key.
+
 Collectives: a function whose ``mesh`` (``parallel/mesh.py``) reduces over
 NCCL captures its all-reduces with it; each rank replays its own graph,
 and the ranks' graphs meet in the captured collectives.  So every rank
@@ -44,14 +54,23 @@ and a mismatch raises instead of leaving a rank waiting in a collective.
 import gc
 import hashlib
 import time
+import weakref
 
 import torch
 from torch.utils import _pytree as pytree
+
+from fcl_taco2_tpu_torch.utils import spans
 
 _recording = None  # {wrapper: launches} of the capture in progress
 _tallies = None    # [(counter, key, n)] of the capture in progress
 _pools = {}        # device index -> (the shared pool, its keeper graph)
 _said = set()      # reasons printed once
+_live = weakref.WeakSet()  # every Graphed of the process, for spans.totals
+
+
+def live():
+    """Every ``Graphed`` of the process that is still referenced."""
+    return list(_live)
 
 
 def capturing():
@@ -125,7 +144,7 @@ def pool_reserved_bytes(device):
 
 class _Entry:
     def __init__(self, graph, statics, out, launches, tallies, capture_s,
-                 pool_bytes):
+                 pool_bytes, marks):
         self.graph = graph
         self.statics = statics        # the leaves; tensors are the buffers
         self.out = out
@@ -133,11 +152,26 @@ class _Entry:
         self.tallies = tallies
         self.capture_s = capture_s
         self.pool_bytes = pool_bytes
+        self.marks = marks            # the capture's spans.Capture
         self.replays = 0
+        self.traced = 0               # replays under a profiler
+        self.launch_ns = 0            # host ns in replay() ...
+        self.timed = 0                # ... of these: untraced, not first
+        self.upload_ns = None         # host ns of the first replay
 
-    def count_replay(self):
-        """Add one replay's launches and tallies to their counters."""
+    def count_replay(self, ns, traced):
+        """Add one replay's launches and tallies to their counters.  Its
+        ``ns`` in ``graph.replay()`` go to ``upload_ns`` (the key's first
+        replay) or ``launch_ns``, unless it ran under a profiler
+        (``traced``: counted only)."""
         self.replays += 1
+        if traced:
+            self.traced += 1
+        elif self.replays == 1:
+            self.upload_ns = ns
+        else:
+            self.launch_ns += ns
+            self.timed += 1
         for fn, n in self.launches.items():
             fn.launches += n
         for counter, key, n in self.tallies:
@@ -174,6 +208,7 @@ class Graphed:
         self.mesh = mesh
         self.entries = {}
         self._gen = None
+        _live.add(self)
 
     def _key(self, key, inputs):
         leaves, spec = pytree.tree_flatten(inputs)
@@ -195,10 +230,16 @@ class Graphed:
         gen = self._generator()
         if generator is not None:
             gen.set_state(generator.get_state())
+        traced = torch.autograd._profiler_enabled()
+        held = entry.marks.hold() if traced else None
+        t0 = time.perf_counter_ns()
         entry.graph.replay()
+        ns = time.perf_counter_ns() - t0
+        if held is not None:
+            entry.marks.restore(held)
         if generator is not None:
             generator.set_state(gen.get_state())
-        entry.count_replay()
+        entry.count_replay(ns, traced)
         return pytree.tree_map(
             lambda t: t.clone() if torch.is_tensor(t) else t, entry.out)
 
@@ -248,22 +289,26 @@ class Graphed:
         _recording, _tallies = {}, []
         try:
             handle = pool(dev)
+            marks = spans.start_capture(dev)
             torch.cuda.empty_cache()  # as the capture does first
             reserved = torch.cuda.memory_reserved(dev)
             graph = torch.cuda.CUDAGraph()
             graph.register_generator_state(gen)
             gen.set_state(start)
             with torch.cuda.graph(graph, pool=handle):
+                marks.begin()
                 out = self.fn(args, gen)
+                marks.end()
             torch.cuda.synchronize(dev)
             launches, tallies = _recording, _tallies
         finally:
             _recording = _tallies = None
+            spans.stop_capture()
             if collecting:
                 gc.enable()
         entry = _Entry(graph, statics, out, launches, tallies,
                        time.perf_counter() - t0,
-                       torch.cuda.memory_reserved(dev) - reserved)
+                       torch.cuda.memory_reserved(dev) - reserved, marks)
         self.entries[full] = entry
         return entry, leaves
 
@@ -275,11 +320,21 @@ class Graphed:
     def pool_bytes(self):
         return sum(e.pool_bytes for e in self.entries.values())
 
-    def stats(self):
+    def stats(self, values=None):
         """One row a captured key: name, key, capture seconds, pool bytes,
-        replays and the kernels each replay launches."""
+        replays (``traced`` of them under a profiler), the kernels each
+        replay launches, the host ns inside ``graph.replay()``
+        (``launch_ns`` over ``timed`` replays, the first apart as
+        ``upload_ns``) and ``spans``: {span: {"ns": device ns over the
+        untraced replays, "count": occurrences}}, read from the span
+        slots' ``values`` (``spans.read``; read here when not given)."""
+        if values is None and self.entries:
+            values = spans.read(self.device)
         return [{"name": self.name, "key": repr(k[0]),
                  "capture_s": e.capture_s, "pool_bytes": e.pool_bytes,
-                 "replays": e.replays,
-                 "launches": {fn.__name__: n for fn, n in e.launches.items()}}
+                 "replays": e.replays, "traced": e.traced,
+                 "launches": {fn.__name__: n for fn, n in e.launches.items()},
+                 "launch_ns": e.launch_ns, "timed": e.timed,
+                 "upload_ns": e.upload_ns,
+                 "spans": e.marks.totals(values, e.replays - e.traced)}
                 for k, e in self.entries.items()]

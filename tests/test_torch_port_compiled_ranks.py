@@ -128,9 +128,9 @@ def test_mesh_stats_count_once_per_replay(fake_group, monkeypatch):
     mesh.all_reduce_(torch.zeros(4, dtype=torch.float64))
     assert mesh.stats["calls"] == 1 and mesh.stats["bytes"] == 20
     entry = graphs._Entry(None, [], None, graphs._recording,
-                          graphs._tallies, 0.0, 0)
+                          graphs._tallies, 0.0, 0, None)
     for _ in range(3):
-        entry.count_replay()
+        entry.count_replay(0, False)
     assert entry.replays == 3
     assert mesh.stats["calls"] == 1 + 3 * 2
     assert mesh.stats["bytes"] == 20 + 3 * (5 * 4 + 4 * 8)

@@ -332,7 +332,7 @@ def test_runtime_modules_import_no_jax():
     and import neither JAX nor the JAX package."""
     new = ["train/finetune.py", "utils/summary.py", "data/transform.py",
            "data/native.py", "data/device_cache.py", "train/profiler.py",
-           "train/step.py"]
+           "train/step.py", "utils/spans.py"]
     for rel in new:
         path = REPO / "fcl_taco2_tpu_torch" / rel
         assert path.exists(), rel
