@@ -30,6 +30,14 @@ prints no result):
    launch's grid, block tiles and grid barriers are logged, and the
    card's clocks (NVML) beside each kernel's time; bounds at the TF32
    tensor cores (3 passes) beside fp32.
+5b. The regroup gathers' backward (``[regroup]``, after ``[pwg]``):
+   ``csrc/regroup.cu`` against its plain version (autograd's indexing
+   backward, ``index_put_`` with accumulation) on the eight gathers of a
+   KD step at the training cells' shapes (batch 64, Lmax 1,024, classes
+   (8, 16, 32, 50): four token gathers at 256 and scatters at 80 and
+   3 x 256, bf16), bit-equal with the padded positions' gradients zero;
+   the card's ms of each (calls queued behind a sleep, so the host's
+   launch stays out) beside its bound (bytes once).
 6. Main paths, with the headline benchmark's protocol (bench.py: idim 70,
    odim 80, 96 phonemes, Poisson(8) durations clipped to [1, 50], seed 0,
    durations given), seeded full-width weights, bf16 compute.  Text ->
@@ -81,18 +89,20 @@ prints no result):
    functions at full width, one reading each, as ``--smoke`` runs them);
    every row must name this card and its power limit and every timing in
    it (median, min, max) be finite and positive, and the launch counters,
-   zeroed before the first script, must show all four kernels launched by
+   zeroed before the first script, must show all five kernels launched by
    the bench paths.  The timers are ``fcl_taco2_tpu_torch/utils/
    timing.py``'s and the bench batch ``utils/bench_protocol.py``'s,
    which this script imports too.
 7. Training (``[train]``), after the serving paths; no decoder or PWG
    kernel may launch in it (the JAX package has no Pallas kernel on the
-   training path): the hand-built decoder backward against autograd
-   through the plain loop at FCL-taco2-T width (fp32, TF32 off, dropouts
-   and zoneout 0, one 96-phoneme utterance, classed and single-class
-   plans; loss within 1e-6, every gradient leaf within 1e-4); the teacher
-   train step at the bench protocol (bench.py:342-447: B=16, 96
-   phonemes, bf16, Adam lr 1e-3, clip 1.0; classes 8,16,32,50 and none):
+   training path), and the regroup gathers' backward must (here and in
+   every training phase below): the hand-built decoder backward against
+   autograd through the plain loop at FCL-taco2-T width (fp32, TF32 off,
+   dropouts and zoneout 0, one 96-phoneme utterance, classed and
+   single-class plans; loss within 1e-6, every gradient leaf within
+   1e-4); the teacher train step at the bench protocol
+   (bench.py:342-447: B=16, 96 phonemes, bf16, Adam lr 1e-3, clip 1.0;
+   classes 8,16,32,50 and none):
    step ms by CUDA events (median of 10 after 3 warm-up), the
    synchronized forward / backward / optimizer split, frames/s, device
    busy time from a ``torch.profiler`` trace, peak memory, first and last
@@ -147,7 +157,8 @@ prints no result):
    ``--device-cache off --steps-per-dispatch 1`` (graphed single steps)
    and ``--steps-per-dispatch 4``, epoch walls.  The
    native plan builder must be the converter's.
-11. Fine-tuning (``[finetune]``, after ``[cli]``), no kernel may launch:
+11. Fine-tuning (``[finetune]``, after ``[cli]``), no kernel but the
+   regroup gathers' backward may launch:
    ``fcl_train`` FCL-taco2-T with ``--enc-init``/``--dec-init`` from the
    ``[kd]`` teacher, ``--freeze-mods enc.`` and ``--preprocess-conf``
    (utterance CMVN + a frequency mask), 2 epochs: the selected tensors
@@ -155,8 +166,9 @@ prints no result):
    parameters are bit-unchanged after the epochs and the others moved;
    then the student with ``--profile-dir``: the Chrome trace exists and
    holds CUDA kernel events.
-12. Preprocessing (``[preprocess]``, after ``[finetune]``), no kernel may
-   launch: ``audio/synthcorpus.generate_corpus`` writes 128 utterances
+12. Preprocessing (``[preprocess]``, after ``[finetune]``), no kernel but
+   the training epoch's regroup gathers' backward may launch:
+   ``audio/synthcorpus.generate_corpus`` writes 128 utterances
    (seed 0, 24-80 phones: ~6.5 s mean, LJSpeech-like lengths); the
    frontend (``Frontend``, default config) on the card against its CPU
    path on the same wavs (log10-mel 1e-4 abs, energy 1e-4 of the max,
@@ -326,12 +338,12 @@ def phase_device():
 
 
 def phase_build():
-    """Both CUDA sources and the native plan builder at once, one
+    """The CUDA sources and the native plan builder at once, one
     compiler each."""
     from fcl_taco2_tpu_torch.data import native
     from fcl_taco2_tpu_torch.utils.cuda_build import build
     t0 = time.perf_counter()
-    names = ("ar_decode", "pwg_stream")
+    names = ("ar_decode", "pwg_stream", "regroup")
     with ThreadPoolExecutor(len(names) + 1) as pool:
         plan_lib = pool.submit(native.build)
         built = list(pool.map(build, names))
@@ -510,11 +522,25 @@ def phase_dropout(models):
 
 def _counters():
     from fcl_taco2_tpu_torch.ops import decoder_cuda as K
+    from fcl_taco2_tpu_torch.ops import regroup_cuda as R
     from fcl_taco2_tpu_torch.vocoder import pwg_cuda as PC
     return {"fused_ar_decode": K.fused_ar_decode,
             "fused_ar_decode_hbm": K.fused_ar_decode_hbm,
             "pwg_generate_streaming": PC.pwg_generate_streaming,
-            "pwg_stream_step": PC.pwg_stream_step}
+            "pwg_stream_step": PC.pwg_stream_step,
+            "gather_backward": R.gather_backward}
+
+
+TRAIN_KERNEL = "gather_backward"  # the one kernel a training step runs
+
+
+def check_training_counts(phase, counts):
+    """A training path launches the regroup gathers' backward and no
+    decoder or PWG kernel."""
+    serving = {k: v for k, v in counts.items() if k != TRAIN_KERNEL and v}
+    if serving or not counts[TRAIN_KERNEL]:
+        raise RuntimeError(f"{phase}: want {TRAIN_KERNEL} and no serving "
+                           f"kernel launched, got {counts}")
 
 
 def zero_counts():
@@ -764,6 +790,62 @@ def pwg_bounds(cfg, B, positions, inputs_floats, state=False):
     b32_ms, _ = bound_ms(nbytes, ops, torch.float32)
     return dict(bound_ms=b_ms, bound_by=b_by, bound_dtype="tf32 x3",
                 bound_fp32_ms=b32_ms)
+
+
+def kd_step_gathers():
+    """The eight regroup gathers of a KD step at the training cells'
+    shapes (``bench_protocol.cell_plans``): (tag, leading dims of x,
+    index arrays, valid, width) for the student's four class token
+    gathers (256 wide) and the scatters of its mel (80) and of its three
+    KD captures (256)."""
+    from fcl_taco2_tpu_torch.utils.bench_protocol import cell_plans
+    dur, _, plan, _ = cell_plans()
+    rows = sum(c.frame_mask.size for c in plan.classes)
+    out = [(f"tokens{c.dur_cap}", dur.shape, (c.seg_utt, c.seg_tok),
+            c.frame_mask[:, 0], 256) for c in plan.classes]
+    return out + [(f"scatter{C}", (rows,), (plan.utt_gather,), plan.utt_mask,
+                   C) for C in (ODIM, 256, 256, 256)]
+
+
+def phase_regroup(smi, kind):
+    """``csrc/regroup.cu`` against its plain version (autograd's indexing
+    backward) on a KD step's eight gathers, bf16, the padded positions'
+    gradients zero: bit-equal; the card's ms of each queued behind a sleep
+    (``timing.queued_ms``) beside its bound.  Returns the kernels row."""
+    from fcl_taco2_tpu_torch.ops import regroup_cuda as R
+    from fcl_taco2_tpu_torch.utils.timing import queued_ms
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tot = dict(kernel_ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    for tag, lead, idx, valid, C in kd_step_gathers():
+        idx = tuple(torch.from_numpy(np.asarray(i)).to(dev) for i in idx)
+        valid = torch.from_numpy(np.asarray(valid)).to(dev)
+        g = torch.randn(*valid.shape, C, generator=gen, device=dev).to(dt)
+        g = g * valid[..., None].to(dt)
+        got = R.gather_backward(g, idx, valid, lead)
+        want = R.gather_backward_plain(g, idx, valid, lead)
+        if not torch.equal(got, want):
+            raise RuntimeError(f"[regroup] {tag}: the kernel's gradient "
+                               f"differs from autograd's")
+        n, rows = valid.numel(), int(np.prod(lead))
+        # bytes once: g read, grad_x written, the plan's indices and mask
+        nbytes = (n + rows) * C * 2 + n * (4 * len(idx) + 1)
+        b_ms, _ = bound_ms(nbytes, 0, dt)
+        k_ms = queued_ms(lambda: R.gather_backward(g, idx, valid, lead), 20)
+        p_ms = queued_ms(
+            lambda: R.gather_backward_plain(g, idx, valid, lead), 3)
+        for key, v in (("kernel_ms", k_ms), ("plain_ms", p_ms),
+                       ("bound_ms", b_ms)):
+            tot[key] += v
+        log(f"[regroup] {tag}: {n} positions ({n - int(valid.sum())} "
+            f"padded) -> {rows} x {C} bf16, bit-equal; kernel {k_ms:.4f} "
+            f"ms, plain {p_ms:.3f} ms, bound {b_ms:.4f} ms (bytes) | {smi}")
+    log(f"[regroup] a KD step's eight gathers on {kind}: kernel "
+        f"{tot['kernel_ms']:.3f} ms, plain {tot['plain_ms']:.2f} ms, bound "
+        f"{tot['bound_ms']:.4f} ms (roofline share "
+        f"{tot['bound_ms'] / tot['kernel_ms']:.1%}) | {smi}")
+    return dict(tot, shape="a KD step's 8 gathers: B=64 Lmax=1024 "
+                "classes 8,16,32,50; tokens 4x256, scatters 80+3x256, bf16")
 
 
 def phase_pwg_kernels():
@@ -1585,8 +1667,8 @@ def phase_compiled(models, pwg, smi, kind):
     zero_counts()
     compiled_steps(smi, kind)
     counts = read_counts()
-    if any(counts.values()):
-        raise RuntimeError(f"the training steps launched a kernel: {counts}")
+    check_training_counts("[compiled] steps", counts)
+    launches[TRAIN_KERNEL] += counts[TRAIN_KERNEL]
     return launches
 
 
@@ -1918,7 +2000,8 @@ def restored_opt_state_diff(path, cfg, tx):
 def phase_train(smi, kind):
     """Training on the card: the hand-built backward held to autograd, the
     teacher step at the bench protocol (classed and single-class), and the
-    trainer end to end with a resume.  No decoder or PWG kernel runs."""
+    trainer end to end with a resume.  No decoder or PWG kernel runs; the
+    regroup gathers' backward does."""
     zero_counts()
     t0 = time.perf_counter()
     train_vjp_check(smi)
@@ -1928,9 +2011,9 @@ def phase_train(smi, kind):
     torch.cuda.synchronize()
     counts = read_counts()
     log(f"[train] kernel launches during the phase {counts} (the training "
-        f"path runs none); phase {time.perf_counter() - t0:.1f} s")
-    if any(counts.values()):
-        raise RuntimeError(f"the training path launched a kernel: {counts}")
+        f"path runs only {TRAIN_KERNEL}); phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    check_training_counts("[train]", counts)
     log("[train] " + json.dumps({"train_steps": rows, "device": smi}))
 
 
@@ -2059,9 +2142,8 @@ def phase_kd(smi, kind, root):
     torch.cuda.synchronize()
     counts = read_counts()
     log(f"[kd] kernel launches during the phase {counts} (the KD path runs "
-        f"none)")
-    if any(counts.values()):
-        raise RuntimeError(f"the KD path launched a kernel: {counts}")
+        f"only {TRAIN_KERNEL})")
+    check_training_counts("[kd]", counts)
     log("[kd] " + json.dumps({"kd_steps": rows, "device": smi}))
     return ckpts
 
@@ -2398,9 +2480,8 @@ def phase_graph(smi, kind):
     torch.cuda.synchronize()
     counts = read_counts()
     log(f"[graph] kernel launches during the phase {counts} (the training "
-        f"path runs none); native plan builder in use")
-    if any(counts.values()):
-        raise RuntimeError(f"the training path launched a kernel: {counts}")
+        f"path runs only {TRAIN_KERNEL}); native plan builder in use")
+    check_training_counts("[graph]", counts)
     log("[graph] " + json.dumps({"agreement": agree, "timing": timing,
                                   "fcl_train": cli, "device": smi}))
 
@@ -2496,9 +2577,8 @@ def phase_finetune(smi, kind, root, tckpt, train_json, valid_json):
     torch.cuda.synchronize()
     counts = read_counts()
     log(f"[finetune] kernel launches during the phase {counts} (the "
-        f"training path runs none)")
-    if any(counts.values()):
-        raise RuntimeError(f"the training path launched a kernel: {counts}")
+        f"training path runs only {TRAIN_KERNEL})")
+    check_training_counts("[finetune]", counts)
 
 
 # [preprocess]: a synthetic corpus at LJSpeech-like lengths (~6.5 s mean,
@@ -2696,9 +2776,9 @@ def phase_preprocess(smi, kind, root):
     torch.cuda.synchronize()
     counts = read_counts()
     log(f"[preprocess] kernel launches during the phase {counts} (the "
-        f"preprocessing path runs none)")
-    if any(counts.values()):
-        raise RuntimeError(f"preprocessing launched a kernel: {counts}")
+        f"preprocessing path runs none; its training epoch only "
+        f"{TRAIN_KERNEL})")
+    check_training_counts("[preprocess]", counts)
     return {"audio_s": audio_s, "cli_s": t_cli, "stages": stages,
             "peak_mib": peak, "manifests": n_utts, "frontend": agree,
             "goldens": goldens}
@@ -3501,6 +3581,7 @@ def main():
     rows = timed_phase("kernels", phase_kernels, models)
     timed_phase("dropout", phase_dropout, models)
     pwg, pwg_rows = timed_phase("pwg", phase_pwg_kernels)
+    regroup_row = timed_phase("regroup", phase_regroup, smi, kind)
     launches = timed_phase("main", phase_main_path, models, kind)
     for k, v in timed_phase("import", phase_import, models, kind).items():
         launches[k] += v
@@ -3561,6 +3642,11 @@ def main():
             "replaces": replaces, "launches": launches[name],
             **row, "library_ms": None, "weights": "float32",
             "shape": shape})
+    kernels.append({
+        "name": "gather_backward", "route": "cuda",
+        "source": "fcl_taco2_tpu_torch/csrc/regroup.cu",
+        "replaces": None, "launches": launches["gather_backward"],
+        "library_ms": None, **regroup_row})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

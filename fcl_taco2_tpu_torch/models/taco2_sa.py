@@ -274,7 +274,8 @@ class Tacotron2SA(nn.Module):
         hs_cond = hs + p_embs + e_embs if cfg.use_fe_condition else hs
         if batch.seg_classes is not None:
             class_inputs = tuple(
-                (gather_token_vectors(hs_cond, sc.seg_utt, sc.seg_tok),
+                (gather_token_vectors(hs_cond, sc.seg_utt, sc.seg_tok,
+                                      sc.frame_mask[:, 0]),
                  gather_segments(batch.mel, sc.seg_utt, sc.seg_start,
                                  sc.frame_mask),
                  sc.position)
@@ -285,7 +286,8 @@ class Tacotron2SA(nn.Module):
                 capture_kd)
         else:
             enc_seg = gather_token_vectors(hs_cond, batch.seg_utt,
-                                           batch.seg_tok)
+                                           batch.seg_tok,
+                                           batch.frame_mask[:, 0])
             seg_targets = gather_segments(batch.mel, batch.seg_utt,
                                           batch.seg_start, batch.frame_mask)
             dec = decoder_teacher_forced(

@@ -16,8 +16,12 @@ token order, so the concatenated segments of an utterance are its frames
 in order.
 
 The backward of the gathers of ``gather_token_vectors`` and
-``scatter_frames[_classed]`` (autograd's own indexing backward) is the
-span ``regroup.bwd`` (``utils/spans.py::backward_span``).
+``scatter_frames[_classed]`` is the span ``regroup.bwd``
+(``utils/spans.py::backward_span``): on the card the kernel of
+``ops/regroup_cuda.py``, a gather through the plan's inverse map, which
+relies on the builders' padding: every padded position (a frame past its
+utterance's length, a segment of no duration) aims at row 0 of what it
+reads; on the CPU autograd's own indexing backward.
 """
 
 from typing import NamedTuple
@@ -25,6 +29,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from fcl_taco2_tpu_torch.ops.regroup_cuda import RegroupGather
 from fcl_taco2_tpu_torch.utils.spans import backward_span
 
 
@@ -282,17 +287,28 @@ def duration_class_caps(per_utt_durations, class_durs, batch_size,
 
 # ----- device-side gathers (plan fields arrive as tensors) -----
 
-def _gather(x, *indices):
-    """``x[indices]``, whose backward is the span ``regroup.bwd``."""
+def _gather(x, valid, *indices):
+    """``x[indices]``, whose backward is the span ``regroup.bwd``: where a
+    gradient is taken on the card, ``RegroupGather``'s kernel (``valid``:
+    the positions that are not padding), else plain indexing."""
     bs = backward_span("regroup.bwd")
     (x,) = bs.inputs(x)
-    return bs.outputs(x[indices])[0]
+    if bs.on and x.is_cuda:
+        if valid is None:
+            raise ValueError("a gradient through a regroup gather on the "
+                             "card needs the positions' valid mask")
+        out = RegroupGather.apply(x, valid, *indices)
+    else:
+        out = x[indices]
+    return bs.outputs(out)[0]
 
 
-def gather_token_vectors(hs, seg_utt, seg_tok):
+def gather_token_vectors(hs, seg_utt, seg_tok, valid=None):
     """(B, Tmax, C) token vectors -> (P, C) per-segment encoder vectors
-    (``regroup.py:290-295``)."""
-    return _gather(hs, seg_utt, seg_tok)
+    (``regroup.py:290-295``).  ``valid`` (P,) bool, the segments of at
+    least one frame (``frame_mask[:, 0]``), is needed for a gradient on
+    the card."""
+    return _gather(hs, valid, seg_utt, seg_tok)
 
 
 def gather_segments(ys, seg_utt, seg_start, frame_mask):
@@ -309,7 +325,8 @@ def scatter_frames(seg_out, utt_gather, utt_mask):
     """(P, D, C) phoneme-major frames -> (B, Lmax, C) utterance-major
     (``regroup.py:310-319``)."""
     P, D, C = seg_out.shape
-    out = _gather(seg_out.reshape(P * D, C), utt_gather)  # (B, Lmax, C)
+    out = _gather(seg_out.reshape(P * D, C), utt_mask,
+                  utt_gather)  # (B, Lmax, C)
     return out * utt_mask[..., None].to(seg_out.dtype)
 
 
@@ -320,5 +337,5 @@ def scatter_frames_classed(seg_outs, utt_gather, utt_mask):
     C = seg_outs[0].shape[-1]
     flat = torch.cat([s.reshape(s.shape[0] * s.shape[1], C)
                       for s in seg_outs], dim=0)
-    out = _gather(flat, utt_gather)
+    out = _gather(flat, utt_mask, utt_gather)
     return out * utt_mask[..., None].to(flat.dtype)

@@ -34,8 +34,8 @@ Both scans' forward and backward each run inside a span
 (``SCAN_RANGES``, ``utils/spans.py``): a profiler trace of an eager step
 splits the device time by the ranges' launches, and a graphed step's
 marks split each replay.  The plain scan's backward is spanned by
-``backward_span`` at its inputs and outputs; with ``remat`` the
-recomputed steps run inside it.
+``backward_span`` at its activation inputs and its outputs; with
+``remat`` the recomputed steps run inside it.
 """
 
 from typing import NamedTuple
@@ -137,13 +137,15 @@ def _scan_plain(spec, weights, enc_gates, enc_out, prenet_steps, pos_steps,
                 keep, remat):
     L, H = spec.dlayers, spec.dunits
     S, P = prenet_steps.shape[0], enc_gates.shape[0]
+    # the span's identity takes the activations only: ``enc_gates`` enters
+    # every step, so the span still closes after the whole backward, and
+    # each weight's per-step gradients still add up in one buffer with
+    # those of the other scans that share it (the duration classes), in
+    # the order an unspanned scan adds them (through an identity they
+    # would be summed per scan first, another bf16 rounding)
     bwd = backward_span(SCAN_RANGES[1])
-    w_pre, w_pos, wf_z, layers = weights
-    flat = [t for layer in layers for t in layer]
-    enc_gates, enc_out, prenet_steps, pos_steps, w_pre, w_pos, wf_z, \
-        *flat = bwd.inputs(enc_gates, enc_out, prenet_steps, pos_steps,
-                           w_pre, w_pos, wf_z, *flat)
-    weights = (w_pre, w_pos, wf_z, _unflatten_layers(flat))
+    enc_gates, enc_out, prenet_steps, pos_steps = bwd.inputs(
+        enc_gates, enc_out, prenet_steps, pos_steps)
 
     def step(keep_s, prenet_t, pos_t, *carry):
         hs, cs, _ = step_forward(spec, weights, enc_gates, carry[:L],

@@ -50,7 +50,6 @@ def train_batch_arrays(B=TRAIN_B, duration_classes=(), seed=0):
     mel / f0 / energy; the classed plan when ``duration_classes`` is given
     (caps bucketed by 64), else the single-class plan with B*N_PHONES
     segments.  Returns (Batch, olens)."""
-    from fcl_taco2_tpu_torch.models.taco2_sa import Batch, SegClass
     from fcl_taco2_tpu_torch.ops.regroup import (build_classed_plan,
                                                  build_plan,
                                                  duration_class_caps)
@@ -72,20 +71,60 @@ def train_batch_arrays(B=TRAIN_B, duration_classes=(), seed=0):
                                    cap_bucket=64)
         plan = build_classed_plan(durations, olens, duration_classes, caps,
                                   Lmax)
+    else:
+        plan = build_plan(durations, olens, MAX_DUR, B * Tmax, Lmax)
+    return plan_batch(plan, **common), olens
+
+
+def plan_batch(plan, **fields):
+    """A numpy ``Batch`` of a regroup plan (classed or single-class) and
+    the other ``fields`` given (the rest None)."""
+    from fcl_taco2_tpu_torch.models.taco2_sa import Batch, SegClass
+    rest = dict(tokens=None, ilens=None, mel=None, olens=None,
+                durations=None, f0=None, energy=None)
+    rest.update(fields)
+    if hasattr(plan, "classes"):
         return Batch(
             seg_utt=None, seg_tok=None, seg_start=None, frame_mask=None,
             position=None, utt_gather=plan.utt_gather,
             utt_mask=plan.utt_mask,
             seg_classes=tuple(
                 SegClass(c.seg_utt, c.seg_tok, c.seg_start, c.frame_mask,
-                         c.position) for c in plan.classes),
-            **common), olens
-    plan = build_plan(durations, olens, MAX_DUR, B * Tmax, Lmax)
+                         c.position) for c in plan.classes), **rest)
     return Batch(
         seg_utt=plan.seg_utt, seg_tok=plan.seg_tok,
         seg_start=plan.seg_start, frame_mask=plan.frame_mask,
         position=plan.position, utt_gather=plan.utt_gather,
-        utt_mask=plan.utt_mask, **common), olens
+        utt_mask=plan.utt_mask, **rest)
+
+
+def cell_plans(seed=0, B=64, corpus=2048):
+    """The regroup plans of one batch of ``B`` utterances shaped like the
+    training cells' corpus (``benchmark/traffic/kd_b64.json``: N(71, 22)
+    phonemes in 12..112, Poisson(8) frames in 1..50), at the shapes
+    ``BatchConverter.fit_corpus`` fits to ``corpus`` such utterances
+    (Tmax and Lmax rounded up to 8 and 64, class caps and the segment
+    count bucketed by 64).  Returns (durations (B, Tmax) int32, olens,
+    the classed plan over ``DURATION_CLASSES``, the single-class plan)."""
+    from fcl_taco2_tpu_torch.ops.regroup import (build_classed_plan,
+                                                 build_plan,
+                                                 duration_class_caps)
+    rng = np.random.default_rng(seed)
+    n = np.clip(np.rint(rng.normal(71, 22, corpus)), 12, 112).astype(int)
+    durs = [np.clip(rng.poisson(MEAN_DUR, k), 1, MAX_DUR).astype(np.int32)
+            for k in n]
+    Tmax = -(-int(n.max()) // 8) * 8
+    Lmax = -(-max(int(d.sum()) for d in durs) // 64) * 64
+    caps = duration_class_caps(durs, DURATION_CLASSES, B, cap_bucket=64)
+    P = -(-int(np.sort(n)[::-1][:B].sum()) // 64) * 64
+    durations = np.zeros((B, Tmax), np.int32)
+    for i, j in enumerate(rng.choice(corpus, B, replace=False)):
+        durations[i, :n[j]] = durs[j]
+    olens = durations.sum(1).astype(np.int32)
+    return (durations, olens,
+            build_classed_plan(durations, olens, DURATION_CLASSES, caps,
+                               Lmax),
+            build_plan(durations, olens, MAX_DUR, P, Lmax))
 
 
 def train_batch(B, duration_classes, device, seed=0):

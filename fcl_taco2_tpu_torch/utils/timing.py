@@ -7,6 +7,9 @@ reported under a device metric's name.  ``card()`` names the card and its
 power limit (``nvidia-smi``), which every recorded number carries.
 
 - ``median_ms``: CUDA events around single calls, median.
+- ``queued_ms``: the card's time a call over calls queued behind a
+  ``torch.cuda._sleep``, so the host's launch time stays out of a short
+  kernel's reading.
 - ``timed``: one call between two ``torch.cuda.synchronize()``, host
   clock; ``host_median_ms``: the median of several such calls;
   ``enqueue_ms``: the host's time to return from a call, whose work the
@@ -184,6 +187,28 @@ def median_ms(fn, reps, warmup=1):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def queued_ms(fn, calls, reps=5, sleep_cycles=50_000_000):
+    """Median over ``reps`` readings of the card's ms a call of ``fn``:
+    each reading queues ``calls`` calls between two CUDA events behind a
+    ``torch.cuda._sleep`` of ``sleep_cycles`` (~25 ms at 1.98 GHz), which
+    the host's enqueue has to fit inside, so the calls run back to back.
+    One call first, unqueued (builds and warms up)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(sleep_cycles)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
     return float(np.median(times))
 
 

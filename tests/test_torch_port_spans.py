@@ -278,6 +278,45 @@ def test_scans_are_unchanged_by_their_spans(capture_kd, capture,
             assert torch.equal(a, b)
 
 
+def _shared_weight_grads(remat):
+    """Two plain scans sharing one set of bf16 weights cast from fp32
+    leaves, as the duration classes share the decoder's under bf16
+    compute: the fp32 leaves' gradients."""
+    spec, weights, *first = _scan_args(False, seed=1)
+    _, _, *second = _scan_args(False, seed=2)
+    w_pre, w_pos, wf_z, layers = weights
+    leaves = [w_pre, w_pos, wf_z, *[t for layer in layers for t in layer]]
+
+    def bf(t):
+        return t if t.dtype == torch.bool else t.to(torch.bfloat16)
+
+    shared = (bf(w_pre), bf(w_pos), bf(wf_z),
+              tuple(tuple(bf(t) for t in layer) for layer in layers))
+    g = torch.Generator().manual_seed(7)
+    loss = 0.0
+    for enc_gates, enc_out, prenet, pos, keep in (first, second):
+        outs = rnn_vjp.scan_plain(spec, shared, bf(enc_gates), bf(enc_out),
+                                  bf(prenet), bf(pos), keep, remat=remat)
+        loss = loss + (bf(torch.randn(outs.shape, generator=g))
+                       * outs).float().sum()
+    return torch.autograd.grad(loss, leaves)
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
+def test_scans_sharing_weights_sum_their_gradients_unspanned(remat,
+                                                             monkeypatch):
+    """Scans that share their weights (one a duration class) give the
+    weights the gradients they get without the spans' identities, bit
+    for bit in bf16: each weight's per-step gradients add up in one
+    buffer in the unspanned order (summed per scan first, as through an
+    identity at the weights, they round otherwise)."""
+    got = _shared_weight_grads(remat)
+    monkeypatch.setattr(rnn_vjp, "backward_span", _NoSpan)
+    want = _shared_weight_grads(remat)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 def test_graphed_replay_bookkeeping():
     """``_Entry`` keeps a key's first replay as its upload, sums the rest,
     and only counts a replay under a profiler; ``stats`` reads the spans
