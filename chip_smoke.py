@@ -6,9 +6,10 @@ Phases, each raising on failure (the script then exits non-zero and
 prints no result):
 
 1. Device: name and power limit (nvidia-smi), TF32 switches off.
-2. Build: ``csrc/ar_decode.cu`` and ``csrc/pwg_stream.cu`` with nvcc for
-   sm_90a, and ``csrc/fclrt.cpp`` (the plan builder) with g++, from the
-   checkout, the three compilers started together.
+2. Build: ``csrc/ar_decode.cu``, ``csrc/pwg_stream.cu``,
+   ``csrc/regroup.cu`` and ``csrc/attn_decode.cu`` with nvcc for sm_90a,
+   and ``csrc/fclrt.cpp`` (the plan builder) with g++, from the checkout,
+   the compilers started together.
 3. Decoder kernels vs plain versions on the card, full width, dropout 0:
    ``fused_ar_decode`` (student weights; fp32, bf16) and
    ``fused_ar_decode_hbm`` (teacher weights; bf16, int8), P = 96 and
@@ -38,6 +39,17 @@ prints no result):
    3 x 256, bf16), bit-equal with the padded positions' gradients zero;
    the card's ms of each (calls queued behind a sleep, so the host's
    launch stays out) beside its bound (bytes once).
+5c. Tacotron2's attention decode kernel (``[attn_decode]``, after
+   ``[regroup]``): ``csrc/attn_decode.cu`` at the published widths of
+   ``benchmark/configs/tacotron2-ljspeech.json`` (bf16 weights) on a
+   batch of ``tacotron2-synth-b16``'s shapes (B=16 of 12..112 phonemes,
+   T=128, lengths pinned to Poisson(8) durations' sums, up to ~950 steps,
+   dropout 0.5) against its plain version on the same card inputs
+   (lengths and steps exact, frames, stop logits and attention weights
+   within ``TOL_ATTN``, and the plain version without the location term
+   beyond it); the kernel's ms beside the plain version's and the bound
+   the benchmark's roofline counts; ``Synthesizer``'s replays, the
+   counter zeroed just before them, one launch each.
 6. Main paths, with the headline benchmark's protocol (bench.py: idim 70,
    odim 80, 96 phonemes, Poisson(8) durations clipped to [1, 50], seed 0,
    durations given), seeded full-width weights, bf16 compute.  Text ->
@@ -222,7 +234,8 @@ prints no result):
    batch 2 graphed against eager, bit for bit.
 15. One JSON line of the kernels (launches: every main path above, the
    CLIs, ``[quality]``'s decodes and the ranks of ``[parallel]``
-   included), the nvidia-smi line,
+   included; ``attn_decode``'s from ``[attn_decode]``'s replays), the
+   nvidia-smi line,
    and last the result line
    ``{"ok": true, "device": {...}}``.  Each phase's seconds are logged
    (``[phase]``).
@@ -343,7 +356,7 @@ def phase_build():
     from fcl_taco2_tpu_torch.data import native
     from fcl_taco2_tpu_torch.utils.cuda_build import build
     t0 = time.perf_counter()
-    names = ("ar_decode", "pwg_stream", "regroup")
+    names = ("ar_decode", "pwg_stream", "regroup", "attn_decode")
     with ThreadPoolExecutor(len(names) + 1) as pool:
         plan_lib = pool.submit(native.build)
         built = list(pool.map(build, names))
@@ -602,7 +615,7 @@ def phase_main_path(models, kind):
         tokens, ilens, dd = _padded(toks, durs, B, synth.tok_bucket)
         full = synth.model.synthesize(tokens, ilens, 0, stats["budget"],
                                       durations=dd, quantize=quantize,
-                                      prequant=synth.prequant)
+                                      prequant=synth.options["prequant"])
         olens = full["olens"].cpu().numpy()
         mel = full["mel"].cpu().numpy()
         for i, n in enumerate(olens[:len(toks)]):
@@ -750,7 +763,8 @@ def breakdown(synth, tokens, ilens, dd, budget, tag, kind):
                 ms.clear()
             _, total = timed(lambda: m.synthesize(
                 tokens, ilens, 0, budget, durations=dd,
-                quantize=synth.quantize, prequant=synth.prequant))
+                quantize=synth.options["quantize"],
+                prequant=synth.options["prequant"]))
             rows.append((total, stage_ms["synth_frontend"][0],
                          stage_ms["decode_segments"][0]))
     finally:
@@ -1167,7 +1181,8 @@ def graphed_split(synth, tokens, ilens, dd, budget):
     m.decode_segments = spy
     try:
         m.synthesize(tokens, ilens, 0, budget, durations=dd,
-                     quantize=synth.quantize, prequant=synth.prequant)
+                     quantize=synth.options["quantize"],
+                     prequant=synth.options["prequant"])
     finally:
         del m.decode_segments
     enc, dur, pos, fm, _ = seen["a"]
@@ -1207,7 +1222,8 @@ def eager_split(synth, tokens, ilens, dd, budget):
         for _ in range(4):
             _, total = timed(lambda: m.synthesize(
                 tokens, ilens, 0, budget, durations=dd,
-                quantize=synth.quantize, prequant=synth.prequant))
+                quantize=synth.options["quantize"],
+                prequant=synth.options["prequant"]))
             rows.append((total, stage["synth_frontend"],
                          stage["decode_segments"]))
     finally:
@@ -1291,7 +1307,7 @@ def compiled_serving(models, pwg, kind, smi):
             continue
         # a re-dispatch from a saved state, two states, the keep rate
         gen = torch.Generator(device="cuda").manual_seed(3)
-        pend = g._dispatch(toks, gen, durations=durs)
+        pend = g._dispatch(toks, gen, targets=durs)
         args = (*pend["args"], pend["gen_state"])
         again = g._run(*args, pend["gen"], pend["budget"], 1.0)
         eager = e._run(*args, torch.Generator(device="cuda"),
@@ -3533,6 +3549,136 @@ def phase_cli(smi, kind, root, ckpts):
     return launches
 
 
+TOL_ATTN = 2e-2
+TOL_ATTN_WHY = ("bf16 activations before each product on both sides; a "
+                "last-bit difference in a sum flips one rounding, which the "
+                "loop's feedback carries over the whole utterance")
+
+
+def t2_batch(B=16, seed=0):
+    """A ``tacotron2-synth-b16`` call's shapes: B utterances of N(71, 22)
+    phonemes clipped to 12..112 (the first 112), tokens 1..69, each
+    pinned to the sum of its Poisson(8) durations clipped to 1..50."""
+    rng = np.random.default_rng(seed)
+    lens = np.clip(np.round(rng.normal(71, 22, B)), 12, 112).astype(int)
+    lens[0] = 112
+    toks = [rng.integers(1, IDIM, n).astype(np.int32) for n in lens]
+    frames = [int(durations(rng, n).sum()) for n in lens]
+    return toks, frames
+
+
+def phase_attn_decode(smi, kind):
+    """Tacotron2's attention decode kernel (``csrc/attn_decode.cu``) at the
+    published widths (``benchmark/configs/tacotron2-ljspeech.json``, bf16
+    weights) on a batch of the cell's shapes (``t2_batch``: B=16, T=128,
+    frame budget 1,024, dropout 0.5) against its plain version on the same
+    card inputs: lengths and steps exact, frames, stop logits and
+    attention weights within ``TOL_ATTN`` of the plain version's largest,
+    and the plain version with the location term dropped beyond it (a
+    kernel that lost the term fails).  The kernel's ms (CUDA events) beside
+    the plain version's and the bound (``benchmark/counts/tacotron2.py``,
+    the roofline metric's count); then the launches of ``Synthesizer``'s
+    replays.  Returns (the kernels row, the launches)."""
+    import copy
+    from benchmark.counts import tacotron2 as counts
+    from fcl_taco2_tpu_torch.infer import Synthesizer
+    from fcl_taco2_tpu_torch.models.attention import project_memory
+    from fcl_taco2_tpu_torch.models.encoder import encoder_apply
+    from fcl_taco2_tpu_torch.models.tacotron2 import (Tacotron2,
+                                                      Tacotron2Config)
+    from fcl_taco2_tpu_torch.ops import attn_decode_cuda as A
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "benchmark", "configs",
+                           "tacotron2-ljspeech.json")) as f:
+        mc = json.load(f)["model"]
+    cfg = Tacotron2Config(**mc)
+    model = Tacotron2(cfg, seed=0)
+    m = model.compute_model()
+    toks, frames = t2_batch()
+    B, budget = len(toks), -(-max(frames) // 256) * 256
+    tokens, ilens, _ = _padded(toks, [np.zeros(len(t), np.int32)
+                                      for t in toks], B, 32)
+    lengths = torch.tensor(frames, device="cuda")
+    kw = dict(budget=budget, zoneout=cfg.zoneout_rate,
+              dropout=cfg.dropout_rate, thr_logit=0.0)
+    seed = torch.tensor([2 ** 31 - 99], dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        hs = encoder_apply(m.encoder, cfg, tokens, ilens)
+        pe = project_memory(m.decoder.att, hs)
+        lo, hi = A.length_bounds(ilens, budget, lengths)
+        w = A.decoder_weights(m.decoder)
+        packed = m.packed_decoder()
+
+        def kernel():
+            return A.attn_decode(w, hs, pe, ilens, lo, hi, seed,
+                                 packed=packed, with_att=True, **kw)
+
+        def plain(weights=w):
+            return A.attn_decode_plain(weights, hs, pe, ilens, lo, hi, seed,
+                                       **kw)
+
+        got = kernel()
+        want = plain()
+        no_loc = dict(w, att=copy.deepcopy(w["att"]))
+        no_loc["att"].loc_conv.weight.zero_()
+        fault = plain(no_loc)
+    if not (torch.equal(got["olens"], want["olens"])
+            and torch.equal(got["olens"].cpu(),
+                            torch.tensor(frames, dtype=torch.int32))
+            and int(got["steps"]) == int(want["steps"]) == max(frames)):
+        raise RuntimeError(f"[attn_decode] lengths {got['olens'].tolist()} "
+                           f"/ {int(got['steps'])} steps, plain "
+                           f"{want['olens'].tolist()} / "
+                           f"{int(want['steps'])}, pinned {frames}")
+
+    def gap(a, b):
+        return {k: float((a[k] - b[k]).abs().max()
+                         / (b[k].abs().max() + 1e-6))
+                for k in ("out", "stop", "att")}
+
+    err, fault_err = gap(got, want), gap(fault, want)
+    log(f"[attn_decode] B={B} T={tokens.shape[1]} budget {budget}, "
+        f"{max(frames)} steps, frames {sum(frames)}: kernel against plain "
+        + ", ".join(f"{k} {v:.2e}" for k, v in err.items())
+        + f" (tolerance {TOL_ATTN}: {TOL_ATTN_WHY}); the plain version "
+        "without the location term " + ", ".join(
+            f"{k} {v:.2e}" for k, v in fault_err.items()))
+    if max(err.values()) > TOL_ATTN:
+        raise RuntimeError(f"[attn_decode] kernel against plain {err} > "
+                           f"{TOL_ATTN}")
+    if max(fault_err.values()) <= TOL_ATTN:
+        raise RuntimeError(f"[attn_decode] the location term moves the "
+                           f"answer by {fault_err} only: the tolerance "
+                           f"{TOL_ATTN} cannot see a kernel that drops it")
+    with torch.no_grad():
+        k_ms = median_ms(kernel, 5)
+        p_ms = median_ms(plain, 1, warmup=0)
+    utts = [(len(t), f) for t, f in zip(toks, frames)]
+    ops = sum(f * counts.decoder_step_flops(mc, L) for L, f in utts)
+    b_ms, by = bound_ms(counts.decoder_loop_bytes(mc, utts, 2), ops,
+                        torch.bfloat16)
+    log(f"[attn_decode] kernel {k_ms:.3f} ms ({1e3 * k_ms / max(frames):.2f}"
+        f" us a step), plain {p_ms:.1f} ms, bound {b_ms:.4f} ms ({by}; "
+        f"roofline share {b_ms / k_ms:.2%}) | {smi}")
+
+    synth = Synthesizer(model, batch_size=B, tok_bucket=32, frame_bucket=256)
+    synth.synth_batch(toks, 0, lengths=frames)  # captures the graph
+    A.attn_decode.launches = 0
+    calls = 4
+    for rep in range(calls):
+        mels, _ = synth.synth_batch(toks, rep + 1, lengths=frames)
+    launches = A.attn_decode.launches
+    if launches != calls or [x.shape[0] for x in mels] != frames:
+        raise RuntimeError(f"[attn_decode] {calls} Synthesizer calls "
+                           f"launched the kernel {launches} times")
+    log(f"[attn_decode] Synthesizer on {kind}: {calls} calls, {launches} "
+        f"launches (one a replay of the synthesize graph)")
+    return dict(kernel_ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by,
+                err=err, tol=TOL_ATTN, weights="bfloat16",
+                shape=f"B={B} T={tokens.shape[1]} budget {budget}, "
+                f"{max(frames)} steps, dropout 0.5"), launches
+
+
 def _padded(toks, durs, B, bucket):
     Tmax = -(-max(len(t) for t in toks) // bucket) * bucket
     tokens = torch.zeros(B, Tmax, dtype=torch.int64)
@@ -3582,6 +3728,8 @@ def main():
     timed_phase("dropout", phase_dropout, models)
     pwg, pwg_rows = timed_phase("pwg", phase_pwg_kernels)
     regroup_row = timed_phase("regroup", phase_regroup, smi, kind)
+    attn_row, attn_launches = timed_phase("attn_decode", phase_attn_decode,
+                                          smi, kind)
     launches = timed_phase("main", phase_main_path, models, kind)
     for k, v in timed_phase("import", phase_import, models, kind).items():
         launches[k] += v
@@ -3647,6 +3795,11 @@ def main():
         "source": "fcl_taco2_tpu_torch/csrc/regroup.cu",
         "replaces": None, "launches": launches["gather_backward"],
         "library_ms": None, **regroup_row})
+    kernels.append({
+        "name": "attn_decode", "route": "cuda",
+        "source": "fcl_taco2_tpu_torch/csrc/attn_decode.cu",
+        "replaces": None, "launches": attn_launches, "library_ms": None,
+        **attn_row})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -29,10 +29,20 @@ ranks that share one card, reduces and broadcasts CUDA tensors but
 gathers none.  The prenet dropout's generator is the same on every rank,
 as JAX replicates the key.
 
+The model decides what its lengths take, through four methods:
+``serve_options`` (its serving keywords, made once), ``serve_plan`` (the
+frames a batch needs, whether that is exact, and the per-utterance
+targets padded), ``serve`` (``synthesize`` with those targets) and, where
+a plan can fall short, ``frames_needed``.  ``Tacotron2SA``'s targets are
+durations; ``Tacotron2``'s (``models/tacotron2.py``) are pinned lengths
+(``lengths=``, espnet's minlen = maxlen), else each row stops at its stop
+token within ``maxlenratio`` times its phonemes.  A model that gives stop
+logits has them in the stats.
+
 Host spans (``utils/spans.py``): ``serve.prepare`` (padding, the copies
 to the card), ``serve.launch`` (the graph's call) and ``serve.readback``
 (starting the copy to the host; waiting for it and slicing); the graph's
-own are ``Tacotron2SA.synthesize``'s.
+own are the model's ``synthesize``'s.
 """
 
 import math
@@ -44,7 +54,6 @@ import numpy as np
 import torch
 
 from fcl_taco2_tpu_torch.infer.ark import ArkScpWriter
-from fcl_taco2_tpu_torch.ops.decoder_cuda import maybe_prequantize
 from fcl_taco2_tpu_torch.ops.rnn import step_seed
 from fcl_taco2_tpu_torch.parallel.mesh import capture_plan
 from fcl_taco2_tpu_torch.utils.device import resolve_device
@@ -61,11 +70,13 @@ class Synthesizer:
                  frame_per_token=16, frame_bucket=256, ragged_decode=True,
                  quantize="none", decoder_backend="auto", device="cuda",
                  mesh=None):
-        """``model``: a ``Tacotron2SA``; it is moved to ``device`` (the card
-        unless ``device="cpu"``), and its parameters are cast to the
-        config's compute dtype once here — the JAX package casts inside
-        every call, to the same values.  ``quantize``: "none" | "int8"
-        (streaming decoder entry only; codes prepared once here).
+        """``model``: a ``Tacotron2SA`` or a ``Tacotron2``; it is moved to
+        ``device`` (the card unless ``device="cpu"``), and its parameters
+        are cast to the config's compute dtype once here — the JAX
+        package casts inside every call, to the same values.
+        ``quantize``, ``decoder_backend``, ``ragged_decode``: the model's
+        ``serve_options`` (for ``Tacotron2SA``: int8 on the streaming
+        decoder entry only, its codes prepared once here).
         ``mesh``: the serving ranks (``parallel/mesh.py``); ``batch_size``
         must divide by their number."""
         if mesh is not None and batch_size % mesh.size:
@@ -74,13 +85,9 @@ class Synthesizer:
         self.mesh = mesh if mesh is not None and mesh.distributed else None
         self.device = resolve_device(device)
         self.model = model.to(self.device).compute_model()
-        self.ragged_decode = bool(ragged_decode)
-        self.quantize = quantize
-        self.decoder_backend = decoder_backend
-        self.prequant = None
-        if decoder_backend in ("auto", "pallas_hbm", "hybrid"):
-            self.prequant = maybe_prequantize(
-                self.model.cfg, self.model.decoder.jax_layout(), quantize)
+        self.options = self.model.serve_options(
+            quantize=quantize, decoder_backend=decoder_backend,
+            ragged_decode=ragged_decode, sharded=self.mesh is not None)
         self.batch_size = batch_size
         self.tok_bucket = tok_bucket
         self.frame_per_token = frame_per_token
@@ -92,14 +99,14 @@ class Synthesizer:
         self.graphed = ok
 
     def _graph_body(self, inputs, gen):
-        tokens, ilens, durs, d_factor, use_dur, budget = inputs
-        return self._sharded(tokens, ilens, durs, use_dur, gen, budget,
+        tokens, ilens, targets, d_factor, given, budget = inputs
+        return self._sharded(tokens, ilens, targets, given, gen, budget,
                              d_factor)
 
-    def _inputs(self, tokens, ilens, durs, use_dur, budget, d_factor):
-        return (tokens, ilens, durs,
+    def _inputs(self, tokens, ilens, targets, given, budget, d_factor):
+        return (tokens, ilens, targets,
                 torch.tensor(float(d_factor), dtype=torch.float32),
-                bool(use_dur), int(budget))
+                bool(given), int(budget))
 
     def _prepare(self, args, gen, budget, d_factor):
         """Capture the batch's graph (when new), outside the timed
@@ -108,35 +115,33 @@ class Synthesizer:
             self.graphs.prepare(None, self._inputs(*args, budget, d_factor),
                                 gen)
 
-    def _run(self, tokens, ilens, durs, use_dur, gen_state, gen, budget,
+    def _run(self, tokens, ilens, targets, given, gen_state, gen, budget,
              d_factor):
         gen.set_state(gen_state)  # a re-dispatch draws the same dropout
         if self.graphed:
             return self.graphs(None, self._inputs(
-                tokens, ilens, durs, use_dur, budget, d_factor), gen)
-        return self._sharded(tokens, ilens, durs, use_dur, gen, budget,
+                tokens, ilens, targets, given, budget, d_factor), gen)
+        return self._sharded(tokens, ilens, targets, given, gen, budget,
                              d_factor)
 
-    def _sharded(self, tokens, ilens, durs, use_dur, gen, budget, d_factor):
-        """``synthesize`` of the batch; on a mesh of this rank's rows, the
-        outputs gathered from every rank."""
+    def _sharded(self, tokens, ilens, targets, given, gen, budget,
+                 d_factor):
+        """The model's ``serve`` of the batch; on a mesh of this rank's
+        rows, the outputs gathered from every rank."""
         if self.mesh is None:
-            return self._synthesize(tokens, ilens, durs, use_dur, gen,
-                                    budget, d_factor)
+            return self._serve(tokens, ilens, targets, given, gen, budget,
+                               d_factor)
         b = tokens.shape[0] // self.mesh.size
         rows = slice(self.mesh.rank * b, self.mesh.rank * b + b)
-        out = self._synthesize(tokens[rows], ilens[rows], durs[rows],
-                               use_dur, gen, budget, d_factor)
+        out = self._serve(tokens[rows], ilens[rows], targets[rows], given,
+                          gen, budget, d_factor)
         return {k: None if v is None else self._gather(v, rows)
                 for k, v in out.items()}
 
-    def _synthesize(self, tokens, ilens, durs, use_dur, gen, budget,
-                    d_factor):
-        return self.model.synthesize(
-            tokens, ilens, gen, frame_budget=budget,
-            durations=durs if use_dur else None, d_factor=d_factor,
-            ragged_decode=self.ragged_decode, quantize=self.quantize,
-            decoder_backend=self.decoder_backend, prequant=self.prequant)
+    def _serve(self, tokens, ilens, targets, given, gen, budget, d_factor):
+        return self.model.serve(tokens, ilens, gen, budget,
+                                targets if given else None, d_factor,
+                                **self.options)
 
     def _gather(self, part, rows):
         """Every rank's rows of an output: each rank fills its own rows of
@@ -145,7 +150,7 @@ class Synthesizer:
         full[rows] = part
         return self.mesh.all_reduce_(full)
 
-    def _dispatch(self, token_lists, rng, durations=None, d_factor=1.0,
+    def _dispatch(self, token_lists, rng, targets=None, d_factor=1.0,
                   before_capture=None):
         """Launch one padded batch and start copying its result to the
         host; returns the pending batch for ``_consume``.  On the card the
@@ -159,33 +164,19 @@ class Synthesizer:
         if n > B:
             raise ValueError(f"{n} utterances > batch_size {B}")
         Tmax = _round_up(max(len(t) for t in token_lists), self.tok_bucket)
-        if durations is not None:
-            # exact budget from the given durations: the device's
-            # per-phoneme round(d * factor) + clip, so it never truncates
-            D = self.model.cfg.max_dur
-            need = max(
-                int(np.clip(np.round(np.asarray(d, np.float32)
-                                     * np.float32(d_factor)),
-                            0, D).sum())
-                for d in durations)
-            budget = _round_up(need, self.frame_bucket)
-        else:
-            budget = _round_up(
-                int(math.ceil(Tmax * self.frame_per_token
-                              * max(d_factor, 1.0))), self.frame_bucket)
+        need, exact, padded = self.model.serve_plan(
+            token_lists, targets, B, Tmax, d_factor, self.frame_per_token)
+        budget = _round_up(need, self.frame_bucket)
         with span("serve.prepare"):
             tokens = np.zeros((B, Tmax), np.int64)
             ilens = np.zeros(B, np.int64)
-            durs = np.zeros((B, Tmax), np.int32)
             for i, t in enumerate(token_lists):
                 tokens[i, :len(t)] = t
                 ilens[i] = len(t)
-                if durations is not None:
-                    durs[i, :len(t)] = durations[i]
             dev = self.device
             args = (torch.from_numpy(tokens).to(dev),
                     torch.from_numpy(ilens).to(dev),
-                    torch.from_numpy(durs).to(dev), durations is not None)
+                    torch.from_numpy(padded).to(dev), targets is not None)
         if isinstance(rng, torch.Generator):
             gen = rng
         else:
@@ -206,22 +197,22 @@ class Synthesizer:
         return {"out": out, "host": host, "t0": t0, "n": n,
                 "budget": budget, "args": args, "gen": gen,
                 "gen_state": gen_state, "d_factor": d_factor,
-                "predicted": durations is None}
+                "exact": exact}
 
     def _consume(self, pend):
         """Wait for a pending batch's copy; returns (mels, stats).  The
         wall clock runs from its dispatch to the end of its readback."""
         n, budget = pend["n"], pend["budget"]
         with span("serve.readback"):
-            mel, olens = _finish_readback(pend["host"])
+            mel, olens, stop = _finish_readback(pend["host"])
             wall = time.perf_counter() - pend["t0"]
 
-        # never return truncated mels: when predicted durations overrun
-        # the heuristic budget, the exact need is known from d_outs, so
-        # re-dispatch once at the exact bucket
+        # never return truncated mels: when a guessed budget falls short
+        # (predicted durations), the model knows the exact need from the
+        # answer, so re-dispatch once at the exact bucket
         redispatched = 0
-        while pend["predicted"] and int((olens[:n] >= budget).sum()):
-            need = int(pend["out"]["d_outs"][:n].sum(dim=1).max())
+        while not pend["exact"] and int((olens[:n] >= budget).sum()):
+            need = self.model.frames_needed(pend["out"], n)
             new_budget = _round_up(need, self.frame_bucket)
             if new_budget <= budget:
                 break  # budget boundary hit exactly; nothing was dropped
@@ -232,29 +223,39 @@ class Synthesizer:
             t0 = time.perf_counter()
             out = self._run(*pend["args"], pend["gen_state"], pend["gen"],
                             budget, pend["d_factor"])
-            mel, olens = _finish_readback(_start_readback(out))
+            mel, olens, stop = _finish_readback(_start_readback(out))
             wall = time.perf_counter() - t0
 
         with span("serve.readback"):
             mels = [mel[i, :olens[i]] for i in range(n)]
         total_frames = int(olens[:n].sum())
         fps = total_frames / wall if wall > 0 else float("inf")
-        return mels, {"frames_per_sec": fps, "wall_sec": wall,
-                      "total_frames": total_frames, "truncated": 0,
-                      "redispatched": redispatched, "budget": budget}
+        stats = {"frames_per_sec": fps, "wall_sec": wall,
+                 "total_frames": total_frames, "truncated": 0,
+                 "redispatched": redispatched, "budget": budget}
+        if stop is not None:
+            stats["stop"] = [stop[i, :olens[i]] for i in range(n)]
+        return mels, stats
 
     def synth_batch(self, token_lists: List[np.ndarray], rng,
                     durations: Optional[List[np.ndarray]] = None,
-                    d_factor: float = 1.0):
+                    d_factor: float = 1.0,
+                    lengths: Optional[List[int]] = None):
         """Synthesize a batch of token sequences; returns (mels, stats).
 
         ``rng``: int seed or ``torch.Generator`` (on the model's device)
-        for the prenet dropout.  mels: list of (L_i, odim) float32 numpy;
-        stats: frames/s over the whole batch call (wall clock includes the
-        copy back to the host)."""
-        return self._consume(self._dispatch(token_lists, rng,
-                                            durations=durations,
-                                            d_factor=d_factor))
+        for the prenet dropout.  ``durations`` (``Tacotron2SA``) or
+        ``lengths`` (``Tacotron2``: each utterance's frames, pinned): the
+        model's targets.  mels: list of (L_i, odim) float32 numpy; stats:
+        frames/s over the whole batch call (wall clock includes the copy
+        back to the host) and, where the model gives them, ``stop``: each
+        utterance's stop logits."""
+        if durations is not None and lengths is not None:
+            raise ValueError("give durations or lengths, not both")
+        return self._consume(self._dispatch(
+            token_lists, rng,
+            targets=durations if lengths is None else lengths,
+            d_factor=d_factor))
 
     def synth_manifest(self, utts, out_dir, write_ark=True, rng=0,
                        label="decode", use_gt_durations=False, d_factor=1.0):
@@ -317,7 +318,7 @@ class Synthesizer:
                 if use_gt_durations:
                     durs = [load_durations(u) for u in chunk]
                 disp = self._dispatch([u.tokenids for u in chunk], gen,
-                                      durations=durs, d_factor=d_factor,
+                                      targets=durs, d_factor=d_factor,
                                       before_capture=flush)
                 flush()
                 pending = (chunk, disp)
@@ -343,25 +344,28 @@ class Synthesizer:
 
 
 def _start_readback(out):
-    """Start copying a batch's mel and olens to the host: pinned buffers,
-    non-blocking copies and an event on the card; the tensors themselves
-    on the CPU."""
-    mel, olens = out["mel"], out["olens"]
-    if not mel.is_cuda:
-        return mel, olens, None
+    """Start copying a batch's mel, olens and stop logits (None where the
+    model gives none) to the host: pinned buffers, non-blocking copies and
+    an event on the card; the tensors themselves on the CPU."""
+    ts = [out["mel"], out["olens"], out.get("stop")]
+    if not ts[0].is_cuda:
+        return ts, None
     host = []
-    for t in (mel, olens):
-        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        h.copy_(t, non_blocking=True)
+    for t in ts:
+        h = None
+        if t is not None:
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t, non_blocking=True)
         host.append(h)
     event = torch.cuda.Event()
     event.record()
-    return host[0], host[1], event
+    return host, event
 
 
 def _finish_readback(host):
-    """Wait for ``_start_readback``'s copies; returns numpy (mel, olens)."""
-    mel, olens, event = host
+    """Wait for ``_start_readback``'s copies; returns numpy (mel, olens,
+    stop or None)."""
+    ts, event = host
     if event is not None:
         event.synchronize()
-    return mel.numpy(), olens.numpy()
+    return tuple(None if t is None else t.numpy() for t in ts)

@@ -11,8 +11,10 @@ per-utterance timelines; nothing loops over phonemes on the host.
 """
 
 import copy
+import math
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -543,6 +545,51 @@ class Tacotron2SA(nn.Module):
             after = after * seq_mask[..., None].to(after.dtype)
         return {"mel": after.float(), "olens": olens, "d_outs": d_outs,
                 "p_outs": p_outs, "e_outs": e_outs}
+
+    # ---- what ``infer/synth.py::Synthesizer`` asks of the model it serves
+
+    def serve_options(self, quantize="none", decoder_backend="auto",
+                      ragged_decode=True, sharded=False):
+        """``synthesize``'s serving keywords, made once: the int8 codes
+        where the streaming entry takes them."""
+        prequant = None
+        if decoder_backend in ("auto", "pallas_hbm", "hybrid"):
+            prequant = K.maybe_prequantize(self.cfg,
+                                           self.decoder.jax_layout(),
+                                           quantize)
+        return dict(ragged_decode=bool(ragged_decode), quantize=quantize,
+                    decoder_backend=decoder_backend, prequant=prequant)
+
+    def serve_plan(self, token_lists, durations, rows, Tmax, d_factor,
+                   frame_per_token):
+        """(frames the batch needs, whether that is exact, the durations
+        padded to (rows, Tmax) int32).  Given durations the need is the
+        device's per-phoneme round(d * d_factor) + clip, so it never
+        truncates; predicted ones get a guess, and ``frames_needed``."""
+        durs = np.zeros((rows, Tmax), np.int32)
+        if durations is None:
+            return (int(math.ceil(Tmax * frame_per_token
+                                  * max(d_factor, 1.0))), False, durs)
+        need = max(
+            int(np.clip(np.round(np.asarray(d, np.float32)
+                                 * np.float32(d_factor)),
+                        0, self.cfg.max_dur).sum())
+            for d in durations)
+        for i, (t, d) in enumerate(zip(token_lists, durations)):
+            durs[i, :len(t)] = d
+        return need, True, durs
+
+    def serve(self, tokens, ilens, rng, frame_budget, targets, d_factor,
+              **options):
+        """``synthesize`` with ``targets`` as the durations."""
+        return self.synthesize(tokens, ilens, rng, frame_budget,
+                               durations=targets, d_factor=d_factor,
+                               **options)
+
+    @staticmethod
+    def frames_needed(out, n):
+        """The frames the first ``n`` rows' predicted durations take."""
+        return int(out["d_outs"][:n].sum(dim=1).max())
 
     @torch.no_grad()
     def decode_segments(self, enc_seg, flat_dur, position, frame_mask,

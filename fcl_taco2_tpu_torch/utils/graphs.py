@@ -327,14 +327,21 @@ class Graphed:
         (``launch_ns`` over ``timed`` replays, the first apart as
         ``upload_ns``) and ``spans``: {span: {"ns": device ns over the
         untraced replays, "count": occurrences}}, read from the span
-        slots' ``values`` (``spans.read``; read here when not given)."""
+        slots' ``values`` (``spans.read``; read here when not given), and
+        ``counters`` where the capture counts any (``spans.count``)."""
         if values is None and self.entries:
             values = spans.read(self.device)
-        return [{"name": self.name, "key": repr(k[0]),
-                 "capture_s": e.capture_s, "pool_bytes": e.pool_bytes,
-                 "replays": e.replays, "traced": e.traced,
-                 "launches": {fn.__name__: n for fn, n in e.launches.items()},
-                 "launch_ns": e.launch_ns, "timed": e.timed,
-                 "upload_ns": e.upload_ns,
-                 "spans": e.marks.totals(values, e.replays - e.traced)}
-                for k, e in self.entries.items()]
+        rows = []
+        for k, e in self.entries.items():
+            row = {"name": self.name, "key": repr(k[0]),
+                   "capture_s": e.capture_s, "pool_bytes": e.pool_bytes,
+                   "replays": e.replays, "traced": e.traced,
+                   "launches": {fn.__name__: n
+                                for fn, n in e.launches.items()},
+                   "launch_ns": e.launch_ns, "timed": e.timed,
+                   "upload_ns": e.upload_ns,
+                   "spans": e.marks.totals(values, e.replays - e.traced)}
+            if e.marks.counters:
+                row["counters"] = e.marks.counter_totals(values)
+            rows.append(row)
+        return rows

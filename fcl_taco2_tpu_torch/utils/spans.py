@@ -37,6 +37,12 @@ A replay under a profiler leaves its graph's slots as they were
 (``Capture.hold``/``restore`` around it, ``utils/graphs.py``): CUPTI
 slows a traced replay, so the slots hold untraced replays only.
 
+Counters.  ``count(name, value)`` inside a capture adds a device
+tensor's sum to the graph's slot ``name`` at every replay: what only the
+card knows, such as the steps an AR loop ran before its last row ended.
+Counter slots lie among the graph's span slots (a traced replay leaves
+them as they were too) and are never part of a replay's device time.
+
 ``totals()`` reads the buffer (one small copy to the host, made only
 when asked) and sums every live ``Graphed``'s captures by graph name;
 ``None`` when nothing was captured (a CPU run).
@@ -101,7 +107,7 @@ class Capture:
     ``launch(last, region)`` captures one mark (region -1: none).
     ``seq`` records the region each mark ends (None for the opening
     mark), ``counts`` each span's entries a replay, ``regions`` each
-    region's slot."""
+    region's slot, ``counters`` each counter's slot."""
 
     def __init__(self, buf, launch):
         self.buf, self.launch = buf, launch
@@ -109,15 +115,20 @@ class Capture:
         self.stop = self.last + 1
         self.regions = {}
         self.counts = {}
+        self.counters = {}
         self.seq = []
         self.stack = [OTHER]
+
+    def _slot(self):
+        # one capture at a time, so a graph's slots are contiguous
+        slot = self.buf.alloc()
+        self.stop = slot + 1
+        return slot
 
     def _mark(self, ends):
         self.seq.append(ends)
         if ends is not None and ends not in self.regions:
-            # one capture at a time, so a graph's slots are contiguous
-            self.regions[ends] = self.buf.alloc()
-            self.stop = self.regions[ends] + 1
+            self.regions[ends] = self._slot()
         self.launch(self.last, -1 if ends is None else self.regions[ends])
 
     def begin(self):
@@ -137,6 +148,14 @@ class Capture:
                                "the end of a capture")
         self._mark(OTHER)
 
+    def count(self, name, value):
+        """Capture the add of ``value``'s sum to counter ``name``."""
+        if name not in self.counters:
+            self.counters[name] = self._slot()
+        slot = self.counters[name]
+        self.buf.slots[slot:slot + 1].add_(
+            value.sum().to(torch.int64).reshape(1))
+
     def hold(self):
         """A copy of this graph's slots, taken on the current stream."""
         return self.buf.slots[self.last:self.stop].clone()
@@ -152,6 +171,11 @@ class Capture:
         return {name: {"ns": int(values[slot]),
                        "count": self.counts.get(name, 1) * replays}
                 for name, slot in self.regions.items()}
+
+    def counter_totals(self, values):
+        """{counter: its sum over the untraced replays}."""
+        return {name: int(values[slot])
+                for name, slot in self.counters.items()}
 
 
 def start_capture(device):
@@ -180,6 +204,15 @@ def _capture_here():
     if cap is not None and torch.cuda.is_current_stream_capturing():
         return cap
     return None
+
+
+def count(name, value):
+    """Add the sum of ``value`` (a tensor on the card) to counter ``name``
+    of the graph being captured, once a replay; nothing outside a
+    capture."""
+    cap = _capture_here()
+    if cap is not None:
+        cap.count(name, value)
 
 
 def _open_range(name):
@@ -297,7 +330,8 @@ def totals():
     "timed" replays: untraced, each key's first left out), "upload_ns"
     (the keys' first replays), "device_ns" (all regions, ``OTHER``
     included), "spans": {span: {"ns", "count" (occurrences), "replays"
-    (of the keys that hold it)}}}}."""
+    (of the keys that hold it)}}, and, where the graph counts any,
+    "counters": {counter: its sum over the untraced replays}}}."""
     from fcl_taco2_tpu_torch.utils import graphs
     values, rows = {}, []
     for g in graphs.live():
@@ -327,4 +361,7 @@ def totals():
             gs["ns"] += s["ns"]
             gs["count"] += s["count"]
             gs["replays"] += replays
+        for name, v in r.get("counters", {}).items():
+            gc = g.setdefault("counters", {})
+            gc[name] = gc.get(name, 0) + v
     return out

@@ -366,3 +366,63 @@ def test_nothing_captured_reads_nothing():
         run = harness.Run(config, mix)
         run.calls, run.window_s = [{"utts": [(70, 560)]}], 0.1
         assert harness.load_module("metrics", name).read(run) is None
+
+
+SA_KEYS = {"replays", "traced", "launch_ns", "timed", "upload_ns",
+           "device_ns", "spans"}
+
+
+def _graph_on_card(monkeypatch, name, build):
+    """A ``Graphed`` whose one capture ``build(cap)`` records, reported as
+    on the card (``totals`` reads its slots through ``spans.read``)."""
+    card = FakeCard()
+    cap = spans.Capture(card, card.launch)
+    monkeypatch.setattr(spans, "_active", cap)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: True)
+    cap.begin()
+    build(cap)
+    cap.end()
+    monkeypatch.setattr(spans, "_active", None)
+    g = graphs.Graphed(lambda x, gen: x, "cpu", name)
+    g.entries[("k",)] = graphs._Entry(None, [], None, {}, [], 0.1, 0, cap)
+    g.entries[("k",)].count_replay(10, False)
+    g.device = torch.device("cuda")
+    return g, cap, card
+
+
+def test_counters_land_in_the_totals_of_their_graph(monkeypatch):
+    """``spans.count`` inside a capture adds to slots of the graph's own
+    (inside what a traced replay holds and gives back); ``totals()``
+    reports them under ``counters`` for that graph alone, and an SA
+    graph's totals keep their keys."""
+    def t2(cap):
+        with span("serve.decoder"):
+            pass
+        spans.count("ar.steps", torch.tensor([9], dtype=torch.int32))
+        spans.count("ar.frames", torch.tensor([9, 4, 7], dtype=torch.int32))
+
+    def sa(cap):
+        with span("serve.decoder"):
+            pass
+
+    g2, cap, card = _graph_on_card(monkeypatch, "synthesize", t2)
+    slots = set(cap.counters.values())
+    assert set(cap.counters) == {"ar.steps", "ar.frames"}
+    assert slots < set(range(cap.last, cap.stop))
+    assert [int(card.slots[s]) for s in sorted(slots)] == [9, 20]
+    g1, _, card1 = _graph_on_card(monkeypatch, "tts_batch", sa)
+    rows = {}
+    for g, c in ((g2, card), (g1, card1)):  # each graph's own slots
+        monkeypatch.setattr(graphs, "live", lambda g=g: [g])
+        monkeypatch.setattr(spans, "read", lambda dev, c=c: c.slots.tolist())
+        rows[g.name] = spans.totals()[g.name]
+    assert rows["synthesize"]["counters"] == {"ar.steps": 9, "ar.frames": 20}
+    assert set(rows["synthesize"]) == SA_KEYS | {"counters"}
+    assert set(rows["tts_batch"]) == SA_KEYS
+    assert "serve.decoder" in rows["tts_batch"]["spans"]
+
+
+def test_a_count_outside_a_capture_is_nothing():
+    spans.count("ar.steps", torch.tensor([3]))
+    assert spans.totals() is None
