@@ -7,7 +7,8 @@ prints no result):
 
 1. Device: name and power limit (nvidia-smi), TF32 switches off.
 2. Build: ``csrc/ar_decode.cu``, ``csrc/pwg_stream.cu``,
-   ``csrc/regroup.cu`` and ``csrc/attn_decode.cu`` with nvcc for sm_90a,
+   ``csrc/regroup.cu``, ``csrc/attn_decode.cu`` and ``csrc/blstm.cu``
+   with nvcc for sm_90a,
    and ``csrc/fclrt.cpp`` (the plan builder) with g++, from the checkout,
    the compilers started together.
 3. Decoder kernels vs plain versions on the card, full width, dropout 0:
@@ -49,7 +50,25 @@ prints no result):
    within ``TOL_ATTN``, and the plain version without the location term
    beyond it); the kernel's ms beside the plain version's and the bound
    the benchmark's roofline counts; ``Synthesizer``'s replays, the
-   counter zeroed just before them, one launch each.
+   counter zeroed just before them, one launch each (of the attention
+   kernel and of the serving BiLSTM's).
+5d. The serving encoder's BiLSTM (``[blstm]``, after ``[attn_decode]``):
+   ``csrc/blstm.cu`` against its plain version (``ops/rnn.py::bilstm``,
+   the loop) on the same card inputs at the synth cells' shapes (B=16,
+   H=256, Tmax 96 and 128, the lengths of a call of 12..112 phonemes) and
+   the tts cell's (B=1, H=128, 96 phonemes), bf16: the largest gap within
+   ``TOL_BLSTM`` and the share of bit-equal values; the call's ms (queued
+   behind a sleep) beside its bound (bytes once: both W_hh, both
+   directions' xproj and the output, over 3.35 TB/s), the loop's ms on
+   the same inputs, PyTorch's one library call for the same function
+   (``nn.LSTM(bidirectional=True)`` over ``pack_padded_sequence``, cuDNN;
+   the kernels line's ``library_ms``) and the serial-step floor (the same
+   call at H=6, B=1 and the same steps: what the chain of steps costs
+   with no work in them); then a teacher ``Synthesizer`` at batch 16, the counter zeroed
+   after its capture: one launch a replay, and ``blstm.steps`` the
+   batch's longest row each replay.  Every main path below logs its
+   ``bilstm_infer`` launches; the training steps launch none (their
+   evaluations do).
 6. Main paths, with the headline benchmark's protocol (bench.py: idim 70,
    odim 80, 96 phonemes, Poisson(8) durations clipped to [1, 50], seed 0,
    durations given), seeded full-width weights, bf16 compute.  Text ->
@@ -108,8 +127,11 @@ prints no result):
 7. Training (``[train]``), after the serving paths; no decoder or PWG
    kernel may launch in it (the JAX package has no Pallas kernel on the
    training path), and the regroup gathers' backward must (here and in
-   every training phase below): the hand-built decoder backward against
-   autograd through the plain loop at FCL-taco2-T width (fp32, TF32 off,
+   every training phase below); the serving BiLSTM launches in no
+   training step, only in the trainers' evaluations (``EvalStep`` calls,
+   counted apart).  The hand-built
+   decoder backward against autograd through the plain loop at
+   FCL-taco2-T width (fp32, TF32 off,
    dropouts and zoneout 0, one 96-phoneme utterance, classed and
    single-class plans; loss within 1e-6, every gradient leaf within
    1e-4); the teacher train step at the bench protocol
@@ -234,7 +256,8 @@ prints no result):
    batch 2 graphed against eager, bit for bit.
 15. One JSON line of the kernels (launches: every main path above, the
    CLIs, ``[quality]``'s decodes and the ranks of ``[parallel]``
-   included; ``attn_decode``'s from ``[attn_decode]``'s replays), the
+   included; ``attn_decode``'s from ``[attn_decode]``'s replays;
+   ``bilstm_infer``'s from every serving path and evaluation), the
    nvidia-smi line,
    and last the result line
    ``{"ok": true, "device": {...}}``.  Each phase's seconds are logged
@@ -356,7 +379,7 @@ def phase_build():
     from fcl_taco2_tpu_torch.data import native
     from fcl_taco2_tpu_torch.utils.cuda_build import build
     t0 = time.perf_counter()
-    names = ("ar_decode", "pwg_stream", "regroup", "attn_decode")
+    names = ("ar_decode", "pwg_stream", "regroup", "attn_decode", "blstm")
     with ThreadPoolExecutor(len(names) + 1) as pool:
         plan_lib = pool.submit(native.build)
         built = list(pool.map(build, names))
@@ -534,6 +557,7 @@ def phase_dropout(models):
 
 
 def _counters():
+    from fcl_taco2_tpu_torch.ops import blstm_cuda as BK
     from fcl_taco2_tpu_torch.ops import decoder_cuda as K
     from fcl_taco2_tpu_torch.ops import regroup_cuda as R
     from fcl_taco2_tpu_torch.vocoder import pwg_cuda as PC
@@ -541,24 +565,62 @@ def _counters():
             "fused_ar_decode_hbm": K.fused_ar_decode_hbm,
             "pwg_generate_streaming": PC.pwg_generate_streaming,
             "pwg_stream_step": PC.pwg_stream_step,
-            "gather_backward": R.gather_backward}
+            "gather_backward": R.gather_backward,
+            "bilstm_infer": BK.bilstm_infer}
 
 
 TRAIN_KERNEL = "gather_backward"  # the one kernel a training step runs
+EVAL_KERNEL = "bilstm_infer"  # the trainers' evaluations serve the encoder
+EVALS = {"launches": 0}  # EVAL_KERNEL's launches inside EvalStep calls
+
+
+def _count_evaluations_apart(on):
+    """While on, the launches of EVAL_KERNEL made inside an ``EvalStep``
+    call (the trainers' evaluations, which serve the encoder) leave its
+    counter for ``EVALS``, so a training phase holds everything else,
+    its steps included, to none."""
+    from fcl_taco2_tpu_torch.train.step import EvalStep
+    plain = getattr(EvalStep.__call__, "plain", None)
+    if plain is not None:
+        EvalStep.__call__ = plain
+    if not on:
+        return
+    plain = EvalStep.__call__
+    kernel = _counters()[EVAL_KERNEL]
+
+    def apart(self, *args, **kwargs):
+        before = kernel.launches
+        try:
+            return plain(self, *args, **kwargs)
+        finally:
+            EVALS["launches"] += kernel.launches - before
+            kernel.launches = before
+
+    apart.plain = plain
+    EvalStep.__call__ = apart
 
 
 def check_training_counts(phase, counts):
-    """A training path launches the regroup gathers' backward and no
-    decoder or PWG kernel."""
+    """A training phase launches the regroup gathers' backward and no
+    decoder, PWG or BiLSTM kernel outside its evaluations, whose BiLSTM
+    launches ``zero_counts(evaluations_apart=True)`` counted apart."""
+    _count_evaluations_apart(False)
     serving = {k: v for k, v in counts.items() if k != TRAIN_KERNEL and v}
     if serving or not counts[TRAIN_KERNEL]:
         raise RuntimeError(f"{phase}: want {TRAIN_KERNEL} and no serving "
                            f"kernel launched, got {counts}")
+    log(f"{phase}: the evaluations launched {EVAL_KERNEL} "
+        f"{EVALS['launches']} times (counted apart)")
 
 
-def zero_counts():
+def zero_counts(evaluations_apart=False):
+    """Zero the launch counters; with ``evaluations_apart`` (a training
+    phase, until its ``check_training_counts``) count EVAL_KERNEL's
+    launches inside evaluations apart."""
     for fn in _counters().values():
         fn.launches = 0
+    EVALS["launches"] = 0
+    _count_evaluations_apart(evaluations_apart)
 
 
 def read_counts():
@@ -1680,7 +1742,7 @@ def phase_compiled(models, pwg, smi, kind):
     launches = compiled_serving(models, pwg, kind, smi)
     for k, v in compiled_routes(models, pwg, kind, smi).items():
         launches[k] += v
-    zero_counts()
+    zero_counts(evaluations_apart=True)
     compiled_steps(smi, kind)
     counts = read_counts()
     check_training_counts("[compiled] steps", counts)
@@ -2018,7 +2080,7 @@ def phase_train(smi, kind):
     teacher step at the bench protocol (classed and single-class), and the
     trainer end to end with a resume.  No decoder or PWG kernel runs; the
     regroup gathers' backward does."""
-    zero_counts()
+    zero_counts(evaluations_apart=True)
     t0 = time.perf_counter()
     train_vjp_check(smi)
     rows = [train_step_timing(smi, kind, classes)
@@ -2149,7 +2211,7 @@ def phase_kd(smi, kind, root):
     autograd, the KD step at scripts/bench_kd.py's protocol with remat on
     and off, and the two trainers end to end.  No decoder or PWG kernel
     runs."""
-    zero_counts()
+    zero_counts(evaluations_apart=True)
     kd_vjp_check(smi)
     rows = [train_step_timing(smi, kind, DURATION_CLASSES, kd_remat=remat,
                               graphed=True)
@@ -2483,7 +2545,7 @@ def phase_graph(smi, kind):
     from fcl_taco2_tpu_torch.data.native import native_available
     if not native_available():
         raise RuntimeError("the native plan builder did not build")
-    zero_counts()
+    zero_counts(evaluations_apart=True)
     with tempfile.TemporaryDirectory() as root:
         utts = graph_corpus(os.path.join(root, "corpus"), 48)
         models = graph_models()
@@ -2520,7 +2582,7 @@ def phase_finetune(smi, kind, root, tckpt, train_json, valid_json):
     from fcl_taco2_tpu_torch.train.loop import Trainer
     from fcl_taco2_tpu_torch.train.profiler import TRACE_FILE
     from fcl_taco2_tpu_torch.utils.params import params_from_jax
-    zero_counts()
+    zero_counts(evaluations_apart=True)
     conf = os.path.join(root, "preprocess.json")
     with open(conf, "w") as f:
         json.dump(PREPROCESS_CONF, f)
@@ -2728,7 +2790,7 @@ def phase_preprocess(smi, kind, root):
     from fcl_taco2_tpu_torch.audio.synthcorpus import generate_corpus
     from fcl_taco2_tpu_torch.cli import fcl_preprocess
     from fcl_taco2_tpu_torch.cli.fcl_train import main as fcl_train
-    zero_counts()
+    zero_counts(evaluations_apart=True)
     t0 = time.perf_counter()
     corpus = generate_corpus(os.path.join(root, "corpus"), n_utts=PRE_UTTS,
                              seed=0, min_phones=PRE_PHONES[0],
@@ -3454,7 +3516,7 @@ def phase_cli(smi, kind, root, ckpts):
     consume = synth_mod.Synthesizer._consume
 
     def watched_consume(self, pend):
-        event = pend["host"][2]
+        event = pend["host"][1]  # _start_readback's (tensors, event)
         inflight.append(event is not None and not event.query())
         return consume(self, pend)
 
@@ -3663,20 +3725,164 @@ def phase_attn_decode(smi, kind):
 
     synth = Synthesizer(model, batch_size=B, tok_bucket=32, frame_bucket=256)
     synth.synth_batch(toks, 0, lengths=frames)  # captures the graph
-    A.attn_decode.launches = 0
+    from fcl_taco2_tpu_torch.ops import blstm_cuda as BK
+    A.attn_decode.launches = BK.bilstm_infer.launches = 0
     calls = 4
     for rep in range(calls):
         mels, _ = synth.synth_batch(toks, rep + 1, lengths=frames)
     launches = A.attn_decode.launches
+    if BK.bilstm_infer.launches != calls:
+        raise RuntimeError(f"[attn_decode] {calls} Synthesizer calls "
+                           f"launched the serving BiLSTM "
+                           f"{BK.bilstm_infer.launches} times")
     if launches != calls or [x.shape[0] for x in mels] != frames:
         raise RuntimeError(f"[attn_decode] {calls} Synthesizer calls "
                            f"launched the kernel {launches} times")
     log(f"[attn_decode] Synthesizer on {kind}: {calls} calls, {launches} "
-        f"launches (one a replay of the synthesize graph)")
+        f"launches of the attention kernel and {BK.bilstm_infer.launches} "
+        f"of the serving BiLSTM (one each a replay of the synthesize "
+        f"graph)")
     return dict(kernel_ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by,
                 err=err, tol=TOL_ATTN, weights="bfloat16",
                 shape=f"B={B} T={tokens.shape[1]} budget {budget}, "
                 f"{max(frames)} steps, dropout 0.5"), launches
+
+
+TOL_BLSTM = 2e-2
+TOL_BLSTM_WHY = ("both sides round at the same points; a last-bit "
+                 "difference of the recurrent product's fp32 sum (another "
+                 "summation order) flips one bf16 rounding of a gate now "
+                 "and then, and the recurrence carries it on")
+
+
+def blstm_case(H, d_in, lens, T, seed=0):
+    """bf16 LSTM cells of ``H`` units a direction over ``d_in`` inputs
+    (uniform in +-1/sqrt(H), as ``nn.LSTMCell``), inputs (B, T, d_in) and
+    the lengths ``lens``, on the card."""
+    import torch.nn as nn
+    g = torch.Generator().manual_seed(seed)
+    cells = []
+    for _ in range(2):
+        c = nn.LSTMCell(d_in, H)
+        with torch.no_grad():
+            for p in c.parameters():
+                p.copy_((torch.rand(p.shape, generator=g) * 2 - 1)
+                        / H ** 0.5)
+        cells.append(c.to("cuda", torch.bfloat16))
+    xs = torch.randn(len(lens), T, d_in, generator=g).to("cuda",
+                                                         torch.bfloat16)
+    return cells, xs, torch.tensor(lens, device="cuda")
+
+
+LIBRARY_BLSTM = ("nn.LSTM(bidirectional=True) over pack_padded_sequence "
+                 "(cuDNN), packing and padding included")
+
+
+def library_bilstm(cells, lengths, T):
+    """PyTorch's one call for the same function: ``nn.LSTM(bidirectional=
+    True)`` with the two cells' weights, over ``pack_padded_sequence``
+    (state frozen past each length, the reverse direction from the row's
+    last token), padded back to T.  Returns call(xs)."""
+    import torch.nn as nn
+    from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
+    fwd, bwd = cells
+    lstm = nn.LSTM(fwd.weight_ih.shape[1], fwd.weight_hh.shape[1],
+                   batch_first=True, bidirectional=True).to(
+                       fwd.weight_ih.device, fwd.weight_ih.dtype)
+    with torch.no_grad():
+        for sfx, c in (("", fwd), ("_reverse", bwd)):
+            for n in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"):
+                getattr(lstm, f"{n}_l0{sfx}").copy_(getattr(c, n))
+    lstm.flatten_parameters()
+    lens_host = lengths.cpu()
+
+    def call(xs):
+        packed = pack_padded_sequence(xs, lens_host, batch_first=True,
+                                      enforce_sorted=False)
+        return pad_packed_sequence(lstm(packed)[0], batch_first=True,
+                                   total_length=T)[0]
+
+    return call
+
+
+def phase_blstm(smi, kind):
+    """The serving BiLSTM kernel (``csrc/blstm.cu``) against the loop it
+    replaced at the serving cells' shapes, its ms beside the loop's,
+    PyTorch's one library call for the same function (``library_bilstm``),
+    its bound and the serial-step floor; then its launches and steps in a
+    teacher ``Synthesizer``'s replays.  Returns the kernels row."""
+    from fcl_taco2_tpu_torch.infer import Synthesizer
+    from fcl_taco2_tpu_torch.models import Tacotron2SA, teacher_config
+    from fcl_taco2_tpu_torch.ops import blstm_cuda as BK
+    from fcl_taco2_tpu_torch.ops.rnn import bilstm
+    from fcl_taco2_tpu_torch.utils.timing import HBM_BYTES_PER_S, queued_ms
+    toks, _ = t2_batch()  # a synth call's phoneme counts, 12..112
+    lens16 = [len(t) for t in toks]
+    rows = {}
+    for tag, H, d_in, lens, T in (
+            ("synth T=96", 256, 512, [min(n, 96) for n in lens16], 96),
+            ("synth T=128", 256, 512, lens16, 128),
+            ("tts", 128, 256, [N_PHONES], N_PHONES)):
+        cells, xs, il = blstm_case(H, d_in, lens, T)
+        tiny, xt, it = blstm_case(6, 8, [max(lens)], T, seed=1)
+        packed_call = library_bilstm(cells, il, T)
+        with torch.no_grad():
+            got = BK.bilstm_infer(*cells, xs, il)
+            want = bilstm(*cells, xs, il)
+            lib = packed_call(xs)
+            launch = dict(BK.last_launch)
+            err = float((got.float() - want.float()).abs().max())
+            equal = float((got == want).float().mean())
+            lib_err = float((lib.float() - want.float()).abs().max())
+            k_ms = queued_ms(lambda: BK.bilstm_infer(*cells, xs, il), 20)
+            f_ms = queued_ms(lambda: BK.bilstm_infer(*tiny, xt, it), 20)
+            l_ms = queued_ms(lambda: packed_call(xs), 20)
+            p_ms = median_ms(lambda: bilstm(*cells, xs, il), 3)
+        B, steps = len(lens), max(lens)
+        nbytes = 2 * (4 * H * H + B * T * 4 * H) * 2 + B * T * 2 * H * 2
+        b_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        log(f"[blstm] {tag}: B={B} H={H} T={T}, {steps} steps; kernel "
+            f"against the loop: max abs gap {err:.3e} (tolerance "
+            f"{TOL_BLSTM}: {TOL_BLSTM_WHY}), {equal:.4f} of the values "
+            f"bit-equal; launch {launch}; call {k_ms:.4f} ms "
+            f"({1e3 * k_ms / steps:.2f} us a step), serial-step floor "
+            f"{f_ms:.4f} ms (H=6, B=1, {steps} steps), library {l_ms:.4f} "
+            f"ms ({LIBRARY_BLSTM}; max abs gap to the loop {lib_err:.3e}), "
+            f"loop {p_ms:.3f} ms, bound {b_ms:.5f} ms (bytes once) | {smi}")
+        if err > TOL_BLSTM or not torch.isfinite(got.float()).all():
+            raise RuntimeError(f"[blstm] {tag}: kernel against the loop "
+                               f"{err} > {TOL_BLSTM}")
+        rows[tag] = dict(kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                         library=LIBRARY_BLSTM, library_err=lib_err,
+                         bound_ms=b_ms, bound_by="bytes", floor_ms=f_ms,
+                         err=err, bit_equal=equal, tol=TOL_BLSTM,
+                         steps=steps, shape=f"B={B} H={H} T={T}",
+                         launch=launch)
+
+    model = Tacotron2SA(teacher_config(IDIM, odim=ODIM), seed=0)
+    synth = Synthesizer(model, batch_size=16)
+    durs = [np.full(len(t), 4, np.int32) for t in toks]
+    synth.synth_batch(toks, 0, durations=durs)  # captures the graph
+    BK.bilstm_infer.launches = 0
+    calls = 4
+    for rep in range(calls):
+        synth.synth_batch(toks, rep + 1, durations=durs)
+    torch.cuda.synchronize()
+    stats = [r for r in synth.graphs.stats()
+             if "blstm.steps" in r.get("counters", {})]
+    steps = [r["counters"]["blstm.steps"] for r in stats]
+    replays = sum(r["replays"] for r in stats)
+    if BK.bilstm_infer.launches != calls or \
+            steps != [replays * max(lens16)]:
+        raise RuntimeError(f"[blstm] {calls} Synthesizer calls launched "
+                           f"the kernel {BK.bilstm_infer.launches} times, "
+                           f"blstm.steps {steps} over {replays} replays "
+                           f"(want {max(lens16)} each)")
+    log(f"[blstm] teacher Synthesizer B=16 on {kind}: {calls} calls, "
+        f"{BK.bilstm_infer.launches} launches (one a replay); blstm.steps "
+        f"{steps[0]} over {replays} replays ({max(lens16)} a replay, the "
+        f"batch's longest row)")
+    return rows["synth T=128"] | {"shapes": rows}
 
 
 def _padded(toks, durs, B, bucket):
@@ -3730,6 +3936,7 @@ def main():
     regroup_row = timed_phase("regroup", phase_regroup, smi, kind)
     attn_row, attn_launches = timed_phase("attn_decode", phase_attn_decode,
                                           smi, kind)
+    blstm_row = timed_phase("blstm", phase_blstm, smi, kind)
     launches = timed_phase("main", phase_main_path, models, kind)
     for k, v in timed_phase("import", phase_import, models, kind).items():
         launches[k] += v
@@ -3795,6 +4002,11 @@ def main():
         "source": "fcl_taco2_tpu_torch/csrc/regroup.cu",
         "replaces": None, "launches": launches["gather_backward"],
         "library_ms": None, **regroup_row})
+    kernels.append({
+        "name": "bilstm_infer", "route": "cuda",
+        "source": "fcl_taco2_tpu_torch/csrc/blstm.cu",
+        "replaces": None, "launches": launches["bilstm_infer"],
+        **blstm_row})
     kernels.append({
         "name": "attn_decode", "route": "cuda",
         "source": "fcl_taco2_tpu_torch/csrc/attn_decode.cu",

@@ -1,9 +1,11 @@
 """Tacotron2-SA encoder: embedding -> N x(conv[-BN]-ReLU) -> BiLSTM
 (port of ``fcl_taco2_tpu/models/encoder.py``)."""
 
+import torch
 import torch.nn as nn
 
 from fcl_taco2_tpu_torch.models import components as C
+from fcl_taco2_tpu_torch.ops.blstm_cuda import bilstm_infer
 from fcl_taco2_tpu_torch.ops.masking import lengths_to_non_pad_mask
 from fcl_taco2_tpu_torch.ops.rnn import bilstm_stack
 
@@ -29,6 +31,14 @@ class Encoder(nn.Module):
                 for d in ("fwd", "bwd")}))
 
 
+def serving_recurrence(train, tokens):
+    """True where ``encoder_apply`` runs the BiLSTM through
+    ``ops/blstm_cuda.py::bilstm_infer``'s kernel: not training, autograd
+    off and the tokens on the card.  Training (the KD teacher's frozen
+    forward included) and the CPU keep ``bilstm_stack``."""
+    return not train and not torch.is_grad_enabled() and tokens.is_cuda
+
+
 def encoder_apply(encoder, cfg, tokens, ilens, generator=None, train=False,
                   bn_out=None, capture_kd=False):
     """tokens (B, Tmax) int -> hs (B, Tmax, cfg.enc_odim)
@@ -47,8 +57,12 @@ def encoder_apply(encoder, cfg, tokens, ilens, generator=None, train=False,
             generator=generator, dropout_rate=cfg.dropout_rate, train=train,
             seq_mask=seq_mask, bn_out=bn_out, capture=capture)
     if len(encoder.blstm):
-        x = bilstm_stack([(lay["fwd"], lay["bwd"]) for lay in encoder.blstm],
-                         x, ilens)
+        layers = [(lay["fwd"], lay["bwd"]) for lay in encoder.blstm]
+        if serving_recurrence(train, tokens):
+            for fwd, bwd in layers:
+                x = bilstm_infer(fwd, bwd, x, ilens)
+        else:
+            x = bilstm_stack(layers, x, ilens)
         if capture_kd:
             capture.append(x)
     return (x, capture) if capture_kd else x
