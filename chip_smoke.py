@@ -399,6 +399,7 @@ def decoder_case(model, P, ragged, wdt, fn):
     """One kernel-vs-plain case: the packed weights, the launch of the
     kernel alone (prepared operands) and the wrapper's call."""
     from fcl_taco2_tpu_torch.ops import decoder_cuda as K
+    from fcl_taco2_tpu_torch.utils.cuda_build import seed_tensor
     cfg = model.cfg
     dp = model.decoder.jax_layout()
     enc, pos, fm, bounds = segment_batch(cfg, P, 0, ragged)
@@ -417,7 +418,7 @@ def decoder_case(model, P, ragged, wdt, fn):
              "enc_out": eo.contiguous()}
 
     # the seed as the main path gives it: a (1,) int32 tensor on the card
-    seed = K.seed_tensor(0, torch.device("cuda"))
+    seed = seed_tensor(0, torch.device("cuda"))
 
     def alone():
         return K._launch(pk, resident=resident, tensors=t, P=P,
@@ -899,6 +900,7 @@ def phase_regroup(smi, kind):
         g = torch.randn(*valid.shape, C, generator=gen, device=dev).to(dt)
         g = g * valid[..., None].to(dt)
         got = R.gather_backward(g, idx, valid, lead)
+        launch = dict(R.last_launch)
         want = R.gather_backward_plain(g, idx, valid, lead)
         if not torch.equal(got, want):
             raise RuntimeError(f"[regroup] {tag}: the kernel's gradient "
@@ -914,14 +916,16 @@ def phase_regroup(smi, kind):
                        ("bound_ms", b_ms)):
             tot[key] += v
         log(f"[regroup] {tag}: {n} positions ({n - int(valid.sum())} "
-            f"padded) -> {rows} x {C} bf16, bit-equal; kernel {k_ms:.4f} "
-            f"ms, plain {p_ms:.3f} ms, bound {b_ms:.4f} ms (bytes) | {smi}")
+            f"padded) -> {rows} x {C} bf16, bit-equal; launch {launch}; "
+            f"kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, bound {b_ms:.4f} ms "
+            f"(bytes) | {smi}")
     log(f"[regroup] a KD step's eight gathers on {kind}: kernel "
         f"{tot['kernel_ms']:.3f} ms, plain {tot['plain_ms']:.2f} ms, bound "
         f"{tot['bound_ms']:.4f} ms (roofline share "
         f"{tot['bound_ms'] / tot['kernel_ms']:.1%}) | {smi}")
     return dict(tot, shape="a KD step's 8 gathers: B=64 Lmax=1024 "
-                "classes 8,16,32,50; tokens 4x256, scatters 80+3x256, bf16")
+                "classes 8,16,32,50; tokens 4x256, scatters 80+3x256, bf16",
+                launch=launch)
 
 
 def phase_pwg_kernels():
@@ -1305,7 +1309,7 @@ def compiled_serving(models, pwg, kind, smi):
     audio, capture seconds and pool MiB.  Returns the launch counts of
     the graphed calls."""
     from fcl_taco2_tpu_torch.infer import StreamTTS, Synthesizer, TTSPipeline
-    from fcl_taco2_tpu_torch.models.taco2_sa import kernel_seed
+    from fcl_taco2_tpu_torch.utils.cuda_build import kernel_seed
     from fcl_taco2_tpu_torch.ops import decoder_cuda as K
     tok1, dur1, toks16, durs16 = protocol()
     launches = dict.fromkeys(_counters(), 0)
@@ -3680,6 +3684,7 @@ def phase_attn_decode(smi, kind):
                                        **kw)
 
         got = kernel()
+        launch = dict(A.last_launch)
         want = plain()
         no_loc = dict(w, att=copy.deepcopy(w["att"]))
         no_loc["att"].loc_conv.weight.zero_()
@@ -3702,8 +3707,8 @@ def phase_attn_decode(smi, kind):
     log(f"[attn_decode] B={B} T={tokens.shape[1]} budget {budget}, "
         f"{max(frames)} steps, frames {sum(frames)}: kernel against plain "
         + ", ".join(f"{k} {v:.2e}" for k, v in err.items())
-        + f" (tolerance {TOL_ATTN}: {TOL_ATTN_WHY}); the plain version "
-        "without the location term " + ", ".join(
+        + f" (tolerance {TOL_ATTN}: {TOL_ATTN_WHY}); launch {launch}; the "
+        "plain version without the location term " + ", ".join(
             f"{k} {v:.2e}" for k, v in fault_err.items()))
     if max(err.values()) > TOL_ATTN:
         raise RuntimeError(f"[attn_decode] kernel against plain {err} > "
@@ -3743,7 +3748,7 @@ def phase_attn_decode(smi, kind):
         f"of the serving BiLSTM (one each a replay of the synthesize "
         f"graph)")
     return dict(kernel_ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by,
-                err=err, tol=TOL_ATTN, weights="bfloat16",
+                err=err, tol=TOL_ATTN, weights="bfloat16", launch=launch,
                 shape=f"B={B} T={tokens.shape[1]} budget {budget}, "
                 f"{max(frames)} steps, dropout 0.5"), launches
 

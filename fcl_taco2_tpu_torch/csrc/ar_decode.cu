@@ -88,7 +88,7 @@
 #include "mma_common.cuh"
 
 extern "C" {
-// Field order and types mirror _DecodeArgs in ops/decoder_cuda.py.  Packed
+// Field order and types mirror DecodeArgs in ops/decoder_cuda.py.  Packed
 // matrices are [n-tile][k16 step][lane][4] (decoder_cuda.pack_b): a K x N
 // matrix with K padded to 16 and N to 8.
 struct DecodeArgs {

@@ -63,7 +63,7 @@
 #include "mma_common.cuh"
 
 extern "C" {
-// Field order and types mirror _AttnArgs in ops/attn_decode_cuda.py.
+// Field order and types mirror AttnArgs in ops/attn_decode_cuda.py.
 // Packed matrices are [n-tile][k16 step][lane][4] bf16 (decoder_cuda.pack_b).
 struct AttnArgs {
   const void* enc;     // (B, T, E) bf16: the encoder's output

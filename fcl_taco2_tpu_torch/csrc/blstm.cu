@@ -59,7 +59,7 @@
 #include "mma_common.cuh"
 
 extern "C" {
-// Field order and types mirror _BlstmArgs in ops/blstm_cuda.py.
+// Field order and types mirror BlstmArgs in ops/blstm_cuda.py.
 struct BlstmArgs {
   const void* xf;    // (B, T, 4H): x @ W_ih^T + b_ih of the forward cell
   const void* xb;    // (B, T, 4H): the same of the reverse cell

@@ -88,7 +88,7 @@ namespace cg = cooperative_groups;
 #define MAX_LAYERS 64
 
 extern "C" {
-// Field order and types mirror _PwgArgs in vocoder/pwg_cuda.py.
+// Field order and types mirror PwgArgs in vocoder/pwg_cuda.py.
 struct PwgArgs {
   const float* noise;    // (B, n_noise): positions [start, start + n_noise)
   const float* aux;      // (B, n_aux, A): positions [start, start + n_aux)
@@ -122,6 +122,14 @@ struct PwgArgs {
   int cum[MAX_LAYERS];     // d_0 + .. + d_i
   int bw[MAX_LAYERS];      // max(8, 2 d_i)
   int buf_off[MAX_LAYERS]; // row offset of layer i in the history arrays
+};
+
+// What a launch did, for the wrapper's log (pwg_cuda.last_launch): the
+// blocks launched, the rows of a block tile, the block tiles of the first
+// phase, the grid-wide barriers of the call, the warp groups of a block
+// and the dynamic shared memory of a block in bytes.
+struct PwgLaunchInfo {
+  int grid, block_rows, block_tiles, barriers, groups, smem_bytes;
 };
 }
 
@@ -602,11 +610,8 @@ size_t smem_bytes(int NG, int K1p) {
 
 extern "C" {
 
-// Returns a cudaError_t (0 on success).  info gets, in order: the blocks
-// launched, the rows of a block tile, the block tiles of the first phase,
-// the grid-wide barriers of the call, the warp groups of a block and the
-// dynamic shared memory of a block in bytes.
-int pwg_stream_launch(const PwgArgs* a, void* stream, int* info) {
+// Returns a cudaError_t (0 on success); *info describes the launch.
+int pwg_stream_launch(const PwgArgs* a, void* stream, PwgLaunchInfo* info) {
   int dev = 0, sms = 0, coop = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -645,12 +650,12 @@ int pwg_stream_launch(const PwgArgs* a, void* stream, int* info) {
   const int n_rt = (rows + TM - 1) / TM;
   const int grid = max(1, min(occ * sms, n_rt));
   const int n_tiles = (a->N + a->tile - 1) / a->tile;
-  info[0] = grid;
-  info[1] = TM;
-  info[2] = n_rt;
-  info[3] = 1 + n_tiles * (a->L + 1);
-  info[4] = NG;
-  info[5] = (int)smem;
+  info->grid = grid;
+  info->block_rows = TM;
+  info->block_tiles = n_rt;
+  info->barriers = 1 + n_tiles * (a->L + 1);
+  info->groups = NG;
+  info->smem_bytes = (int)smem;
   void* params[] = {const_cast<PwgArgs*>(a)};
   // the cooperative launch as cudaLaunchKernelExC with the cooperative
   // attribute: the same launch, in the form a CUDA graph capture records

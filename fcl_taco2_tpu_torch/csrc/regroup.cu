@@ -38,6 +38,28 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+extern "C" {
+// Field order and types mirror RegroupArgs in ops/regroup_cuda.py.
+struct RegroupArgs {
+  const void* g;         // (n, cols) f32 or bf16: the gather's output's grad
+  const int* idx0;       // (n,)
+  const int* idx1;       // (n,), or null: target(i) = idx0[i] * stride0
+  const uint8_t* valid;  // n at stride vstride: the positions not padding
+  int* inv;              // rows of scratch
+  float* partial;        // ceil(n / strip) * cols of scratch
+  void* out;             // (rows, cols), g's type: grad_x
+  long long vstride;
+  int stride0, n, rows, cols, sentinel, strip;
+};
+
+// What a launch did (regroup_cuda.last_launch): the blocks' threads,
+// regroup_invert_pad's grid (strips x col_groups), the blocks of
+// regroup_write and of regroup_sentinel.
+struct RegroupLaunchInfo {
+  int block_threads, strips, col_groups, write_blocks, sentinel_blocks;
+};
+}
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -212,32 +234,32 @@ __global__ void __launch_bounds__(kThreads) regroup_sentinel(
 }
 
 template <typename T>
-int run(const void* g, const int* idx0, const int* idx1, int stride0,
-        const uint8_t* valid, long long vstride, int n, int rows, int cols,
-        int sentinel, int strip, int* inv, float* partial, void* out,
-        cudaStream_t stream) {
-  constexpr int V = Pack<T>::kVec;
-  const int per_row = cols / V;
-  const int strips = (n + strip - 1) / strip;
-  cudaError_t err = cudaMemsetAsync(inv, 0xff, sizeof(int) * (size_t)rows,
-                                    stream);
+int run(const RegroupArgs* a, cudaStream_t stream, RegroupLaunchInfo* info) {
+  const auto* g = static_cast<const T*>(a->g);
+  auto* out = static_cast<T*>(a->out);
+  const int per_row = a->cols / Pack<T>::kVec;
+  const int strips = (a->n + a->strip - 1) / a->strip;
+  const unsigned units = (unsigned)a->rows * (unsigned)per_row;
+  *info = RegroupLaunchInfo{kThreads, strips, (per_row + 31) / 32,
+                            (int)((units + kThreads - 1) / kThreads),
+                            strips > 0 ? (a->cols + 31) / 32 : 0};
+  cudaError_t err = cudaMemsetAsync(a->inv, 0xff,
+                                    sizeof(int) * (size_t)a->rows, stream);
   if (err != cudaSuccess) return err;
   if (strips > 0) {
-    const dim3 grid(strips, (per_row + 31) / 32);
-    regroup_invert_pad<T><<<grid, kThreads, 0, stream>>>(
-        static_cast<const T*>(g), idx0, idx1, stride0, valid, vstride, n,
-        rows, cols, strip, inv, partial);
+    regroup_invert_pad<T><<<dim3(strips, info->col_groups), kThreads, 0,
+                            stream>>>(g, a->idx0, a->idx1, a->stride0,
+                                      a->valid, a->vstride, a->n, a->rows,
+                                      a->cols, a->strip, a->inv, a->partial);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
-  const unsigned units = (unsigned)rows * (unsigned)per_row;
   if (units == 0) return cudaSuccess;
-  regroup_write<T><<<(units + kThreads - 1) / kThreads, kThreads, 0,
-                     stream>>>(static_cast<const T*>(g), inv, units, cols,
-                               static_cast<T*>(out));
+  regroup_write<T><<<info->write_blocks, kThreads, 0, stream>>>(
+      g, a->inv, units, a->cols, out);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if (strips > 0) {
-    regroup_sentinel<T><<<(cols + 31) / 32, kThreads, 0, stream>>>(
-        partial, strips, cols, sentinel, static_cast<T*>(out));
+    regroup_sentinel<T><<<info->sentinel_blocks, kThreads, 0, stream>>>(
+        a->partial, strips, a->cols, a->sentinel, out);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   return cudaSuccess;
@@ -247,31 +269,16 @@ int run(const void* g, const int* idx0, const int* idx1, int stride0,
 
 extern "C" {
 
-// grad_x (rows, cols) of the gather x.view(rows, cols)[target]: g (n, cols)
-// is the gradient of the gather's output, valid (n,) at stride `vstride`
-// marks the positions whose gradient is their own, and every other
-// position aims at row `sentinel`.  inv: rows int32 of scratch; partial:
-// ceil(n / strip) * cols fp32 of scratch.  g and out 16-byte aligned, cols
-// a whole number of 16-byte vectors, rows * cols and n * cols < 2^31 (the
-// wrapper checks).  bf16: 1 for bfloat16, 0 for float32.
+// grad_x (rows, cols) of the gather x.view(rows, cols)[target], every
+// position that is not valid aiming at row sentinel.  g and out 16-byte
+// aligned, cols a whole number of 16-byte vectors, rows * cols and
+// n * cols < 2^31 (the wrapper checks).  kind: 0 = f32, 1 = bf16.
 // Returns the first CUDA error of the launches (0: none).
-int regroup_gather_bwd_launch(const void* g, const void* idx0,
-                              const void* idx1, int stride0,
-                              const void* valid, long long vstride, int n,
-                              int rows, int cols, int sentinel, int bf16,
-                              int strip, void* inv, void* partial, void* out,
-                              void* stream) {
-  const auto* i0 = static_cast<const int*>(idx0);
-  const auto* i1 = static_cast<const int*>(idx1);
-  const auto* vd = static_cast<const uint8_t*>(valid);
-  auto* iv = static_cast<int*>(inv);
-  auto* pt = static_cast<float*>(partial);
+int regroup_gather_bwd_launch(const RegroupArgs* a, int kind, void* stream,
+                              RegroupLaunchInfo* info) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return run<__nv_bfloat16>(g, i0, i1, stride0, vd, vstride, n, rows, cols,
-                              sentinel, strip, iv, pt, out, s);
-  return run<float>(g, i0, i1, stride0, vd, vstride, n, rows, cols, sentinel,
-                    strip, iv, pt, out, s);
+  if (kind == 1) return run<__nv_bfloat16>(a, s, info);
+  return kind == 0 ? run<float>(a, s, info) : cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -1,73 +1,38 @@
 """ctypes bindings of the port's native plan builder (``csrc/fclrt.cpp``;
 port of ``fcl_taco2_tpu/data/native.py``).
 
-The library is compiled with ``g++`` at first use into
-``fcl_taco2_tpu_torch/_build/libfclrt-<hash>.so`` (the hash covers the
-source and the flags, so an edited source rebuilds).  ``build_plan_native``
-and ``build_classed_plan_native`` are drop-ins for ``ops/regroup.py``'s
-numpy builders, bit-equal to them.  Where no C++ compiler is found,
+The library is compiled with the C++ compiler at first use into
+``fcl_taco2_tpu_torch/_build/libfclrt-<hash>.so`` by
+``utils/cuda_build.py``.  ``build_plan_native`` and
+``build_classed_plan_native`` are drop-ins for ``ops/regroup.py``'s numpy
+builders, bit-equal to them.  Where no C++ compiler is found,
 ``native_available()`` is False and the converter uses the numpy builders;
 that is said once on stderr.  A compiler that fails on the source raises.
 """
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import sys
-import tempfile
 import threading
-from pathlib import Path
 
 import numpy as np
 
 from fcl_taco2_tpu_torch.ops.regroup import (ClassedPlan, ClassPlan,
                                              RegroupPlan)
+from fcl_taco2_tpu_torch.utils import cuda_build
+from fcl_taco2_tpu_torch.utils.cuda_build import cxx_path as compiler
 
-PKG = Path(__file__).resolve().parent.parent
-SOURCE = PKG / "csrc" / "fclrt.cpp"
-BUILD_DIR = PKG / "_build"
-CXX_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17", "-Wall"]
+SOURCE = "fclrt.cpp"
+BUILD_DIR = cuda_build.BUILD_DIR  # where build() puts the library
 
 _lock = threading.Lock()
 _lib = None
 _tried = False
 
 
-def compiler():
-    """The C++ compiler: ``$CXX``, else ``g++``, else ``c++``; None when
-    none is on PATH."""
-    for cand in (os.environ.get("CXX"), "g++", "c++"):
-        if cand and shutil.which(cand):
-            return shutil.which(cand)
-    return None
-
-
 def build():
     """Compile ``csrc/fclrt.cpp`` unless an up-to-date library exists;
     returns its path."""
-    cxx = compiler()
-    if cxx is None:
-        raise FileNotFoundError("no C++ compiler (g++/c++) on PATH")
-    h = hashlib.sha256(SOURCE.read_bytes())
-    h.update(" ".join(CXX_FLAGS).encode())
-    lib = BUILD_DIR / f"libfclrt-{h.hexdigest()[:12]}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, str(SOURCE)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"{cxx} failed on {SOURCE}:\n{proc.stderr}")
-        os.replace(tmp, lib)  # atomic: a half-written library never loads
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return lib
+    return cuda_build.build(SOURCE)[0]
 
 
 def _load():
@@ -81,7 +46,7 @@ def _load():
                   "the batch converter uses the numpy plan builders "
                   "(bit-equal, slower)", file=sys.stderr, flush=True)
             return None
-        lib = ctypes.CDLL(str(build()))
+        lib = cuda_build.load_library(SOURCE)
         i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
         u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
         f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")

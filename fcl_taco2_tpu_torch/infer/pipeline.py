@@ -26,8 +26,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from fcl_taco2_tpu_torch.models.taco2_sa import _generator
 from fcl_taco2_tpu_torch.ops.decoder_cuda import maybe_prequantize
+from fcl_taco2_tpu_torch.utils.cuda_build import make_generator
 from fcl_taco2_tpu_torch.utils.device import resolve_device
 from fcl_taco2_tpu_torch.utils.graphs import Graphed
 from fcl_taco2_tpu_torch.utils.spans import span
@@ -148,7 +148,7 @@ class TTSPipeline:
             ilens = torch.from_numpy(ilens).to(dev)
             durs = None if durations is None \
                 else torch.from_numpy(durs).to(dev)
-            gen = _generator(rng, dev)
+            gen = make_generator(rng, dev)
             state = gen.get_state()
             inputs = (tokens, ilens, durs, budget)
 

@@ -39,10 +39,10 @@ import numpy as np
 import torch
 
 from fcl_taco2_tpu_torch.models.decoder import apply_postnet_inference
-from fcl_taco2_tpu_torch.models.taco2_sa import _generator
 from fcl_taco2_tpu_torch.ops.conv import conv1d
 from fcl_taco2_tpu_torch.ops.decoder_cuda import (maybe_prequantize,
                                                   tile_step_bounds)
+from fcl_taco2_tpu_torch.utils.cuda_build import make_generator
 from fcl_taco2_tpu_torch.utils.device import resolve_device
 from fcl_taco2_tpu_torch.utils.graphs import Graphed
 from fcl_taco2_tpu_torch.vocoder.pwg import PWGConfig, _smooth
@@ -264,7 +264,7 @@ class StreamTTS:
         ilens = torch.tensor([T], device=dev)
         # one generator for the whole stream: the decode chunks draw their
         # kernel seeds and the vocoder steps their noise from it, in order
-        gen = _generator(rng, dev)
+        gen = make_generator(rng, dev)
         dur_t = None
         if durations is not None:
             dur_pad = np.zeros((1, Tb), np.int32)

@@ -12,14 +12,13 @@ previous step and the running sum ``w_cum`` of the past weights::
     att_c = sum_j alpha_j enc_j
 
 ``loc_conv`` and ``W_att`` are two linear maps in a row, so the port
-applies them as one: ``location_filter`` folds them into a
-(2 aconv_filts + 1, att_dim) filter once, in float64, rounded to the loop's
-weight type.  The decode (``ops/attn_decode_cuda.py``) runs the per-step
-part; this module holds the parameters, the once-a-call projection and
-the first step's weights.
+applies them as one: ``ops/attn_decode_cuda.py::location_filter`` folds
+them into a (2 aconv_filts + 1, att_dim) filter once, in float64, rounded
+to the loop's weight type.  The decode (``ops/attn_decode_cuda.py``) runs
+the per-step part and sets up the first step's weights; this module holds
+the parameters and the once-a-call projection.
 """
 
-import torch
 import torch.nn as nn
 
 
@@ -42,19 +41,3 @@ def project_memory(att, enc):
     of the compute-dtype operands taken exactly, summed in fp32."""
     return enc.float() @ att.mlp_enc.weight.float().t() \
         + att.mlp_enc.bias.float()
-
-
-def location_filter(att, dtype):
-    """The location convolution and its projection as one filter: (taps,
-    att_dim) fp32 holding ``dtype``-rounded values, ``M[k] = sum_c
-    conv[c, k] W_att[:, c]`` taken in float64."""
-    conv = att.loc_conv.weight[:, 0, :].double()       # (chans, taps)
-    m = conv.t() @ att.mlp_att.weight.double().t()      # (taps, att_dim)
-    return m.to(dtype).float()
-
-
-def initial_weights(ilens, T):
-    """The first step's ``w_cum``: 1 / ilen over each row's positions
-    (B, T) fp32 (espnet's ``att_prev`` at the first step)."""
-    valid = torch.arange(T, device=ilens.device)[None, :] < ilens[:, None]
-    return valid.float() / ilens.clamp(min=1)[:, None].float()

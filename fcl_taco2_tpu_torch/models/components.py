@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from fcl_taco2_tpu_torch.ops.conv import (batch_norm, batch_norm_train,
                                           conv1d, layer_norm)
 from fcl_taco2_tpu_torch.ops.masking import masked_mean, weighted_masked_sum
+from fcl_taco2_tpu_torch.ops.rnn import prenet_dropout
 
 
 class BatchNorm(nn.Module):
@@ -48,18 +49,6 @@ class Prenet(nn.Module):
         self.layers = nn.ModuleList(
             nn.Linear(idim if i == 0 else n_units, n_units, device=device)
             for i in range(n_layers))
-
-
-def prenet_dropout(x, rate, generator):
-    """Inverted dropout drawn from ``generator`` (torch ``F.dropout``
-    parity: keep with probability 1-rate, scale kept values by
-    1/(1-rate)); the plain versions' prenet dropout and every train-mode
-    dropout."""
-    if rate <= 0.0:
-        return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) \
-        < (1.0 - rate)
-    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 def maybe_dropout(x, rate, generator, train):

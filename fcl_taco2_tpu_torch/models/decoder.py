@@ -115,7 +115,7 @@ def _prenet_draws(decoder, cfg, S, P, device, generator):
 
 def _prenet_step(decoder, x, draws, s, rate):
     """The prenet at step ``s`` with its dropout masks from ``draws``
-    (``components.py::prenet_dropout``'s rule: keep below 1 - rate)."""
+    (``ops/rnn.py::prenet_dropout``'s rule: keep below 1 - rate)."""
     for i, layer in enumerate(decoder.prenet.layers):
         x = F.relu(layer(x))
         if draws is not None:

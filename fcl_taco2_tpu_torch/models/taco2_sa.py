@@ -32,6 +32,8 @@ from fcl_taco2_tpu_torch.ops.masking import (N_UTTS, N_VALID, TOKENS,
                                              weighted_mse)
 from fcl_taco2_tpu_torch.ops.regroup import (gather_segments,
                                              gather_token_vectors)
+from fcl_taco2_tpu_torch.utils.cuda_build import (cached_pack, kernel_seed,
+                                                  make_generator)
 from fcl_taco2_tpu_torch.utils.device import resolve_device
 from fcl_taco2_tpu_torch.utils.initializers import init_tacotron2sa_
 from fcl_taco2_tpu_torch.utils.spans import span
@@ -114,28 +116,6 @@ def _cast_batch(batch, dtype):
             for sc in batch.seg_classes))
 
 
-def _generator(rng, device):
-    """A ``torch.Generator`` from an int seed (or a one-element seed
-    tensor, read on the host), or ``rng`` itself."""
-    if isinstance(rng, torch.Generator):
-        return rng
-    gen = torch.Generator(device=device)
-    gen.manual_seed(K.seed_value(rng))
-    return gen
-
-
-def kernel_seed(rng, device):
-    """The decoder kernels' prenet-dropout seed, a (1,) int32 tensor on
-    ``device``: ``rng`` itself when it is one, else drawn from the
-    generator (or from one seeded with the int) on the device, never
-    read back, so a CUDA graph draws a fresh seed each replay."""
-    if torch.is_tensor(rng):
-        return K.seed_tensor(rng, device)
-    gen = _generator(rng, device)
-    return torch.randint(0, 2 ** 31 - 1, (1,), generator=gen,
-                         device=gen.device).to(torch.int32)
-
-
 def scatter_to_timelines(seg_out, frame_mask, seg_utt, seg_start, B,
                          frame_budget):
     """Phoneme frames (P, D, odim) -> per-utterance timelines (B,
@@ -209,18 +189,12 @@ class Tacotron2SA(nn.Module):
         dtype and reused by every later call (``Synthesizer``,
         ``TTSPipeline`` and ``StreamTTS`` each hold one model) until the
         decoder's parameters or ``prequant`` change."""
-        key = (idim, tuple((p.data_ptr(), p._version)
-                           for p in self.decoder.parameters()),
-               None if prequant is None
-               else tuple(t.data_ptr() for t in prequant))
-        packs = self.__dict__.setdefault("_packs", {})
-        hit = packs.get(weights_dtype)
-        if hit is None or hit[0] != key:
-            hit = (key, K.pack_decoder_weights(
-                self.decoder.jax_layout(), idim, weights_dtype,
-                prequant=prequant))
-            packs[weights_dtype] = hit
-        return hit[1]
+        return cached_pack(
+            self, weights_dtype, self.decoder.parameters(),
+            lambda: K.pack_decoder_weights(self.decoder.jax_layout(), idim,
+                                           weights_dtype, prequant=prequant),
+            extra=(idim, None if prequant is None
+                   else tuple(t.data_ptr() for t in prequant)))
 
     # ---------------- training forward ----------------
 
@@ -494,7 +468,7 @@ class Tacotron2SA(nn.Module):
         cfg = self.cfg
         dtype = getattr(torch, cfg.compute_dtype)
         dev = m.device
-        gen = rng if torch.is_tensor(rng) else _generator(rng, dev)
+        gen = rng if torch.is_tensor(rng) else make_generator(rng, dev)
         B, Tmax = tokens.shape
         D = cfg.max_dur
         P = B * Tmax  # one segment slot per token
@@ -629,7 +603,7 @@ class Tacotron2SA(nn.Module):
             kw = dict(zoneout=cfg.zoneout_rate, dropout=cfg.dropout_rate)
             stream_wdt = torch.int8 if quantize == "int8" else torch.bfloat16
         elif torch.is_tensor(generator):
-            generator = _generator(generator, enc_seg.device)
+            generator = make_generator(generator, enc_seg.device)
         fmask = frame_mask[..., None].to(dtype)
         if use_pallas:
             if enc_seg.is_cuda:

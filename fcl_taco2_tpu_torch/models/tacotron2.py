@@ -32,10 +32,11 @@ from fcl_taco2_tpu_torch.models import components as C
 from fcl_taco2_tpu_torch.models.attention import AttLoc, project_memory
 from fcl_taco2_tpu_torch.models.decoder import apply_postnet_inference
 from fcl_taco2_tpu_torch.models.encoder import Encoder, encoder_apply
-from fcl_taco2_tpu_torch.models.taco2_sa import _cast_floats, kernel_seed
+from fcl_taco2_tpu_torch.models.taco2_sa import _cast_floats
 from fcl_taco2_tpu_torch.ops import attn_decode_cuda as K
 from fcl_taco2_tpu_torch.ops.masking import lengths_to_non_pad_mask
 from fcl_taco2_tpu_torch.utils import spans
+from fcl_taco2_tpu_torch.utils.cuda_build import cached_pack, kernel_seed
 from fcl_taco2_tpu_torch.utils.device import resolve_device
 from fcl_taco2_tpu_torch.utils.spans import span
 
@@ -151,13 +152,9 @@ class Tacotron2(nn.Module):
     def packed_decoder(self):
         """The loop's weights packed for the kernel once, until the
         decoder's parameters change."""
-        key = tuple((p.data_ptr(), p._version)
-                    for p in self.decoder.parameters())
-        hit = self.__dict__.get("_packed")
-        if hit is None or hit[0] != key:
-            hit = (key, K.pack_attn_weights(K.decoder_weights(self.decoder)))
-            self.__dict__["_packed"] = hit
-        return hit[1]
+        return cached_pack(self, "attn", self.decoder.parameters(),
+                           lambda: K.pack_attn_weights(
+                               K.decoder_weights(self.decoder)))
 
     @torch.no_grad()
     def synthesize(self, tokens, ilens, rng, frame_budget: int,

@@ -35,8 +35,8 @@ the same keying in integer tensor arithmetic, so the plain version and
 the kernel draw the same masks.  ``seed`` is an int32 tensor of one
 element read on the device, so a CUDA graph replays a fresh seed.
 
-The launches are counted (``attn_decode.launches``) through
-``utils/graphs.py::count_launch``.
+The launch goes through ``utils/cuda_build.py``, which fills
+``last_launch`` and counts the launches (``attn_decode.launches``).
 """
 
 import ctypes
@@ -45,11 +45,9 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from fcl_taco2_tpu_torch.models.attention import (initial_weights,
-                                                  location_filter)
-from fcl_taco2_tpu_torch.ops.decoder_cuda import (gate_order, pack_b,
-                                                  seed_tensor, seed_value)
-from fcl_taco2_tpu_torch.utils.graphs import count_launch
+from fcl_taco2_tpu_torch.ops.decoder_cuda import gate_order, pack_b
+from fcl_taco2_tpu_torch.utils.cuda_build import (Entry, r16, seed_tensor,
+                                                  seed_value, struct)
 
 SENT = 0x7FFFFFFF  # a row's length before it is decided
 UB = 8             # hidden units a block owns (csrc/attn_decode.cu)
@@ -92,6 +90,23 @@ def prenet_keep(seed, rate, rows, step, layer, units):
 # ---------------------------------------------------------------------------
 # weights, lengths and the plain version
 # ---------------------------------------------------------------------------
+
+def location_filter(att, dtype):
+    """The location convolution and its projection (``models/attention.py::
+    AttLoc``'s ``loc_conv`` and ``mlp_att``, two linear maps in a row) as
+    one filter: (taps, att_dim) fp32 holding ``dtype``-rounded values,
+    ``M[k] = sum_c conv[c, k] W_att[:, c]`` taken in float64."""
+    conv = att.loc_conv.weight[:, 0, :].double()       # (chans, taps)
+    m = conv.t() @ att.mlp_att.weight.double().t()      # (taps, att_dim)
+    return m.to(dtype).float()
+
+
+def initial_weights(ilens, T):
+    """The first step's ``w_cum``: 1 / ilen over each row's positions
+    (B, T) fp32 (espnet's ``att_prev`` at the first step)."""
+    valid = torch.arange(T, device=ilens.device)[None, :] < ilens[:, None]
+    return valid.float() / ilens.clamp(min=1)[:, None].float()
+
 
 def decoder_weights(decoder):
     """The loop's weights of a ``models/tacotron2.py::T2Decoder`` (views,
@@ -225,10 +240,6 @@ def attn_decode_plain(w, enc, pe, ilens, lo, hi, seed, *, budget,
 # the kernel's operands
 # ---------------------------------------------------------------------------
 
-def _r16(x):
-    return -(-x // 16) * 16
-
-
 def _rows(m, at, total):
     """(total, N): ``m``'s rows at ``at`` offsets (a list of (row, src
     slice)), zeros elsewhere."""
@@ -275,7 +286,7 @@ def pack_attn_weights(w):
     A = w["w_dec"].shape[0]
     if H % 16:
         raise ValueError(f"the kernel takes dunits % 16 == 0, got {H}")
-    Hp, Ep, Up, Op, Ap = H, _r16(E), _r16(U), _r16(O), _r16(A)
+    Hp, Ep, Up, Op, Ap = H, r16(E), r16(U), r16(O), r16(A)
     M = location_filter(w["att"], bf)
 
     def mat(m, Kp, Np, gates=False):
@@ -292,7 +303,7 @@ def pack_attn_weights(w):
     return PackedAttn(
         H=H, E=E, A=A, U=U, O=O, taps=M.shape[0],
         w_dec=mat(w["w_dec"].t(), Hp, Ap),
-        m_loc=mat(M, _r16(M.shape[0]), Ap),
+        m_loc=mat(M, r16(M.shape[0]), Ap),
         w1=mat(w["w1"].t(), Op, Up), w2=mat(w["w2"].t(), Up, Up),
         wx0=mat(wx0, Ep + Up, 4 * H, gates=True),
         wh0=mat(w["wh0"].t(), Hp, 4 * H, gates=True),
@@ -310,7 +321,7 @@ _PTRS = ("enc", "pe", "ilens", "lo", "hi", "seed", "w_dec", "m_loc", "g",
          "steps", "kbits")
 
 
-class _AttnArgs(ctypes.Structure):
+class AttnArgs(ctypes.Structure):
     """Mirror of ``struct AttnArgs`` in csrc/attn_decode.cu."""
     _fields_ = ([(n, ctypes.c_void_p) for n in _PTRS]
                 + [(n, ctypes.c_int) for n in
@@ -319,39 +330,31 @@ class _AttnArgs(ctypes.Structure):
                    ("zoneout", "dropout", "thr_logit")])
 
 
-_INFO = ("grid", "block_threads", "smem_bytes", "barriers_per_step")
-
-
-class _LaunchInfo(ctypes.Structure):
+class AttnLaunchInfo(ctypes.Structure):
     """Mirror of ``struct AttnLaunchInfo`` in csrc/attn_decode.cu."""
-    _fields_ = [(n, ctypes.c_int) for n in _INFO]
+    _fields_ = [(n, ctypes.c_int) for n in
+                ("grid", "block_threads", "smem_bytes", "barriers_per_step")]
 
 
-def _lib():
-    from fcl_taco2_tpu_torch.utils.cuda_build import load_library
-    lib = load_library("attn_decode")
-    if not getattr(lib, "_typed", False):
-        lib.attn_decode_launch.argtypes = [ctypes.POINTER(_AttnArgs),
-                                           ctypes.c_void_p,
-                                           ctypes.POINTER(_LaunchInfo)]
-        lib.attn_decode_launch.restype = ctypes.c_int
-        lib._typed = True
-    return lib
+_ATTN = Entry.kernel("attn_decode", "attn_decode_launch", AttnArgs,
+                     AttnLaunchInfo)
+last_launch = _ATTN.last  # the newest launch's AttnLaunchInfo
 
 
 def _launch(pk, enc, pe, ilens, lo, hi, seed, budget, zoneout, dropout,
             thr_logit, with_att):
-    """Validate, allocate the outputs and the scratch, launch."""
+    """Validate, allocate the outputs and the scratch, launch (counted as
+    ``attn_decode``'s)."""
     dev = enc.device
     B, T, E = enc.shape
     A, H, U, O = pk.A, pk.H, pk.U, pk.O
-    if B > MAX_ROWS or _r16(T) > MAX_POS:
+    if B > MAX_ROWS or r16(T) > MAX_POS:
         raise ValueError(f"the kernel takes at most {MAX_ROWS} rows and "
                          f"{MAX_POS} positions, got {B} x {T}")
     if E != pk.E or tuple(pe.shape) != (B, T, A):
         raise ValueError(f"enc {tuple(enc.shape)} / pe {tuple(pe.shape)} do "
                          f"not fit the packed widths E={pk.E}, A={A}")
-    Bp, Tp = _r16(B), _r16(T)
+    Bp, Tp = r16(B), r16(T)
     bf, f32, i32 = torch.bfloat16, torch.float32, torch.int32
 
     def zeros(n, dtype=f32):
@@ -365,33 +368,27 @@ def _launch(pk, enc, pe, ilens, lo, hi, seed, budget, zoneout, dropout,
         "ilens": ilens.contiguous(), "lo": lo.to(i32).contiguous(),
         "hi": hi.to(i32).contiguous(), "seed": seed_tensor(seed, dev),
         "hx0": zeros(2 * Bp * H, bf), "hx1": zeros(2 * Bp * H, bf),
-        "xa": zeros(Bp * (_r16(E) + _r16(U)), bf),
-        "fa": zeros(Bp * _r16(O), bf), "state": zeros(4 * Bp * H),
-        "q": zeros(Bp * _r16(A)), "e": zeros(B * Tp), "w_cum": w_cum,
+        "xa": zeros(Bp * (r16(E) + r16(U)), bf),
+        "fa": zeros(Bp * r16(O), bf), "state": zeros(4 * Bp * H),
+        "q": zeros(Bp * r16(A)), "e": zeros(B * Tp), "w_cum": w_cum,
         "len": torch.where(hi.to(i32) <= 0, 0, SENT).to(i32).contiguous(),
         "barrier": zeros(1, i32),
         "out": torch.zeros(B, budget, O, device=dev),
         "stop": torch.zeros(B, budget, device=dev),
         "att": torch.zeros(B, budget, T, device=dev) if with_att else None,
         "olens": zeros(B, i32), "steps": zeros(1, i32),
-        "kbits": zeros(2 * Bp * -(-_r16(U) // 32), i32),
+        "kbits": zeros(2 * Bp * -(-r16(U) // 32), i32),
     }
     for name, x in t.items():
         if x is not None and x.device != dev:
             raise ValueError(f"{name} is on {x.device}, expected {dev}")
     ops = dict(pk._asdict(), **t)
-    ptrs = {n: None if ops[n] is None else ops[n].data_ptr() for n in _PTRS}
-    args = _AttnArgs(**ptrs, B=B, T=T, D=budget, E=E, A=A, U=U, O=O, H=H,
-                     taps=pk.taps, zoneout=float(zoneout),
-                     dropout=float(dropout), thr_logit=float(thr_logit))
-    info = _LaunchInfo()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib().attn_decode_launch(ctypes.byref(args),
-                                    ctypes.c_void_p(stream),
-                                    ctypes.byref(info))
-    if err != 0:
-        raise RuntimeError(f"attn_decode launch failed with CUDA error "
-                           f"{err} (B={B}, T={T}, H={H}, grid={info.grid})")
+    args = struct(AttnArgs, **{n: ops[n] for n in _PTRS}, B=B, T=T, D=budget,
+                  E=E, A=A, U=U, O=O, H=H, taps=pk.taps,
+                  zoneout=float(zoneout), dropout=float(dropout),
+                  thr_logit=float(thr_logit))
+    _ATTN.launch(args, device=dev, count=attn_decode,
+                 context=f"B={B}, T={T}, H={H}")
     return {k: t[k] for k in ("out", "stop", "att", "olens", "steps")}
 
 
@@ -415,10 +412,8 @@ def attn_decode(w, enc, pe, ilens, lo, hi, seed, *, budget, zoneout=0.1,
             raise ValueError(f"mixed devices: {name} is not on the card")
     if packed is None:
         packed = pack_attn_weights(w)
-    res = _launch(packed, enc, pe, ilens, lo, hi, seed, budget, zoneout,
-                  dropout, thr_logit, with_att)
-    count_launch(attn_decode)
-    return res
+    return _launch(packed, enc, pe, ilens, lo, hi, seed, budget, zoneout,
+                   dropout, thr_logit, with_att)
 
 
 attn_decode.launches = 0

@@ -18,10 +18,11 @@ weights, 3xTF32 products (within ~1e-6).
 The kernel reads each cell's ``weight_hh`` and ``bias_hh`` as they are
 and puts its slice in fragment order while loading it, so a launch, eager
 or replayed in a CUDA graph, runs the weights as they are then.
-``bilstm_infer.launches`` counts the launches
-(``utils/graphs.py::count_launch``: inside a capture once a replay) and
-the device counter ``blstm.steps`` (``utils/spans.py::count``) adds each
-replay's loop steps, the batch's longest row.
+``bilstm_infer`` launches through ``utils/cuda_build.py``, which fills
+``last_launch`` and counts the launches (``bilstm_infer.launches``: inside
+a capture once a replay), and the device counter ``blstm.steps``
+(``utils/spans.py::count``) adds each replay's loop steps, the batch's
+longest row.
 """
 
 import ctypes
@@ -30,10 +31,9 @@ import torch
 import torch.nn.functional as F
 
 from fcl_taco2_tpu_torch.utils import spans
-from fcl_taco2_tpu_torch.utils.graphs import count_launch
+from fcl_taco2_tpu_torch.utils.cuda_build import KIND, Entry, struct
 
 MAX_UNITS = 256  # hidden units a direction: 8 blocks of 32
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def geometry(H):
@@ -49,7 +49,7 @@ def geometry(H):
 
 def check(params_fwd, params_bwd, xs, lengths):
     """Raise on what the kernel does not take; returns H."""
-    if xs.dtype not in _DTYPES:
+    if xs.dtype not in KIND:
         raise ValueError(f"the BiLSTM kernel takes float32 or bfloat16, not "
                          f"{xs.dtype}")
     if xs.dim() != 3 or xs.shape[0] < 1 or xs.shape[1] < 1:
@@ -83,7 +83,7 @@ def check(params_fwd, params_bwd, xs, lengths):
     return H
 
 
-class _BlstmArgs(ctypes.Structure):
+class BlstmArgs(ctypes.Structure):
     """Mirror of ``struct BlstmArgs`` in csrc/blstm.cu."""
     _fields_ = ([(n, ctypes.c_void_p) for n in
                  ("xf", "xb", "wf", "wb", "bf", "bb", "lens", "out",
@@ -91,27 +91,16 @@ class _BlstmArgs(ctypes.Structure):
                 + [(n, ctypes.c_int) for n in ("B", "T", "H", "UB", "CS")])
 
 
-_INFO = ("grid", "cluster", "units_per_block", "block_threads", "smem_bytes")
-
-
-class _LaunchInfo(ctypes.Structure):
+class BlstmLaunchInfo(ctypes.Structure):
     """Mirror of ``struct BlstmLaunchInfo`` in csrc/blstm.cu."""
-    _fields_ = [(n, ctypes.c_int) for n in _INFO]
+    _fields_ = [(n, ctypes.c_int) for n in ("grid", "cluster",
+                                            "units_per_block",
+                                            "block_threads", "smem_bytes")]
 
 
-last_launch = {}  # the newest launch's _INFO
-
-
-def _lib():
-    from fcl_taco2_tpu_torch.utils.cuda_build import load_library
-    lib = load_library("blstm")
-    if not getattr(lib, "_typed", False):
-        lib.blstm_launch.argtypes = [ctypes.POINTER(_BlstmArgs),
-                                     ctypes.c_int, ctypes.c_void_p,
-                                     ctypes.POINTER(_LaunchInfo)]
-        lib.blstm_launch.restype = ctypes.c_int
-        lib._typed = True
-    return lib
+_BLSTM = Entry.kernel("blstm", "blstm_launch", BlstmArgs, BlstmLaunchInfo,
+                      kind=True)
+last_launch = _BLSTM.last  # the newest launch's BlstmLaunchInfo
 
 
 def bilstm_infer(params_fwd, params_bwd, xs, lengths):
@@ -128,20 +117,11 @@ def bilstm_infer(params_fwd, params_bwd, xs, lengths):
     wf, wb, bf, bb = (t.detach().contiguous() for t in (
         params_fwd.weight_hh, params_bwd.weight_hh, params_fwd.bias_hh,
         params_bwd.bias_hh))
-    args = _BlstmArgs(xf=xf.data_ptr(), xb=xb.data_ptr(),
-                      wf=wf.data_ptr(), wb=wb.data_ptr(), bf=bf.data_ptr(),
-                      bb=bb.data_ptr(), lens=lens.data_ptr(),
-                      out=out.data_ptr(), steps=steps.data_ptr(), B=B, T=T,
-                      H=H, UB=ub, CS=cs)
-    info = _LaunchInfo()
-    stream = torch.cuda.current_stream(xs.device).cuda_stream
-    err = _lib().blstm_launch(ctypes.byref(args), _DTYPES[xs.dtype],
-                              ctypes.c_void_p(stream), ctypes.byref(info))
-    if err != 0:
-        raise RuntimeError(f"blstm launch failed with CUDA error {err} "
-                           f"(B={B}, T={T}, H={H}, grid={info.grid})")
-    last_launch.update({n: getattr(info, n) for n in _INFO})
-    count_launch(bilstm_infer)
+    args = struct(BlstmArgs, xf=xf, xb=xb, wf=wf, wb=wb, bf=bf, bb=bb,
+                  lens=lens, out=out, steps=steps, B=B, T=T, H=H, UB=ub,
+                  CS=cs)
+    _BLSTM.launch(args, KIND[xs.dtype], device=xs.device, count=bilstm_infer,
+                  context=f"B={B}, T={T}, H={H}")
     spans.count("blstm.steps", steps)
     return out
 

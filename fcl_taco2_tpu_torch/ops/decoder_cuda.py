@@ -31,9 +31,9 @@ CUDA graph that draws the seed and launches the kernel replays a fresh
 seed each time (an int is taken too, outside a capture).  The plain
 versions read it on the host.
 
-Each wrapper counts its launches (``fn.launches``) through
-``utils/graphs.py::count_launch``: a launch inside a capture is counted by
-the graph, once per replay.
+Each wrapper launches through ``utils/cuda_build.py``, which fills
+``last_launch`` and counts the wrapper's launches (``fn.launches``): a
+launch inside a capture is counted by the graph, once per replay.
 """
 
 import ctypes
@@ -41,8 +41,10 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from fcl_taco2_tpu_torch.models.components import prenet_dropout
-from fcl_taco2_tpu_torch.utils.graphs import count_launch
+from fcl_taco2_tpu_torch.ops.rnn import prenet_dropout
+from fcl_taco2_tpu_torch.utils.cuda_build import (Entry, operand, r16,
+                                                  seed_tensor, seed_value,
+                                                  struct)
 
 TILE = 128  # rows per ragged step bound; the kernel reads bounds[row // TILE]
 
@@ -280,10 +282,6 @@ _KIDX = {
 }
 
 
-def _r16(x):
-    return -(-x // 16) * 16
-
-
 def _act_dtype(wdt):
     """The type activations are multiplied in: fp32 for fp32 weights,
     bf16 for bf16 weights and int8 codes."""
@@ -322,7 +320,7 @@ def gate_order(w, H, ub):
     cluster of two blocks owns slices 2p and 2p + 1, each block one K
     half of both."""
     K = w.shape[0]
-    Hp = _r16(H)
+    Hp = r16(H)
     out = torch.zeros(K, Hp, 4, dtype=w.dtype, device=w.device)
     out[:, :H] = w.view(K, 4, H).transpose(1, 2)
     return out.reshape(K, 4 * Hp)
@@ -337,7 +335,7 @@ def units_per_block(H, device=None):
     if device is not None and torch.device(device).type == "cuda":
         sms = torch.cuda.get_device_properties(device).multi_processor_count
     for ub in (2, 4, 8):
-        if _r16(H) // ub <= sms:
+        if r16(H) // ub <= sms:
             return ub
     return 8
 
@@ -396,7 +394,7 @@ def pack_decoder_weights(dec_params, idim, weights_dtype, prequant=None,
     wdt = torch.bfloat16 if quantized else weights_dtype
     adt = _act_dtype(wdt)
     H, U, O = w["H"], w["units"], w["odim"]
-    Hp, Up, Op, Ip = _r16(H), _r16(U), _r16(O), _r16(idim)
+    Hp, Up, Op, Ip = r16(H), r16(U), r16(O), r16(idim)
     dev = w["wh0"].device
     ub = units_per_block(H, dev) if ub is None else ub
     if ub not in (2, 4, 8):
@@ -432,7 +430,7 @@ def pack_decoder_weights(dec_params, idim, weights_dtype, prequant=None,
         wx0_pos=w["wx0_pos"].to(wdt).to(f32).contiguous(),
         wh0k=wh0k, wx1k=wx1k, wh1k=wh1k,
         wfk=mat(w["wf_z"], Hp, Op),
-        wx0ek=mat(w["wx0_enc"], Ip, _r16(4 * H)),
+        wx0ek=mat(w["wx0_enc"], Ip, r16(4 * H)),
         wfek=mat(w["wf_enc"], Ip, Op), scales=scales,
         wx0_enc=w["wx0_enc"], wf_enc=w["wf_enc"], **vec)
 
@@ -448,7 +446,7 @@ _PTR_FIELDS = ("enc", "enc_gates", "enc_out", "pos", "bounds", "w1k",
                "seed")
 
 
-class _DecodeArgs(ctypes.Structure):
+class DecodeArgs(ctypes.Structure):
     """Mirror of ``struct DecodeArgs`` in csrc/ar_decode.cu."""
     _fields_ = ([(n, ctypes.c_void_p) for n in _PTR_FIELDS]
                 + [(n, ctypes.c_int) for n in
@@ -457,15 +455,23 @@ class _DecodeArgs(ctypes.Structure):
                 + [("zoneout", ctypes.c_float), ("dropout", ctypes.c_float)])
 
 
-_INFO = ("grid", "block_threads", "units_per_block", "stationary",
-         "smem_bytes", "barriers_per_step", "prologue_barriers", "cluster",
-         "cooperative", "captured")
-
-
-class _LaunchInfo(ctypes.Structure):
+class LaunchInfo(ctypes.Structure):
     """Mirror of ``struct LaunchInfo`` in csrc/ar_decode.cu."""
-    _fields_ = [(n, ctypes.c_int) for n in _INFO]
+    _fields_ = [(n, ctypes.c_int) for n in (
+        "grid", "block_threads", "units_per_block", "stationary",
+        "smem_bytes", "barriers_per_step", "prologue_barriers", "cluster",
+        "cooperative", "captured")]
 
+
+_WKIND = {(torch.float32, torch.float32): 0,
+          (torch.bfloat16, torch.bfloat16): 1,
+          (torch.bfloat16, torch.int8): 2}
+_AR_DECODE = Entry.kernel("ar_decode", "ar_decode_launch", DecodeArgs,
+                          LaunchInfo, kind=True)
+_DROPOUT_MASK = Entry("ar_decode", "dropout_mask_launch",
+                      [ctypes.c_uint, ctypes.c_float, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p])
 
 # The newest launch, as the launcher reported it: grid (blocks),
 # block_threads, units_per_block, stationary (1: weight slices in shared
@@ -474,40 +480,7 @@ class _LaunchInfo(ctypes.Structure):
 # cluster (blocks), cooperative (1: the driver took a cooperative launch
 # with clusters; 0: residency rests on the occupancy check alone),
 # captured (1: the launch went into a CUDA graph capture).
-last_launch = {}
-
-_WKIND = {(torch.float32, torch.float32): 0,
-          (torch.bfloat16, torch.bfloat16): 1,
-          (torch.bfloat16, torch.int8): 2}
-
-
-def _lib():
-    from fcl_taco2_tpu_torch.utils.cuda_build import load_library
-    lib = load_library("ar_decode")
-    if not getattr(lib, "_typed", False):
-        lib.ar_decode_launch.argtypes = [ctypes.POINTER(_DecodeArgs),
-                                         ctypes.c_int, ctypes.c_void_p,
-                                         ctypes.POINTER(_LaunchInfo)]
-        lib.ar_decode_launch.restype = ctypes.c_int
-        lib.dropout_mask_launch.argtypes = [
-            ctypes.c_uint, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-        lib.dropout_mask_launch.restype = ctypes.c_int
-        lib._typed = True
-    return lib
-
-
-def _check(t, name, shape, dtype, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
-    return t
+last_launch = _AR_DECODE.last
 
 
 def _scratch_bytes(pk, P):
@@ -515,43 +488,21 @@ def _scratch_bytes(pk, P):
     activations in their product type (enc, p2, h0 and h1 twice each) and
     fp32 h0, c0, h1, c1, over P rounded up to 32 rows."""
     Pp = -(-P // 32) * 32
-    Hp = _r16(pk.H)
-    n_act = Pp * (_r16(pk.idim) + _r16(pk.units) + 4 * Hp)
+    Hp = r16(pk.H)
+    n_act = Pp * (r16(pk.idim) + r16(pk.units) + 4 * Hp)
     asize = 4 if _act_dtype(pk.wdt) == torch.float32 else 2
     return n_act * asize + 4 * Pp * Hp * 4
 
 
-def seed_value(seed):
-    """The host value of a seed given as an int or a one-element tensor
-    (the plain versions' reading; a host read)."""
-    return int(seed.reshape(-1)[0]) if torch.is_tensor(seed) else int(seed)
-
-
-def seed_tensor(seed, device):
-    """``seed`` as the kernel takes it: a (1,) int32 tensor on ``device``.
-    A tensor passes through (checked); an int becomes one by a copy from
-    the host, which a CUDA graph capture cannot record."""
-    if torch.is_tensor(seed):
-        if tuple(seed.shape) != (1,) or seed.dtype != torch.int32 \
-                or seed.device != device:
-            raise ValueError(f"seed must be a (1,) int32 tensor on {device}, "
-                             f"got {tuple(seed.shape)} {seed.dtype} on "
-                             f"{seed.device}")
-        return seed
-    s = int(seed) & 0xFFFFFFFF
-    return torch.tensor([s - (1 << 32) if s >= 1 << 31 else s],
-                        dtype=torch.int32, device=device)
-
-
 def _launch(pk, *, resident, tensors, P, D, bounds, zoneout, dropout, seed,
-            trace=None):
+            trace=None, count=None):
     """Validate the per-call operands and the pack, allocate the output and
-    scratch, launch.  ``trace``: an int64 tensor of (D + 1) x 7 x 132
-    entries (or more) gets each block's phase times (csrc/ar_decode.cu,
-    ``mark``)."""
+    scratch, launch (counted as a launch of ``count``, the wrapper, when
+    given).  ``trace``: an int64 tensor of (D + 1) x 7 x 132 entries (or
+    more) gets each block's phase times (csrc/ar_decode.cu, ``mark``)."""
     dev = tensors["pos"].device
     H, U, O, I = pk.H, pk.units, pk.odim, pk.idim
-    G, Hp, Up, Op, Ip = 4 * H, _r16(H), _r16(U), _r16(O), _r16(I)
+    G, Hp, Up, Op, Ip = 4 * H, r16(H), r16(U), r16(O), r16(I)
     f32 = torch.float32
 
     def frag(Kp, Np, dtype):
@@ -570,7 +521,7 @@ def _launch(pk, *, resident, tensors, P, D, bounds, zoneout, dropout, seed,
     }
     if resident:
         shapes.update({"enc": ((P, I), f32),
-                       "wx0ek": frag(Ip, _r16(G), pk.wdt),
+                       "wx0ek": frag(Ip, r16(G), pk.wdt),
                        "bx0": ((G,), f32), "wfek": frag(Ip, Op, pk.wdt)})
     if pk.bdt == torch.int8:
         shapes["scales"] = ((3, G), f32)
@@ -578,34 +529,21 @@ def _launch(pk, *, resident, tensors, P, D, bounds, zoneout, dropout, seed,
         shapes["bounds"] = ((-(-P // TILE),), torch.int32)
     ops = dict(pk._asdict(), **tensors, bounds=bounds)
     for name, (shape, dtype) in shapes.items():
-        _check(ops[name], name, shape, dtype, dev)
+        operand(ops[name], name, shape, dtype, dev)
 
     out = torch.empty(P, D, O, dtype=f32, device=dev)
     scratch = torch.empty(_scratch_bytes(pk, P), dtype=torch.uint8,
                           device=dev)
     barrier = torch.zeros(1, dtype=torch.int32, device=dev)
-    seed = seed_tensor(seed, dev)
-    ptrs = {n: ops[n].data_ptr() if n in shapes else None
-            for n in _PTR_FIELDS}
-    ptrs.update(out=out.data_ptr(), scratch=scratch.data_ptr(),
-                barrier=barrier.data_ptr(), seed=seed.data_ptr(),
-                trace=None if trace is None else trace.data_ptr())
-    args = _DecodeArgs(**ptrs, P=P, D=D, idim=I, odim=O, units=U, H=H,
-                       ragged=int(bounds is not None),
-                       resident=int(resident),
-                       quantized=int(pk.bdt == torch.int8),
-                       units_per_block=pk.ub, zoneout=float(zoneout),
-                       dropout=float(dropout))
-    info = _LaunchInfo()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib().ar_decode_launch(ctypes.byref(args),
-                                  _WKIND[(pk.wdt, pk.bdt)],
-                                  ctypes.c_void_p(stream), ctypes.byref(info))
-    if err != 0:
-        raise RuntimeError(f"ar_decode launch failed with CUDA error {err} "
-                           f"(P={P}, H={H}, grid={info.grid})")
-    last_launch.clear()
-    last_launch.update({n: getattr(info, n) for n in _INFO})
+    args = struct(DecodeArgs, **{n: ops[n] for n in shapes}, out=out,
+                  scratch=scratch, barrier=barrier, trace=trace,
+                  seed=seed_tensor(seed, dev), P=P, D=D, idim=I, odim=O,
+                  units=U, H=H, ragged=int(bounds is not None),
+                  resident=int(resident), quantized=int(pk.bdt == torch.int8),
+                  units_per_block=pk.ub, zoneout=float(zoneout),
+                  dropout=float(dropout))
+    _AR_DECODE.launch(args, _WKIND[(pk.wdt, pk.bdt)], device=dev,
+                      count=count, context=f"P={P}, H={H}")
     return out
 
 
@@ -666,10 +604,9 @@ def fused_ar_decode(dec_params, enc_seg, position, seed, *, zoneout=0.1,
                                   device=enc_seg.device),
          "enc_out": torch.empty(P, packed.odim, dtype=f32,
                                 device=enc_seg.device)}
-    out = _launch(packed, resident=True, tensors=t, P=P, D=D, bounds=bounds,
-                  zoneout=zoneout, dropout=dropout, seed=seed)
-    count_launch(fused_ar_decode)
-    return out
+    return _launch(packed, resident=True, tensors=t, P=P, D=D,
+                   bounds=bounds, zoneout=zoneout, dropout=dropout, seed=seed,
+                   count=fused_ar_decode)
 
 
 fused_ar_decode.launches = 0
@@ -707,10 +644,9 @@ def fused_ar_decode_hbm(dec_params, enc_seg, position, seed, *, zoneout=0.1,
     t = {"pos": position.to(torch.float32).contiguous(),
          "enc_gates": enc_gates.contiguous(),
          "enc_out": enc_out.contiguous()}
-    out = _launch(packed, resident=False, tensors=t, P=P, D=D, bounds=bounds,
-                  zoneout=zoneout, dropout=dropout, seed=seed)
-    count_launch(fused_ar_decode_hbm)
-    return out
+    return _launch(packed, resident=False, tensors=t, P=P, D=D,
+                   bounds=bounds, zoneout=zoneout, dropout=dropout, seed=seed,
+                   count=fused_ar_decode_hbm)
 
 
 fused_ar_decode_hbm.launches = 0
@@ -724,11 +660,7 @@ def dropout_keep_mask(seed, rate, rows, units, *, step=0, layer=0,
     out = torch.empty(rows, units, dtype=torch.float32, device=device)
     if not out.is_cuda:
         raise ValueError("dropout_keep_mask runs the CUDA kernel only")
-    stream = torch.cuda.current_stream(out.device).cuda_stream
-    err = _lib().dropout_mask_launch(int(seed) & 0xFFFFFFFF, float(rate),
-                                     rows, units, step, layer,
-                                     ctypes.c_void_p(out.data_ptr()),
-                                     ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"dropout_mask launch failed with CUDA error {err}")
+    _DROPOUT_MASK.launch(int(seed) & 0xFFFFFFFF, float(rate), rows, units,
+                         step, layer, out.data_ptr(), device=out.device,
+                         context=f"{rows} x {units}")
     return out

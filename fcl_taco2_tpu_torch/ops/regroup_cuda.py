@@ -18,9 +18,10 @@ fixed-order parallel reduction (``csrc/regroup.cu`` has the design).
 - ``gather_backward``: the kernel for CUDA tensors, bf16 or fp32 rows of
   whole 16-byte vectors (the widths in use: 80, 256, 512, 1024), and
   ``gather_backward_plain`` for CPU tensors.  There is no fallback: a
-  CUDA tensor launches the kernel or raises.  ``gather_backward.launches``
-  counts its calls on the card (``utils/graphs.py::count_launch``: inside
-  a capture once a replay).
+  CUDA tensor launches the kernel or raises, through
+  ``utils/cuda_build.py``, which fills ``last_launch`` and counts its calls
+  on the card (``gather_backward.launches``: inside a capture once a
+  replay).
 - ``gather_backward_plain``: autograd's own indexing backward,
   ``index_put_`` with accumulation into zeros.
 """
@@ -30,23 +31,31 @@ import math
 
 import torch
 
-from fcl_taco2_tpu_torch.utils.graphs import count_launch
+from fcl_taco2_tpu_torch.utils.cuda_build import KIND, Entry, struct
 
 SENTINEL = 0   # the row every padded position aims at (the plan builders')
 STRIP = 128    # positions a block of the kernel's padding sum
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _lib():
-    from fcl_taco2_tpu_torch.utils.cuda_build import load_library
-    lib = load_library("regroup")
-    if not getattr(lib, "_typed", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.regroup_gather_bwd_launch.argtypes = [
-            p, p, p, i, p, ctypes.c_longlong, i, i, i, i, i, i, p, p, p, p]
-        lib.regroup_gather_bwd_launch.restype = ctypes.c_int
-        lib._typed = True
-    return lib
+class RegroupArgs(ctypes.Structure):
+    """Mirror of ``struct RegroupArgs`` in csrc/regroup.cu."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in
+                 ("g", "idx0", "idx1", "valid", "inv", "partial", "out")]
+                + [("vstride", ctypes.c_longlong)]
+                + [(n, ctypes.c_int) for n in ("stride0", "n", "rows", "cols",
+                                               "sentinel", "strip")])
+
+
+class RegroupLaunchInfo(ctypes.Structure):
+    """Mirror of ``struct RegroupLaunchInfo`` in csrc/regroup.cu."""
+    _fields_ = [(n, ctypes.c_int) for n in (
+        "block_threads", "strips", "col_groups", "write_blocks",
+        "sentinel_blocks")]
+
+
+_GATHER_BWD = Entry.kernel("regroup", "regroup_gather_bwd_launch",
+                           RegroupArgs, RegroupLaunchInfo, kind=True)
+last_launch = _GATHER_BWD.last  # the newest launch's RegroupLaunchInfo
 
 
 def gather_backward_plain(g, indices, valid, lead):
@@ -61,7 +70,7 @@ def gather_backward_plain(g, indices, valid, lead):
 
 
 def _check(g, indices, valid, lead):
-    if g.dtype not in _DTYPES:
+    if g.dtype not in KIND:
         raise ValueError(f"the regroup kernel takes float32 or bfloat16 "
                          f"gradients, not {g.dtype}")
     C = g.shape[-1]
@@ -104,17 +113,13 @@ def gather_backward(g, indices, valid, lead):
     inv = torch.empty(rows, dtype=torch.int32, device=g.device)
     partial = torch.empty((max(strips, 1), C), dtype=torch.float32,
                           device=g.device)
-    stride0 = lead[1] if len(idx) == 2 else 1
-    stream = torch.cuda.current_stream(g.device).cuda_stream
-    err = _lib().regroup_gather_bwd_launch(
-        g2.data_ptr(), idx[0].data_ptr(),
-        idx[1].data_ptr() if len(idx) == 2 else None, stride0,
-        v.data_ptr(), v.stride(0), n, rows, C, SENTINEL, _DTYPES[g.dtype],
-        STRIP, inv.data_ptr(), partial.data_ptr(), out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"regroup_gather_bwd launch failed with CUDA "
-                           f"error {err}")
-    count_launch(gather_backward)
+    two = len(idx) == 2
+    args = struct(RegroupArgs, g=g2, idx0=idx[0], idx1=idx[1] if two else None,
+                  valid=v, inv=inv, partial=partial, out=out,
+                  vstride=v.stride(0), stride0=lead[1] if two else 1, n=n,
+                  rows=rows, cols=C, sentinel=SENTINEL, strip=STRIP)
+    _GATHER_BWD.launch(args, KIND[g.dtype], device=g.device,
+                       count=gather_backward, context=f"{n} x {C} -> {rows}")
     return out.view(*lead, C)
 
 

@@ -42,6 +42,18 @@ def step_seed(base, *path):
     return z >> 1
 
 
+def prenet_dropout(x, rate, generator):
+    """Inverted dropout drawn from ``generator`` (torch ``F.dropout``
+    parity: keep with probability 1-rate, scale kept values by
+    1/(1-rate)); the plain versions' prenet dropout and every train-mode
+    dropout (``models/components.py``)."""
+    if rate <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+        < (1.0 - rate)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
 def zoneout_keep_masks(gen, seed, n, P, H, rate):
     """Keep-old Bernoulli(``rate``) masks (``ops/rnn.py:62-82``) of shape
     (n, P, H), or (*n, P, H) for a tuple ``n``, in one draw from ``gen``,

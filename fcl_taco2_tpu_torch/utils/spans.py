@@ -53,11 +53,15 @@ import ctypes
 import torch
 from torch.profiler import record_function
 
+from fcl_taco2_tpu_torch.utils.cuda_build import Entry
+
 SLOTS = 1 << 16        # int64 slots a device: every graph's stamp and regions
 OTHER = "graph.other"  # a graph's device time outside every span
 
 _buffers = {}  # device index -> _Buffer
 _active = None  # the Capture in progress (set by utils/graphs.py::Graphed)
+_MARK = Entry("spans", "span_mark_launch",
+              [ctypes.c_void_p, ctypes.c_int, ctypes.c_int])
 
 
 class _Buffer:
@@ -68,37 +72,17 @@ class _Buffer:
         self.slots = torch.zeros(SLOTS, dtype=torch.int64, device=device)
         self.used = 1
 
+    def mark(self, last, region):
+        """One mark on the current stream (region -1: none)."""
+        _MARK.launch(self.slots.data_ptr(), last, region,
+                     device=self.slots.device)
+
     def alloc(self):
         if self.used >= SLOTS:
             raise RuntimeError(f"the span buffer's {SLOTS} slots are all "
                                "taken by captured graphs")
         self.used += 1
         return self.used - 1
-
-
-def _lib():
-    from fcl_taco2_tpu_torch.utils.cuda_build import load_library
-    lib = load_library("spans")
-    if not getattr(lib, "_typed", False):
-        lib.span_mark_launch.argtypes = [ctypes.c_void_p, ctypes.c_int,
-                                         ctypes.c_int, ctypes.c_void_p]
-        lib.span_mark_launch.restype = ctypes.c_int
-        lib._typed = True
-    return lib
-
-
-def _launcher(buf):
-    """launch(last, region): one mark on the current stream."""
-    lib, slots = _lib(), buf.slots
-
-    def launch(last, region):
-        stream = torch.cuda.current_stream(slots.device).cuda_stream
-        err = lib.span_mark_launch(ctypes.c_void_p(slots.data_ptr()), last,
-                                   region, ctypes.c_void_p(stream))
-        if err != 0:
-            raise RuntimeError(f"span_mark launch failed with CUDA error "
-                               f"{err}")
-    return launch
 
 
 class Capture:
@@ -186,10 +170,10 @@ def start_capture(device):
     idx = torch.device(device).index or 0
     if idx not in _buffers:
         buf = _Buffer(device)
-        _launcher(buf)(0, -1)
+        buf.mark(0, -1)
         _buffers[idx] = buf
     buf = _buffers[idx]
-    _active = Capture(buf, _launcher(buf))
+    _active = Capture(buf, buf.mark)
     return _active
 
 

@@ -27,7 +27,9 @@ Two entries keep the Pallas names, arguments and trim/pad conventions:
 Both launch ``csrc/pwg_stream.cu`` once per call for CUDA tensors and run
 their plain PyTorch versions (``*_plain``, the same tile-by-tile ring
 algorithm as ``pwg_pallas.py:149-178``) for CPU tensors.  There is no
-fallback: a CUDA tensor launches the kernel or raises.  Inputs, outputs,
+fallback: a CUDA tensor launches the kernel or raises (through
+``utils/cuda_build.py``, which fills ``last_launch`` and counts each
+entry's launches, ``fn.launches``).  Inputs, outputs,
 state and sums are fp32, as the Pallas kernel computes; the kernel runs
 its products on the TF32 tensor cores at fp32 accuracy (3xTF32: each
 operand truncated into TF32 halves, x ~ hi + lo to 2^-20, and
@@ -42,8 +44,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from fcl_taco2_tpu_torch.utils.cuda_build import Entry, operand, struct
 from fcl_taco2_tpu_torch.utils.device import resolve_device
-from fcl_taco2_tpu_torch.utils.graphs import count_launch
 from fcl_taco2_tpu_torch.vocoder.pwg import (PWGConfig, pwg_generate_chunked,
                                              upsample_mel)
 
@@ -280,14 +282,10 @@ _PTR_FIELDS = ("noise", "aux", "w1k", "b1", "w2k", "b2", "first_w",
                "bufs_out", "xbuf", "hbuf", "ring_acc", "pos")
 _INT_FIELDS = ("B", "N", "n_aux", "n_noise", "start", "W", "A", "K1p", "L",
                "delay", "tile", "ra", "sum_bw")
-# what the last launch reported (csrc/pwg_stream.cu::pwg_stream_launch)
-_INFO = ("grid", "block_rows", "block_tiles", "barriers", "groups",
-         "smem_bytes")
-last_launch = {}
 _LAYER_FIELDS = ("dil", "cum", "bw", "buf_off")
 
 
-class _PwgArgs(ctypes.Structure):
+class PwgArgs(ctypes.Structure):
     """Mirror of ``struct PwgArgs`` in csrc/pwg_stream.cu."""
     _fields_ = ([(n, ctypes.c_void_p) for n in _PTR_FIELDS]
                 + [(n, ctypes.c_int) for n in _INT_FIELDS]
@@ -295,17 +293,16 @@ class _PwgArgs(ctypes.Structure):
                 + [(n, ctypes.c_int * MAX_LAYERS) for n in _LAYER_FIELDS])
 
 
-def _lib():
-    from fcl_taco2_tpu_torch.utils.cuda_build import load_library
-    lib = load_library("pwg_stream")
-    if not getattr(lib, "_typed", False):
-        lib.pwg_stream_launch.argtypes = [ctypes.POINTER(_PwgArgs),
-                                          ctypes.c_void_p,
-                                          ctypes.POINTER(ctypes.c_int
-                                                         * len(_INFO))]
-        lib.pwg_stream_launch.restype = ctypes.c_int
-        lib._typed = True
-    return lib
+class PwgLaunchInfo(ctypes.Structure):
+    """Mirror of ``struct PwgLaunchInfo`` in csrc/pwg_stream.cu."""
+    _fields_ = [(n, ctypes.c_int) for n in ("grid", "block_rows",
+                                            "block_tiles", "barriers",
+                                            "groups", "smem_bytes")]
+
+
+_PWG = Entry.kernel("pwg_stream", "pwg_stream_launch", PwgArgs,
+                    PwgLaunchInfo)
+last_launch = _PWG.last  # the newest launch's PwgLaunchInfo
 
 
 def _pow2_at_least(n):
@@ -319,21 +316,9 @@ def kernel_tile(B, N):
     return min(rows, -(-N // 64) * 64)
 
 
-def _operand(t, name, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    t = t.to(torch.float32).contiguous()
-    if t.data_ptr() % 16:
-        t = t.clone()  # the kernel reads rows as 16-byte vectors
-    return t
-
-
-def _launch(packed, cfg, aux, noise, start, W, N, state):
+def _launch(packed, cfg, aux, noise, start, W, N, state, count=None):
     """Validate, allocate the output, the scratch and the state out,
-    launch.
+    launch (counted as a launch of ``count``, the entry, when given).
     aux (B, n_aux, A) covers positions [start, start + n_aux), noise
     (B, n_noise) likewise; both read as zero past their ends.  ``start``
     may be a (2,) int32 tensor ``(start, W)`` on the card (``W`` None),
@@ -367,7 +352,9 @@ def _launch(packed, cfg, aux, noise, start, W, N, state):
         t.update({"ah_in": state["aux_hist"], "acc_in": state["acc"],
                   "bufs_in": torch.cat([b.to(torch.float32)
                                         for b in state["bufs"]], dim=1)})
-    t = {k: _operand(t[k], k, shp, dev) for k, shp in shapes.items()}
+    # the kernel reads rows as 16-byte vectors
+    t = {k: operand(t[k], k, shp, torch.float32, dev, cast=True,
+                    align16=True) for k, shp in shapes.items()}
     if torch.is_tensor(start):
         if W is not None or tuple(start.shape) != (2,) \
                 or start.dtype != torch.int32 or start.device != dev:
@@ -386,24 +373,16 @@ def _launch(packed, cfg, aux, noise, start, W, N, state):
         t["ah_out"] = torch.empty(B, delay, A, **f32)
         t["acc_out"] = torch.empty(B, delay, S, **f32)
         t["bufs_out"] = torch.empty(B, sum_bw, C, **f32)
-    ptrs = {n: (t[n].data_ptr() if n in t else None) for n in _PTR_FIELDS}
     cum = [sum(dils[:i + 1]) for i in range(L)]
     offs = [sum(bws[:i]) for i in range(L)]
     layer = {n: (ctypes.c_int * MAX_LAYERS)(*v)
              for n, v in zip(_LAYER_FIELDS, (dils, cum, bws, offs))}
-    args = _PwgArgs(**ptrs, B=B, N=N, n_aux=n_aux, n_noise=n_noise,
-                    start=int(start), W=int(W), A=A, K1p=K1p, L=L,
-                    delay=delay, tile=tile, ra=ra, sum_bw=sum_bw,
-                    z_scale=math.sqrt(1.0 / L), **layer)
-    info = (ctypes.c_int * len(_INFO))()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib().pwg_stream_launch(ctypes.byref(args),
-                                   ctypes.c_void_p(stream),
-                                   ctypes.byref(info))
-    if err != 0:
-        raise RuntimeError(f"pwg_stream launch failed with CUDA error {err} "
-                           f"(B={B}, N={N}, tile={tile})")
-    last_launch.update(zip(_INFO, info))
+    args = struct(PwgArgs, **t, B=B, N=N, n_aux=n_aux, n_noise=n_noise,
+                  start=int(start), W=int(W), A=A, K1p=K1p, L=L, delay=delay,
+                  tile=tile, ra=ra, sum_bw=sum_bw, z_scale=math.sqrt(1.0 / L),
+                  **layer)
+    _PWG.launch(args, device=dev, count=count,
+                context=f"B={B}, N={N}, tile={tile}")
     new_state = None
     if state is not None:
         new_state = {"aux_hist": t["ah_out"], "acc": t["acc_out"],
@@ -431,8 +410,8 @@ def pwg_generate_streaming(params, cfg: PWGConfig, mel, noise,
     B, W = _check_oneshot(cfg, mel, noise)
     delay = _round8(total_delay(cfg))
     aux = upsample_mel(params, cfg, mel.float())
-    wav, _ = _launch(packed, cfg, aux, noise, 0, W, W + delay, None)
-    count_launch(pwg_generate_streaming)
+    wav, _ = _launch(packed, cfg, aux, noise, 0, W, W + delay, None,
+                     count=pwg_generate_streaming)
     return wav[:, delay:delay + W]
 
 
@@ -469,10 +448,8 @@ def pwg_stream_step(packed, cfg: PWGConfig, state, aux, noise, start,
         return pwg_stream_step_plain(packed, cfg, state, aux, noise, start,
                                      W, tile)
     _check_step(aux, noise, tile)
-    wav, new_state = _launch(packed, cfg, aux, noise, start, W, aux.shape[1],
-                             state)
-    count_launch(pwg_stream_step)
-    return wav, new_state
+    return _launch(packed, cfg, aux, noise, start, W, aux.shape[1], state,
+                   count=pwg_stream_step)
 
 
 pwg_stream_step.launches = 0

@@ -81,6 +81,7 @@ def decoder_rows(model_key, P, reps, iters=ITERS, seed=0):
     """One row a route at (model, P), the routes timed in turns."""
     from fcl_taco2_tpu_torch.models.decoder import decoder_inference
     from fcl_taco2_tpu_torch.ops import decoder_cuda as K
+    from fcl_taco2_tpu_torch.utils.cuda_build import seed_tensor
     model = (teacher if model_key == "teacher" else student)(
         dropout_rate=DROPOUT)
     cfg = model.cfg
@@ -88,7 +89,7 @@ def decoder_rows(model_key, P, reps, iters=ITERS, seed=0):
     dec32 = model.decoder
     dec16 = copy.deepcopy(dec32).to(torch.bfloat16)
     dp = dec32.jax_layout()
-    seed_t = K.seed_tensor(0, torch.device("cuda"))
+    seed_t = seed_tensor(0, torch.device("cuda"))
     calls = {}
     with torch.no_grad():
         for tag, dec, dt in (("scan_fp32", dec32, torch.float32),

@@ -26,7 +26,6 @@ means anything; the other variants must stay within the smoke run's limits.
 Prints one line per measurement, with the card's name and power limit first.
 """
 
-import ctypes
 import os
 import subprocess
 import sys
@@ -106,24 +105,15 @@ def build_variant(name, edits):
         src = src.replace(old, new)
     CB.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu = CB.BUILD_DIR / f"dec_ablation_{name}.cu"
-    so = CB.BUILD_DIR / f"libdec_ablation_{name}.so"
     cu.write_text(src)
-    proc = subprocess.run([CB.nvcc_path(), *CB.NVCC_FLAGS, "-o", str(so),
-                           str(cu)], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {name}:\n{proc.stderr}")
-    spills = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
+    so, log = CB.build(cu)
+    spills = [ln.strip() for ln in log.splitlines()
               if "spill" in ln and not ln.strip().startswith("0 bytes")]
     return so, spills
 
 
 def use_library(path):
-    lib = ctypes.CDLL(str(path))
-    lib.ar_decode_launch.argtypes = [ctypes.POINTER(K._DecodeArgs),
-                                     ctypes.c_int, ctypes.c_void_p,
-                                     ctypes.POINTER(K._LaunchInfo)]
-    lib.ar_decode_launch.restype = ctypes.c_int
-    K._lib = lambda: lib
+    K._AR_DECODE.bind(CB.load_library(path))
 
 
 def case(model, P, ragged, wdt, seed=0):

@@ -22,7 +22,6 @@ Then the committed kernel at other rows per grid-wide phase
 measurement, with the card's name and power limit first.
 """
 
-import ctypes
 import os
 import subprocess
 import sys
@@ -70,22 +69,12 @@ def build_variant(name, edits):
         src = src.replace(old, new)
     CB.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu = CB.BUILD_DIR / f"ablation_{name}.cu"
-    so = CB.BUILD_DIR / f"libablation_{name}.so"
     cu.write_text(src)
-    proc = subprocess.run([CB.nvcc_path(), *CB.NVCC_FLAGS, "-o", str(so),
-                           str(cu)], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {name}:\n{proc.stderr}")
-    return so
+    return CB.build(cu)[0]
 
 
 def use_library(path):
-    lib = ctypes.CDLL(str(path))
-    lib.pwg_stream_launch.argtypes = [
-        ctypes.POINTER(PC._PwgArgs), ctypes.c_void_p,
-        ctypes.POINTER(ctypes.c_int * len(PC._INFO))]
-    lib.pwg_stream_launch.restype = ctypes.c_int
-    PC._lib = lambda: lib
+    PC._PWG.bind(CB.load_library(path))
 
 
 def inputs(pwg, cfg, B, Tm):

@@ -40,6 +40,29 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert not bad, bad
 
 
+KERNEL_SIDE = sorted((REPO / "fcl_taco2_tpu_torch" / "ops").glob("*.py")) \
+    + [REPO / "fcl_taco2_tpu_torch" / "vocoder" / "pwg_cuda.py"]
+
+
+@pytest.mark.parametrize("path", KERNEL_SIDE, ids=lambda p: p.name)
+def test_kernel_side_imports_no_model(path):
+    """The ops and the kernel wrappers sit below the models: no module
+    under ``ops/``, nor ``vocoder/pwg_cuda.py``, imports
+    ``fcl_taco2_tpu_torch.models`` (at module level or in a function)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods = [node.module] + [f"{node.module}.{a.name}"
+                                    for a in node.names]
+        else:
+            continue
+        bad += [m for m in mods if m == "fcl_taco2_tpu_torch.models"
+                or m.startswith("fcl_taco2_tpu_torch.models.")]
+    assert not bad, (path.name, bad)
+
 
 def test_port_shell_scripts_name_no_jax_path():
     """The port's shell scripts (``scripts/torch_*.sh``) run only the

@@ -236,6 +236,205 @@ def test_no_compiler_falls_back_once_and_says_so(monkeypatch, capsys):
 
 
 # --------------------------------------------------------------------------
+# the seam to the native code (utils/cuda_build.py)
+# --------------------------------------------------------------------------
+
+# every struct a kernel entry takes or fills, and its ctypes mirror
+MIRRORS = [
+    ("ar_decode.cu", "DecodeArgs", "ops.decoder_cuda"),
+    ("ar_decode.cu", "LaunchInfo", "ops.decoder_cuda"),
+    ("attn_decode.cu", "AttnArgs", "ops.attn_decode_cuda"),
+    ("attn_decode.cu", "AttnLaunchInfo", "ops.attn_decode_cuda"),
+    ("blstm.cu", "BlstmArgs", "ops.blstm_cuda"),
+    ("blstm.cu", "BlstmLaunchInfo", "ops.blstm_cuda"),
+    ("pwg_stream.cu", "PwgArgs", "vocoder.pwg_cuda"),
+    ("pwg_stream.cu", "PwgLaunchInfo", "vocoder.pwg_cuda"),
+    ("regroup.cu", "RegroupArgs", "ops.regroup_cuda"),
+    ("regroup.cu", "RegroupLaunchInfo", "ops.regroup_cuda"),
+]
+_C_TYPE_WORDS = {"const", "unsigned", "long", "int", "float", "void", "*"}
+
+
+def _csrc():
+    from fcl_taco2_tpu_torch.utils.cuda_build import CSRC
+    return CSRC
+
+
+def _c_struct(text, name):
+    """[(field, C type, array length or None)] of ``struct name`` in a C
+    source: pointers as ``void*``, ``const`` dropped, array lengths
+    through the file's ``#define``s."""
+    import re
+    defines = dict(re.findall(r"#define\s+(\w+)\s+(\d+)", text))
+    body = re.search(r"struct %s \{(.*?)\};" % name, text, re.S).group(1)
+    fields = []
+    for decl in re.sub(r"//[^\n]*", "", body).split(";"):
+        words = decl.replace("*", " * ").replace(",", " , ").split()
+        if not words:
+            continue
+        n = next(i for i, w in enumerate(words)
+                 if w not in _C_TYPE_WORDS and not w.endswith("_t"))
+        kind = [w for w in words[:n] if w != "const"]
+        ctype = "void*" if "*" in kind else " ".join(kind)
+        for item in " ".join(words[n:]).split(","):
+            m = re.fullmatch(r"\s*(\w+)\s*(?:\[\s*(\w+)\s*\])?\s*", item)
+            length = m.group(2)
+            fields.append((m.group(1), ctype, None if length is None
+                           else int(defines.get(length, length))))
+    return fields
+
+
+def _py_struct(cls):
+    import ctypes
+    names = {ctypes.c_void_p: "void*", ctypes.c_int: "int",
+             ctypes.c_float: "float", ctypes.c_longlong: "long long",
+             ctypes.c_uint: "unsigned int"}
+    out = []
+    for field, t in cls._fields_:
+        if issubclass(t, ctypes.Array):
+            out.append((field, names[t._type_], t._length_))
+        else:
+            out.append((field, names[t], None))
+    return out
+
+
+@pytest.mark.parametrize("source,struct,module", MIRRORS,
+                         ids=[m[1] for m in MIRRORS])
+def test_ctypes_mirror_matches_its_c_struct(source, struct, module):
+    """Each ctypes mirror has its C struct's fields: names, C types and
+    array lengths, in order (a mirror that disagrees corrupts memory on
+    the card, silently)."""
+    import importlib
+    mod = importlib.import_module(f"fcl_taco2_tpu_torch.{module}")
+    want = _c_struct((_csrc() / source).read_text(), struct)
+    assert want and _py_struct(getattr(mod, struct)) == want
+
+
+def test_every_kernel_struct_has_a_mirror():
+    """``MIRRORS`` covers every ``*Args`` and launch-info struct under
+    ``csrc/``, and each kernel wrapper's entry takes its pair."""
+    import importlib
+    import re
+    found = {(f.name, m) for f in _csrc().glob("*.cu")
+             for m in re.findall(r"struct (\w*(?:Args|LaunchInfo)) \{",
+                                 f.read_text())}
+    assert found == {(s, n) for s, n, _ in MIRRORS}
+    for source, struct, module in MIRRORS:
+        mod = importlib.import_module(f"fcl_taco2_tpu_torch.{module}")
+        entries = [e for e in vars(mod).values()
+                   if type(e).__name__ == "Entry" and e.info is not None]
+        assert len(entries) == 1 and f"{entries[0].library}.cu" == source
+        assert mod.last_launch is entries[0].last
+        if struct.endswith("Args"):
+            assert entries[0].params[0]._type_ is getattr(mod, struct)
+        else:
+            assert entries[0].info is getattr(mod, struct)
+
+
+class _FakeStream:
+    cuda_stream = 7
+
+
+def test_entry_launch_types_calls_raises_and_counts(monkeypatch):
+    """``Entry.launch``: typed once, the struct by reference, the stream
+    after the arguments, the info cleared and filled, one count a launch;
+    a nonzero code raises with the entry, the error and the context, and
+    neither fills the info nor counts."""
+    import ctypes
+    from fcl_taco2_tpu_torch.ops.blstm_cuda import (BlstmArgs,
+                                                    BlstmLaunchInfo)
+    from fcl_taco2_tpu_torch.utils import cuda_build
+
+    calls = []
+
+    def fake(args, kind, stream, info):
+        a = ctypes.cast(args, ctypes.POINTER(BlstmArgs)).contents
+        calls.append((a.B, kind, stream.value))
+        ctypes.cast(info, ctypes.POINTER(BlstmLaunchInfo)).contents.grid = 5
+        return 0 if a.B > 0 else 700
+
+    class Fn:  # a foreign function's typing attributes over ``fake``
+        def __call__(self, *a):
+            return fake(*a)
+
+    class Lib:
+        blstm_launch = Fn()
+
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda d: _FakeStream)
+
+    def wrapper():
+        pass
+    wrapper.launches = 0
+    e = cuda_build.Entry.kernel("blstm", "blstm_launch", BlstmArgs,
+                                BlstmLaunchInfo, kind=True)
+    e.bind(Lib)
+    assert Lib.blstm_launch.argtypes[-2:] == [ctypes.c_void_p,
+                                              ctypes.POINTER(BlstmLaunchInfo)]
+    e.last["stale"] = 1
+    e.launch(BlstmArgs(B=3), 1, device="cuda:0", count=wrapper)
+    assert calls == [(3, 1, 7)] and wrapper.launches == 1
+    assert e.last["grid"] == 5 and "stale" not in e.last
+    assert set(e.last) == {n for n, _ in BlstmLaunchInfo._fields_}
+    with pytest.raises(RuntimeError, match=r"blstm_launch .*error 700 "
+                                           r"\(B=0"):
+        e.launch(BlstmArgs(B=0), 0, device="cuda:0", count=wrapper,
+                 context="B=0")
+    assert wrapper.launches == 1 and e.last["grid"] == 5
+
+
+def test_operand_checks_and_casts():
+    from fcl_taco2_tpu_torch.utils.cuda_build import operand
+    cpu = torch.device("cpu")
+    t = torch.zeros(4, 6)
+    assert operand(t, "t", (4, 6), torch.float32, cpu) is t
+    for shape, dtype, x, why in (
+            ((4, 5), torch.float32, t, "shape"),
+            ((4, 6), torch.bfloat16, t, "dtype"),
+            ((6, 4), torch.float32, t.t(), "contiguous")):
+        with pytest.raises(ValueError, match=why):
+            operand(x, "t", shape, dtype, cpu)
+    with pytest.raises(ValueError, match="is on"):
+        operand(t, "t", (4, 6), torch.float32, torch.device("meta"))
+    got = operand(t.t().to(torch.float64), "t", (6, 4), torch.float32, cpu,
+                  cast=True, align16=True)
+    assert got.dtype == torch.float32 and got.is_contiguous()
+    odd = torch.zeros(9)[1:]  # 4 bytes past an aligned start
+    assert operand(odd, "t", (8,), torch.float32, cpu,
+                   align16=True).data_ptr() % 16 == 0
+
+
+def test_cached_pack_is_made_again_only_when_a_parameter_changes():
+    from fcl_taco2_tpu_torch.utils.cuda_build import cached_pack
+    owner = torch.nn.Linear(3, 2)
+    made = []
+
+    def pack(tag):
+        return cached_pack(owner, tag, owner.parameters(),
+                           lambda: made.append(tag) or len(made),
+                           extra=(tag,))
+    assert pack("a") == pack("a") == 1 and pack("b") == 2
+    with torch.no_grad():
+        owner.weight.add_(1.0)  # in place: a new version
+    assert pack("a") == 3 and pack("a") == 3 and made == ["a", "b", "a"]
+
+
+def test_seeds_as_the_kernels_and_the_plain_versions_take_them():
+    from fcl_taco2_tpu_torch.utils import cuda_build as CB
+    cpu = torch.device("cpu")
+    s = CB.seed_tensor(2 ** 32 - 5, cpu)
+    assert s.dtype == torch.int32 and int(s) == -5
+    assert CB.seed_tensor(s, cpu) is s and CB.seed_value(s) == -5
+    with pytest.raises(ValueError, match="int32"):
+        CB.seed_tensor(s.to(torch.int64), cpu)
+    gen = CB.make_generator(3, cpu)
+    assert CB.make_generator(gen, cpu) is gen
+    a, b = CB.kernel_seed(3, cpu), CB.kernel_seed(CB.make_generator(3, cpu),
+                                                  cpu)
+    assert a.shape == (1,) and a.dtype == torch.int32 and torch.equal(a, b)
+    assert CB.kernel_seed(s, cpu) is s
+
+
+# --------------------------------------------------------------------------
 # profiler, cost analysis, the refusals
 # --------------------------------------------------------------------------
 

@@ -19,9 +19,9 @@ import torch
 from benchmark import harness, weights
 from benchmark.reference import tacotron2 as ref
 from benchmark.reference.precision import Precision
-from fcl_taco2_tpu_torch.models.attention import initial_weights
 from fcl_taco2_tpu_torch.models.tacotron2 import Tacotron2, Tacotron2Config
 from fcl_taco2_tpu_torch.ops import attn_decode_cuda as K
+from fcl_taco2_tpu_torch.ops.attn_decode_cuda import initial_weights
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CELL = "tacotron2-synth-b16"
